@@ -1,0 +1,13 @@
+from .base import ModelConfig
+# qwen3-0.6b [dense]: qk_norm, GQA 16/8.  [hf:Qwen/Qwen3-8B; hf]
+CONFIG = ModelConfig(
+    name="qwen3-0.6b", family="dense",
+    n_layers=28, d_model=1024, n_heads=16, n_kv_heads=8,
+    d_ff=3072, vocab_size=151936, head_dim=128,
+    qk_norm=True, rope_theta=1e6, tie_embeddings=True,
+)
+SMOKE = ModelConfig(
+    name="qwen3-smoke", family="dense",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+    d_ff=128, vocab_size=256, head_dim=16, qk_norm=True,
+)

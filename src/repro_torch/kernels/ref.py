@@ -1,0 +1,46 @@
+"""Plain PyTorch oracles for the port's kernels, mirroring the paged oracle
+of ``repro/kernels/ref.py``: deliberately naive, fully materialized, fp32
+math.  Tests hold it against the reference's oracle; the plain paged paths
+share its table gather."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _softmax_rows(logits: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis with -inf masks; fully-masked rows -> 0."""
+    p = torch.softmax(logits, dim=-1)
+    return torch.where(torch.isnan(p), torch.zeros_like(p), p)
+
+
+def gather_pool(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """(N, Hkv, bs, D) pool through a (B, M) table -> (B, Hkv, M*bs, D)."""
+    b, m = block_table.shape
+    _, hkv, bs, d = pool.shape
+    x = pool[block_table.long()]                     # (B, M, Hkv, bs, D)
+    return x.permute(0, 2, 1, 3, 4).reshape(b, hkv, m * bs, d)
+
+
+def paged_prefill_attention_ref(q, k_pool, v_pool, block_table, q_start, *,
+                                scale=None, window=None):
+    """Causal chunk attention against a paged KV pool, fully materialized.
+
+    q: (B, Hq, Sq, D) — one prompt chunk per batch row, whose first query
+    sits at absolute position ``q_start[b]``; query ``q_start + i`` attends
+    every pool position ``<= q_start + i`` through the (B, M) table."""
+    b, hq, sq, d = q.shape
+    g = hq // k_pool.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    k = gather_pool(k_pool, block_table).repeat_interleave(g, dim=1).float()
+    v = gather_pool(v_pool, block_table).repeat_interleave(g, dim=1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * scale
+    qpos = q_start[:, None].long() + torch.arange(sq, device=q.device)[None]
+    kpos = torch.arange(k.shape[2], device=q.device)[None, None, :]
+    mask = kpos <= qpos[:, :, None]                  # (B, Sq, M*bs)
+    if window is not None:
+        mask &= kpos > qpos[:, :, None] - window
+    logits = logits.masked_fill(~mask[:, None], float("-inf"))
+    p = _softmax_rows(logits)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)

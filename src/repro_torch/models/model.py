@@ -1,0 +1,60 @@
+"""Family dispatch: the port's ``Model`` API, dense family only.
+
+The counterpart of ``repro/models/model.py``.  A ``Model`` exposes the
+paged-KV serving hooks the engine drives:
+
+  model.init(seed, device=, dtype=)           - parameter dict
+  model.paged_cache_init(batch=, n_blocks=, block_size=, max_blocks=,
+                         dtype=, device=)     - empty block-pool cache
+  model.cache_dtype(params)                   - KV dtype of the pool
+  model.prefill_paged(params, pc, batch, slot, chunk, prefill_len)
+  model.decode_paged(params, pc, tokens)
+
+Other families (moe, vlm, ssm, hybrid, encdec) raise
+``NotImplementedError`` until their slices are ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable
+
+import torch
+
+from .. import resolve_device
+from ..configs.base import ModelConfig
+from . import transformer
+from .layers import init_params, param_count
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    templates: Any
+    paged_cache_init: Callable
+    cache_dtype: Callable
+    prefill_paged: Callable
+    decode_paged: Callable
+
+    def init(self, seed: int = 0, *, device=None, dtype=torch.bfloat16):
+        """Seeded random parameters on ``device`` (``cuda`` by default)."""
+        return init_params(self.templates, seed,
+                           device=resolve_device(device), dtype=dtype)
+
+    @property
+    def n_params(self) -> int:
+        return param_count(self.templates)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
+            "port builds the dense family")
+    return Model(
+        cfg, transformer.decoder_templates(cfg),
+        functools.partial(transformer.decoder_paged_cache_init, cfg),
+        transformer.decoder_cache_dtype,
+        functools.partial(transformer.decoder_prefill_paged, cfg=cfg),
+        functools.partial(transformer.decoder_decode_step_paged, cfg=cfg),
+    )

@@ -1,0 +1,1001 @@
+"""Slot-based continuous-batching serving engine over the paged KV layout.
+
+The port's counterpart of ``repro/serving/engine.py``, paged continuous path
+only.  A fixed pool of ``max_batch`` decode slots shares one global pool of
+fixed-size KV blocks (``repro_torch.serving.kvcache.BlockAllocator``)
+addressed through per-slot block tables.  Both phases run the paged
+attention kernels: a **chunked prefill** admits a prompt in ``block_size``
+chunks, each chunk's K/V written straight into a just-allocated pool block
+and its queries attending over the blocks written so far; decode runs one
+token for every slot per step.  Blocks are allocated lazily as a request's
+position grows and returned the moment it finishes, so admission is
+bounded by *free blocks*, and ``cache_len`` is only the per-request context
+bound (the block table's width).
+
+Admission (``admission=``): ``reserve`` (default) promises a request's
+worst case at admit time, so lazy growth never fails; ``overcommit`` admits
+when one block is free, and growth that finds the pool empty raises
+:class:`~repro_torch.serving.kvcache.PoolPressure` out of ``session_step``
+so an outer scheduler can ``session_preempt`` a victim (its generated
+prefix rides in ``Request.done`` for re-prefill) and retry.
+
+Prefix caching (``prefix_cache=True``): full ``block_size`` spans of a
+finished prefill are registered in the allocator's index under exact chain
+keys; a later admission with the same prefix references the resident
+blocks instead of recomputing them.  A request whose whole prefill is
+covered re-runs its final chunk (its logits seed the first token) behind a
+**copy-on-write** barrier (``_cow_block``).
+
+The reference's jitted, donated calls become direct calls that update the
+cache tensors in place.  Sampling keeps the reference's request-keyed
+contract (``_sample_rows``); greedy rows take the argmax.
+
+Not ported yet (later slices): the dense layout and lockstep scheduler,
+prompt bucketing, ``_replay_done`` (scan families), utilization
+attribution, and sampled (temperature > 0) decoding, which needs JAX's
+threefry streams.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import queue as queue_mod
+import threading
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..models.model import Model
+from . import kvcache
+from .kvcache import BlockAllocator, PoolPressure, blocks_needed
+from .slo import make_policy
+from .telemetry import MONOTONIC, NULL_TRACER, MetricsRegistry
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet")
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request.
+
+    Everything observable about its output is a pure function of
+    (``prompt``, ``max_new_tokens``, ``temperature``, ``rid``, base key):
+    the scheduler may admit, preempt and re-admit it freely.  The remaining
+    fields are scheduler bookkeeping that preemption threads through a
+    requeue."""
+    prompt: list[int]
+    max_new_tokens: int = 32       # total budget, including ``done``
+    temperature: float = 0.0
+    rid: int = 0
+    priority: int = 0              # preemption picks the lowest first
+    # tokens already generated before this (re)admission: set by
+    # session_preempt when a request is re-queued; prefill covers
+    # prompt + done and sampling resumes at stream index len(done)
+    done: tuple = ()
+    # time-to-first-token of the *first* admission, carried across
+    # preemptions so Result.prefill_ms stays the request's real TTFT
+    first_ttft_ms: float | None = None
+    # clock time of the *first* admission, carried across preemptions that
+    # fired before any token was sampled (mid-prefill eviction)
+    first_admit_t: float | None = None
+    # times this request has been preempted
+    requeues: int = 0
+    # SLO budgets (None = best-effort): enqueue -> first token, and decode
+    # ms per output token.  They order scheduling, never the tokens.
+    slo_ttft_ms: float | None = None
+    slo_tpot_ms: float | None = None
+
+
+@dataclasses.dataclass
+class Result:
+    """One request's output: the full generated stream (a preempted
+    request's ``done`` prefix included) plus its latency split."""
+    rid: int
+    tokens: list[int]
+    prefill_ms: float = 0.0        # time-to-first-token for this request
+    decode_ms_per_tok: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenEvent:
+    """One streamed token, emitted the moment it is sampled.  ``index`` is
+    the token's position in the request's full output stream; ``final``
+    marks its last token."""
+    rid: int
+    token: int
+    index: int
+    final: bool
+
+
+def _stream_events(run):
+    """Drive ``run(on_token_callback)`` on a background thread, yielding
+    the :class:`TokenEvent` rows it emits in order.  An exception from the
+    run re-raises out of the generator after the driver thread is
+    joined."""
+    q: queue_mod.SimpleQueue = queue_mod.SimpleQueue()
+
+    def driver():
+        try:
+            run(q.put)
+            q.put(("done", None))
+        except BaseException as e:      # re-raised in the consumer
+            q.put(("error", e))
+
+    t = threading.Thread(target=driver, name="stream-driver", daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if isinstance(item, TokenEvent):
+            yield item
+            continue
+        kind, payload = item
+        t.join()
+        if kind == "error":
+            raise payload
+        return
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """Aggregate metrics for the last ``generate`` call (or session), a
+    view over a :class:`~repro_torch.serving.telemetry.MetricsRegistry`.
+    ``occupancy`` is the fraction of launched decode lanes that held a live
+    request; the ``*_p50/p90/p99`` fields are exact nearest-rank
+    percentiles over the raw samples."""
+    mode: str
+    wall_s: float
+    generated_tokens: int
+    tokens_per_s: float
+    decode_steps: int              # decode launches
+    occupancy: float               # busy slot-steps / (max_batch * steps)
+    ttft_ms_mean: float            # mean time-to-first-token
+    kv_layout: str = "paged"
+    block_util_peak: float = 0.0   # peak live blocks / pool capacity
+    preempted: int = 0             # requests evicted under pool pressure
+    requeued: int = 0              # re-admissions of preempted requests
+    prefix_hits: int = 0           # prompt blocks admitted by reference
+    prefix_tokens_reused: int = 0  # prefill positions skipped via hits
+    ttft_ms_p50: float = 0.0
+    ttft_ms_p90: float = 0.0
+    ttft_ms_p99: float = 0.0
+    tpot_ms_mean: float = 0.0      # time-per-output-token (per request)
+    tpot_ms_p50: float = 0.0
+    tpot_ms_p90: float = 0.0
+    tpot_ms_p99: float = 0.0
+    queue_age_ms_mean: float = 0.0  # enqueue -> admission wait
+    queue_age_ms_p99: float = 0.0
+    sched_policy: str = ""
+    slo_ttft_total: int = 0
+    slo_ttft_attained: int = 0
+    slo_tpot_total: int = 0
+    slo_tpot_attained: int = 0
+    slo_attainment: float = 1.0
+
+    @classmethod
+    def from_registry(cls, m: MetricsRegistry, *, mode: str, wall_s: float,
+                      block_util_peak: float = 0.0,
+                      sched_policy: str = "") -> "EngineStats":
+        ttft = m.histogram("ttft_ms")
+        tpot = m.histogram("tpot_ms")
+        qage = m.histogram("queue_age_ms")
+        gen = m.counter("generated_tokens").n
+        busy = m.counter("busy_slot_steps").n
+        offered = m.counter("offered_slot_steps").n
+        slo_tt = m.counter("slo_ttft_total").n
+        slo_ta = m.counter("slo_ttft_attained").n
+        slo_pt = m.counter("slo_tpot_total").n
+        slo_pa = m.counter("slo_tpot_attained").n
+        return cls(
+            mode, wall_s, gen, gen / max(wall_s, 1e-9),
+            m.counter("decode_steps").n, busy / max(offered, 1), ttft.mean,
+            block_util_peak=block_util_peak,
+            preempted=m.counter("preempted").n,
+            requeued=m.counter("requeued").n,
+            prefix_hits=m.counter("prefix_hits").n,
+            prefix_tokens_reused=m.counter("prefix_tokens_reused").n,
+            ttft_ms_p50=ttft.percentile(50),
+            ttft_ms_p90=ttft.percentile(90),
+            ttft_ms_p99=ttft.percentile(99),
+            tpot_ms_mean=tpot.mean,
+            tpot_ms_p50=tpot.percentile(50),
+            tpot_ms_p90=tpot.percentile(90),
+            tpot_ms_p99=tpot.percentile(99),
+            queue_age_ms_mean=qage.mean,
+            queue_age_ms_p99=qage.percentile(99),
+            sched_policy=sched_policy,
+            slo_ttft_total=slo_tt, slo_ttft_attained=slo_ta,
+            slo_tpot_total=slo_pt, slo_tpot_attained=slo_pa,
+            slo_attainment=((slo_ta + slo_pa) / (slo_tt + slo_pt)
+                            if slo_tt + slo_pt else 1.0))
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Request
+    tag: int                       # caller's result index (``tag`` arg)
+    tokens: list[int]              # tokens generated *this* admission
+    ttft_ms: float
+    admit_seq: int = 0             # global admission order (victim pick)
+    decode_s: float = 0.0
+    steps: int = 0
+    prefill_pos: int = 0           # cache positions the prefill will write
+    blocks: list[int] = dataclasses.field(default_factory=list)
+    reserve_left: int = 0          # worst-case blocks not yet allocated
+    # chunked-prefill progress: chunks completed so far, or None once the
+    # prefill has finished and the first token is sampled
+    chunks_done: int | None = None
+    # prefix cache: blocks[:shared_until] are referenced from the prefix
+    # index (refcounted, read-only for this slot until copy-on-write)
+    shared_until: int = 0
+    admit_t: float = 0.0           # clock time of the *first* admission
+    enqueue_t: float | None = None  # clock time the request was queued
+    span_t0: float = 0.0           # clock time of *this* admission
+    first_tok_t: float = 0.0       # clock time of this admission's first
+    #                                sampled token (decode-stretch start)
+
+
+@dataclasses.dataclass
+class _Session:
+    """Mutable state of one stepwise continuous-batching run; all scalar
+    accounting and latency samples live in ``metrics``."""
+    key: Any                       # base key of request-keyed sampling
+    slots: list
+    toks: np.ndarray               # (B, 1) next-token feed
+    temps: np.ndarray              # (B,) per-slot temperature
+    rids: np.ndarray               # (B,) per-slot request id
+    tok_idx: np.ndarray            # (B,) next sample's stream index
+    metrics: MetricsRegistry
+    t_start: float
+    cache: Any = None
+    admit_counter: int = 0
+    # Results finished during session_step's prefill phase, parked so they
+    # survive a PoolPressure raised later in the same step
+    finished_pending: list = dataclasses.field(default_factory=list)
+    on_token: Any = None
+
+
+def _sample_rows(logits, temps, key, rids, tok_idx) -> np.ndarray:
+    """Per-row sampling over (B, V) logits, request-keyed as in the
+    reference: row ``i``'s draw would use ``fold_in(fold_in(key, rids[i]),
+    tok_idx[i])``, so a stream depends only on (key, rid, token index).
+    Greedy rows (temperature <= 0) take the argmax, the first index on
+    ties as ``jnp.argmax`` does.  Sampled rows need JAX's threefry streams,
+    which arrive with the threefry slice: a torch generator would give a
+    different stream, not the same one."""
+    if np.any(np.asarray(temps) > 0.0):
+        raise _not_ported("sampling at temperature > 0 (bit-exact threefry "
+                          "streams, the threefry slice)")
+    return torch.argmax(logits, dim=-1).cpu().numpy()
+
+
+class ServeEngine:
+    """Batched generation over the port's ``Model`` API, paged KV layout.
+
+    Invariants (asserted port against port in ``tests/test_torch_*``):
+    greedy tokens are independent of slot, step order, preemption and
+    prefix-cache hits; after ``generate`` returns or raises, every block
+    and reservation is back in the pool.
+
+    ``mode`` accepts "auto"/"continuous"; ``kv_layout`` accepts "paged";
+    the dense layout, lockstep and ``bucket`` raise ``NotImplementedError``.
+    block_size / n_blocks size the pool (n_blocks defaults to
+    ``max_batch * cache_len`` positions plus the null block);
+    ``allocator=`` injects an external pool, ``owner=`` tags this engine's
+    allocations in it, ``admission=`` is "reserve" or "overcommit".
+    ``policy`` names a scheduling policy of ``serving.slo.POLICIES``.
+    ``tracer`` / ``clock`` / ``track``: telemetry, host-side only.
+    The device is the parameters' device.
+    """
+
+    def __init__(self, model: Model, params, *, max_batch: int = 8,
+                 cache_len: int = 1024, mode: str = "auto",
+                 kv_layout: str = "paged", block_size: int | None = None,
+                 n_blocks: int | None = None, bucket=None,
+                 allocator: BlockAllocator | None = None,
+                 admission: str = "reserve", owner: Any = 0,
+                 prefix_cache: bool = False, policy="fifo",
+                 tracer=None, clock=None, track: str | None = None):
+        if mode not in ("auto", "continuous"):
+            raise _not_ported(f"mode={mode!r} (the lockstep scheduler)")
+        if kv_layout != "paged":
+            raise _not_ported(f"kv_layout={kv_layout!r} (the dense layout)")
+        if bucket is not None:
+            raise _not_ported("bucket= (prompt bucketing belongs to the "
+                              "dense layout)")
+        if admission not in ("reserve", "overcommit"):
+            raise ValueError(f"admission={admission!r}: expected reserve "
+                             "or overcommit")
+        self.model = model
+        self.params = params
+        self.device = params["embed"]["embedding"].device
+        self.max_batch = max_batch
+        self.cache_len = cache_len
+        self.owner = owner
+        self.tracer = NULL_TRACER
+        self.clock = MONOTONIC
+        self.track = track if track is not None else f"engine{owner}"
+        self.last_metrics = MetricsRegistry()
+        self.mode = "continuous"
+        self.kv_layout = kv_layout
+        self.policy = make_policy(policy)
+        self._admission = admission
+        self.prefix_cache = prefix_cache
+        self.last_stats: EngineStats | None = None
+        self._sess: _Session | None = None
+        if allocator is not None:
+            if n_blocks is not None:
+                raise ValueError("n_blocks conflicts with an external "
+                                 "allocator (the pool is already sized)")
+            if block_size is not None and block_size != allocator.block_size:
+                raise ValueError(
+                    f"block_size={block_size} conflicts with the external "
+                    f"allocator's {allocator.block_size}")
+            self._owns_pool = False
+            block_size = allocator.block_size
+        else:
+            self._owns_pool = True
+            if block_size is None:
+                block_size = 16
+        self.block_size = block_size
+        self.max_blocks = blocks_needed(cache_len, block_size)
+        if allocator is None:
+            if n_blocks is None:
+                n_blocks = max_batch * self.max_blocks + 1
+            allocator = BlockAllocator(n_blocks, block_size)
+        allocator.claim_policy(admission)
+        self.allocator = allocator
+        # device pool kept across sessions (prefix_cache only): cached
+        # blocks' bytes must stay resident to be hit again
+        self._pcache = None
+        if tracer is not None:
+            self.set_tracer(tracer)
+        if clock is not None:
+            self.clock = clock
+
+    # ------------------------------------------------------------------
+    # Telemetry plumbing.
+    # ------------------------------------------------------------------
+
+    def set_tracer(self, tracer, track: str | None = None) -> None:
+        """Attach (or detach, with None) a tracer.  The engine adopts an
+        enabled tracer's clock; an owned pool's allocator follows it."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        if track is not None:
+            self.track = track
+        if self.tracer.enabled:
+            self.clock = self.tracer.clock
+        if self._owns_pool:
+            self.allocator.set_tracer(self.tracer)
+
+    def _slot_track(self, i: int) -> str:
+        return f"{self.track}/slot{i}"
+
+    # ------------------------------------------------------------------
+    # Public API.
+    # ------------------------------------------------------------------
+
+    def generate(self, requests: list[Request], key=None,
+                 on_token=None) -> list[Result]:
+        """Run ``requests`` to completion and return their Results.
+        ``on_token`` streams every sampled token as a :class:`TokenEvent`
+        the moment it exists."""
+        key = key if key is not None else 0
+        requests = list(requests)
+        todo = [(i, r) for i, r in enumerate(requests)
+                if r.max_new_tokens - len(r.done) > 0]
+        if not todo:
+            self.last_metrics = MetricsRegistry()
+            self.last_stats = EngineStats(self.mode, 0.0, 0, 0.0, 0, 0.0,
+                                          0.0)
+            return [Result(r.rid, list(r.done)) for r in requests]
+        # reject impossible requests before any work is scheduled
+        for _, r in todo:
+            self.check_request(r)
+        done = self._generate_continuous(todo, key, on_token)
+        results = [Result(r.rid, list(r.done)) for r in requests]
+        for (i, _), res in zip(todo, done):
+            results[i] = res
+        return results
+
+    def check_request(self, r: Request) -> None:
+        """Reject a request that can never be served: context overflow, a
+        worst case larger than the whole pool, or sampling that is not
+        ported yet."""
+        if r.temperature > 0.0:
+            raise _not_ported(f"request rid={r.rid}: temperature "
+                              f"{r.temperature} (sampled decoding, the "
+                              "threefry slice)")
+        self._check_budget(len(r.prompt) + len(r.done),
+                           r.max_new_tokens - len(r.done), r.rid)
+        worst = self._worst_blocks(r)
+        if worst > self.allocator.capacity:
+            raise ValueError(
+                f"request rid={r.rid} needs {worst} KV blocks "
+                f"(block_size={self.block_size}) but the pool only has "
+                f"{self.allocator.capacity}")
+
+    # ------------------------------------------------------------------
+    # Admission accounting helpers.
+    # ------------------------------------------------------------------
+
+    def _check_budget(self, prefill_pos: int, max_new: int, rid) -> None:
+        """Every position written past prefill must fit the block table's
+        width, ``cache_len``."""
+        writes = prefill_pos + max(max_new - 1, 0)
+        if writes > self.cache_len:
+            raise ValueError(
+                f"request rid={rid} needs {writes} cache positions "
+                f"(prefill {prefill_pos} + {max_new - 1} decode writes) "
+                f"but cache_len={self.cache_len}")
+
+    def _worst_blocks(self, r: Request) -> int:
+        """Worst-case block count for a request (all cache positions it can
+        ever write), computable before prefill runs."""
+        writes = (len(r.prompt) + len(r.done)
+                  + max(r.max_new_tokens - len(r.done) - 1, 0))
+        return blocks_needed(writes, self.block_size)
+
+    def _prefix_hits(self, r: Request) -> tuple[list, bool]:
+        """The longest run of resident full prefix blocks of the request's
+        prefill (prompt + done), as ``([(chain_key, block_id), ...],
+        full_boundary)``.  Pure: no refcount moves until admission."""
+        if not self.prefix_cache:
+            return [], False
+        seq = list(r.prompt) + list(r.done)
+        hits = []
+        for key in kvcache.prefix_chain_keys(seq, self.block_size):
+            blk = self.allocator.lookup(key, self.owner)
+            if blk is None:
+                break
+            hits.append((key, blk))
+        boundary = bool(hits) and len(hits) * self.block_size == len(seq)
+        return hits, boundary
+
+    def _admit_block_need(self, r: Request) -> int:
+        """Blocks a reserve admission must find unreserved-free: the worst
+        case minus blocks admitted by reference, plus one for the
+        full-boundary COW copy, plus one per cached block a hit revives."""
+        hits, boundary = self._prefix_hits(r)
+        n_cached = sum(self.allocator.is_cached(b) for _, b in hits)
+        return (self._worst_blocks(r) - len(hits) + int(boundary)
+                + n_cached)
+
+    # ------------------------------------------------------------------
+    # Stepwise session API.  All session mutators of one engine must be
+    # driven from one thread at a time; only the allocator (its own lock)
+    # and the tracer (locked) may be shared across threads.
+    # ------------------------------------------------------------------
+
+    def begin_session(self, key=None, on_token=None) -> None:
+        """Open a stepwise session; ``on_token`` streams every sampled
+        token as a :class:`TokenEvent`."""
+        if self._sess is not None:
+            raise RuntimeError("a session is already open on this engine")
+        bsz = self.max_batch
+        if self._owns_pool:
+            self.allocator.reset_peak()
+        self._sess = _Session(
+            key=key if key is not None else 0,
+            slots=[None] * bsz,
+            toks=np.zeros((bsz, 1), np.int32),
+            temps=np.zeros((bsz,), np.float32),
+            rids=np.zeros((bsz,), np.int32),
+            tok_idx=np.zeros((bsz,), np.int32),
+            metrics=MetricsRegistry(), t_start=self.clock.now(),
+            on_token=on_token)
+
+    def _require_session(self) -> _Session:
+        if self._sess is None:
+            raise RuntimeError("no session is open on this engine "
+                               "(call begin_session first)")
+        return self._sess
+
+    @property
+    def session_active(self) -> int:
+        """Busy slot count of the open session (0 when none is open)."""
+        if self._sess is None:
+            return 0
+        return sum(s is not None for s in self._sess.slots)
+
+    def session_free_slot(self) -> int | None:
+        for i, s in enumerate(self._sess.slots):
+            if s is None:
+                return i
+        return None
+
+    def session_slots(self):
+        """Live (slot index, slot) pairs - victim scanning."""
+        return [(i, s) for i, s in enumerate(self._sess.slots)
+                if s is not None]
+
+    def session_victims(self, now: float):
+        """Policy-ranked preemption candidates ``(victim_key, slot)``; the
+        minimum key is the preferred victim."""
+        return [(self.policy.victim_key(s.req, s.admit_seq, s.admit_t,
+                                        now), i)
+                for i, s in self.session_slots()]
+
+    def session_backlog(self) -> int:
+        """Outstanding decode tokens across live slots."""
+        return sum(s.req.max_new_tokens - len(s.req.done) - len(s.tokens)
+                   for _, s in self.session_slots())
+
+    def session_can_admit(self, r: Request) -> bool:
+        """Pool-side admission test.  reserve: the pool must cover the
+        request's worst case on top of standing reservations.  overcommit:
+        one block must be free (later growth may raise PoolPressure)."""
+        if self._admission == "overcommit":
+            return self.allocator.n_avail >= 1
+        return self.allocator.n_avail >= self._admit_block_need(r)
+
+    def _emit_token(self, sess: _Session, r: Request, tok: int,
+                    index: int) -> None:
+        if sess.on_token is not None:
+            sess.on_token(TokenEvent(r.rid, tok, index,
+                                     index + 1 >= r.max_new_tokens))
+
+    def _observe_slo_ttft(self, r: Request, slot: int, enqueue_t,
+                          admit_t: float, t1: float) -> None:
+        """Score the first token of a TTFT-budgeted request against its
+        deadline (base: enqueue time, or the first admission of a
+        requeued mid-prefill victim)."""
+        base = r.first_admit_t
+        if base is None:
+            base = enqueue_t if enqueue_t is not None else admit_t
+        att_ms = (t1 - base) * 1e3
+        m = self._sess.metrics
+        m.counter("slo_ttft_total").inc()
+        m.histogram("slo_ttft_slack_ms").observe(r.slo_ttft_ms - att_ms)
+        if att_ms <= r.slo_ttft_ms:
+            m.counter("slo_ttft_attained").inc()
+        elif self.tracer.enabled:
+            self.tracer.complete(self._slot_track(slot), "slo_miss",
+                                 base + r.slo_ttft_ms / 1e3, t1,
+                                 rid=r.rid, phase="ttft",
+                                 over_ms=att_ms - r.slo_ttft_ms)
+
+    def _observe_slo_tpot(self, s: _Slot, per_tok_ms: float) -> None:
+        m = self._sess.metrics
+        m.counter("slo_tpot_total").inc()
+        m.histogram("slo_tpot_slack_ms").observe(
+            s.req.slo_tpot_ms - per_tok_ms)
+        if per_tok_ms <= s.req.slo_tpot_ms:
+            m.counter("slo_tpot_attained").inc()
+        elif self.tracer.enabled:
+            self.tracer.instant(self.track, "slo_miss", rid=s.req.rid,
+                                phase="tpot",
+                                over_ms=per_tok_ms - s.req.slo_tpot_ms)
+
+    def session_admit(self, r: Request, tag: int,
+                      admit_seq: int | None = None,
+                      enqueue_t: float | None = None) -> None:
+        """Admit ``r`` into the first free slot.  Admission installs the
+        request and (under reserve) promises its worst case; the prefill
+        itself runs chunk by chunk inside ``session_step``, allocating each
+        chunk's block lazily.  ``tag`` is echoed back with the Result from
+        ``session_step``; ``admit_seq`` orders admissions for victim
+        selection; ``enqueue_t`` is the clock time the request was queued."""
+        sess = self._require_session()
+        slot = self.session_free_slot()
+        if slot is None:
+            raise RuntimeError("session_admit with no free slot")
+        if admit_seq is None:
+            admit_seq = sess.admit_counter
+        sess.admit_counter = max(sess.admit_counter, admit_seq) + 1
+        t0 = self.clock.now()
+        if enqueue_t is not None:
+            sess.metrics.histogram("queue_age_ms").observe(
+                (t0 - enqueue_t) * 1e3)
+        prefill_pos = len(r.prompt) + len(r.done)
+        self._check_budget(prefill_pos, r.max_new_tokens - len(r.done),
+                           r.rid)
+        if sess.cache is None:
+            if self._pcache is not None:
+                # prefix cache: the previous session's pool is revived so
+                # cached blocks' bytes are still resident
+                sess.cache, self._pcache = self._pcache, None
+            else:
+                sess.cache = self.model.paged_cache_init(
+                    batch=self.max_batch, n_blocks=self.allocator.n_blocks,
+                    block_size=self.block_size, max_blocks=self.max_blocks,
+                    dtype=self.model.cache_dtype(self.params),
+                    device=self.device)
+        # resolve + charge the pool atomically against co-tenant engines
+        with self.allocator.lock:
+            hits, boundary = self._prefix_hits(r)
+            reserve_left = 0
+            if self._admission == "reserve":
+                reserve_left = (self._worst_blocks(r) - len(hits)
+                                + int(boundary))
+                n_cached = sum(self.allocator.is_cached(b)
+                               for _, b in hits)
+                self.allocator.reserve(reserve_left + n_cached)
+            taken: list[int] = []
+            for _, blk in hits:
+                if self.allocator.is_cached(blk):
+                    self.allocator.take_cached(
+                        blk, self.owner,
+                        from_reservation=self._admission == "reserve")
+                else:
+                    self.allocator.incref(blk, self.owner)
+                taken.append(blk)
+        for idx, blk in enumerate(taken):
+            kvcache.bt_set_entry(sess.cache, slot, idx, blk)
+        h = len(taken)
+        # a fully-covered prefill still re-runs its final chunk (its
+        # logits seed the first token) behind the COW barrier
+        chunks_done = h - 1 if boundary else h
+        sess.metrics.counter("prefix_hits").inc(h)
+        sess.metrics.counter("prefix_tokens_reused").inc(
+            chunks_done * self.block_size)
+        if r.done or r.requeues:
+            sess.metrics.counter("requeued").inc()
+        tr = self.tracer
+        if tr.enabled:
+            st = self._slot_track(slot)
+            tr.instant(st, "admit", rid=r.rid, slot=slot,
+                       readmit=bool(r.done or r.requeues), prefix_hits=h,
+                       prefix_tokens=chunks_done * self.block_size)
+            if h:
+                tr.instant("pool", "kv_ref", rid=r.rid, n=h)
+            if r.requeues:
+                tr.flow_end(st, "preempt_flow",
+                            f"preempt-{r.rid}-{r.requeues}")
+        sess.slots[slot] = _Slot(
+            req=r, tag=tag, tokens=[], ttft_ms=0.0, admit_seq=admit_seq,
+            prefill_pos=prefill_pos, reserve_left=reserve_left,
+            blocks=taken, shared_until=h, chunks_done=chunks_done,
+            admit_t=(r.first_admit_t if r.first_admit_t is not None
+                     else t0), enqueue_t=enqueue_t, span_t0=t0)
+        sess.temps[slot] = r.temperature
+        sess.rids[slot] = r.rid
+
+    def session_step(self) -> list[tuple[int, Result]]:
+        """One scheduler step: finish any pending chunked prefills, then
+        one decode launch over the slot pool.  Returns the (tag, Result)
+        pairs that finished this step.  Under overcommit, raises
+        PoolPressure when lazy block growth finds the pool empty; the call
+        can be retried after the caller frees blocks, and resumes a
+        half-prefilled slot at its next chunk."""
+        sess = self._require_session()
+        bsz = self.max_batch
+        for i in range(bsz):
+            s = sess.slots[i]
+            if s is not None and s.chunks_done is not None:
+                res = self._advance_prefill(sess, i, s)
+                if res is not None:     # satisfied by prefill alone
+                    sess.finished_pending.append((s.tag, res))
+                    self._release(s, i)
+                    sess.slots[i] = None
+                    if self.tracer.enabled:
+                        self._trace_finish(s, i, self.clock.now())
+        active = [i for i in range(bsz) if sess.slots[i] is not None]
+        # lazy growth: each slot's next write position needs a block
+        for i in active:
+            s = sess.slots[i]
+            pos = s.prefill_pos + s.steps
+            while len(s.blocks) * self.block_size <= pos:
+                self._grow_slot(sess, i, s)
+        # past the last allocation: nothing below raises PoolPressure
+        finished, sess.finished_pending = sess.finished_pending, []
+        if not active:
+            return finished
+        # one decode step over the whole slot pool (idle rows compute too:
+        # they write into the null block and are never read)
+        tr = self.tracer
+        t0 = self.clock.now()
+        toks = torch.from_numpy(sess.toks).to(self.device)
+        logits, sess.cache = self.model.decode_paged(self.params,
+                                                     sess.cache, toks)
+        # [t0, t_disp] is host dispatch; sampling below waits for the
+        # device, so [t_disp, t1] is device time + sampling + transfer
+        t_disp = self.clock.now()
+        nxt = _sample_rows(logits, sess.temps, sess.key, sess.rids,
+                           sess.tok_idx)
+        t1 = self.clock.now()
+        dt = t1 - t0
+        m = sess.metrics
+        m.counter("decode_steps").inc()
+        m.counter("busy_slot_steps").inc(len(active))
+        m.counter("offered_slot_steps").inc(bsz)
+        m.timeline("occupancy").record(t1, len(active) / bsz)
+        m.timeline("pool_util").record(
+            t1, self.allocator.n_live / max(self.allocator.capacity, 1))
+        if tr.enabled:
+            tr.complete(self.track, "step", t0, t1, active=len(active))
+            tr.complete(self.track, "dispatch", t0, t_disp)
+            tr.complete(self.track, "device", t_disp, t1)
+        for i in active:
+            s = sess.slots[i]
+            s.tokens.append(int(nxt[i]))
+            self._emit_token(sess, s.req, int(nxt[i]),
+                             len(s.req.done) + len(s.tokens) - 1)
+            s.steps += 1
+            s.decode_s += dt
+            sess.toks[i, 0] = nxt[i]
+            sess.tok_idx[i] += 1
+            if len(s.req.done) + len(s.tokens) >= s.req.max_new_tokens:
+                finished.append((s.tag, self._finish(s)))
+                self._release(s, i)
+                sess.slots[i] = None
+                if tr.enabled:
+                    self._trace_finish(s, i, t1)
+        return finished
+
+    def _grow_slot(self, sess: _Session, i: int, s: _Slot) -> None:
+        """Allocate slot ``i``'s next block and install it in the table
+        (lazy growth, shared by prefill chunks and decode writes)."""
+        blk = self._alloc_block(i, from_reservation=s.reserve_left > 0)
+        if s.reserve_left:
+            s.reserve_left -= 1
+        if self.tracer.enabled:
+            self.tracer.instant("pool", "kv_alloc", rid=s.req.rid, n=1,
+                                block=blk)
+        kvcache.bt_set_entry(sess.cache, i, len(s.blocks), blk)
+        s.blocks.append(blk)
+
+    def _alloc_block(self, i: int, *, from_reservation: bool) -> int:
+        """One pool allocation with overcommit pressure translation."""
+        try:
+            return self.allocator.alloc(self.owner,
+                                        from_reservation=from_reservation)
+        except MemoryError as e:
+            if self._admission == "overcommit":
+                if self.tracer.enabled:
+                    self.tracer.instant("pool", "pool_pressure",
+                                        owner=self.owner, slot=i)
+                raise PoolPressure(self.owner, i) from e
+            raise
+
+    def _cow_block(self, sess: _Session, i: int, s: _Slot, c: int) -> None:
+        """Copy-on-write barrier for chunk ``c`` of slot ``i``: if another
+        request also holds ``blocks[c]``, allocate a private block, copy
+        the shared bytes, and swap the table entry; a sole holder rewrites
+        in place (the recompute produces identical bytes).  Resumable: a
+        PoolPressure from the allocation mutates nothing."""
+        old = s.blocks[c]
+        if self.allocator.refcount(old) > 1:
+            blk = self._alloc_block(i, from_reservation=s.reserve_left > 0)
+            if s.reserve_left:
+                s.reserve_left -= 1
+            kvcache.pool_copy_block(sess.cache, blk, old)
+            kvcache.bt_set_entry(sess.cache, i, c, blk)
+            self.allocator.free([old], self.owner)
+            s.blocks[c] = blk
+            if self.tracer.enabled:
+                self.tracer.instant("pool", "kv_cow", rid=s.req.rid,
+                                    alloc=1, freed=1, block=blk)
+        s.shared_until = c
+
+    def _chunk_tokens(self, r: Request, chunk: int) -> torch.Tensor:
+        """(1, block_size) token feed for positions ``[chunk*bs,
+        (chunk+1)*bs)``: prompt + done ids, 0 past them (right pad, masked
+        causally and overwritten as decode proceeds)."""
+        bs = self.block_size
+        seq = list(r.prompt) + list(r.done)
+        toks = np.zeros((1, bs), np.int32)
+        lo, hi = chunk * bs, min((chunk + 1) * bs, len(seq))
+        if hi > lo:
+            toks[0, :hi - lo] = seq[lo:hi]
+        return torch.from_numpy(toks).to(self.device)
+
+    def _advance_prefill(self, sess: _Session, i: int,
+                         s: _Slot) -> Result | None:
+        """Run slot ``i``'s remaining prefill chunks, allocating each
+        chunk's block just before computing it (resumable after
+        PoolPressure).  On completion samples the request's first token;
+        returns the finished Result when the token budget is satisfied by
+        the prefill itself, else None."""
+        r = s.req
+        n_chunks = blocks_needed(s.prefill_pos, self.block_size)
+        logits = None
+        while s.chunks_done < n_chunks:
+            c = s.chunks_done
+            if c < s.shared_until:
+                self._cow_block(sess, i, s, c)  # may raise PoolPressure
+            if len(s.blocks) <= c:
+                self._grow_slot(sess, i, s)     # may raise PoolPressure
+            batch = {"tokens": self._chunk_tokens(r, c)}
+            with self.tracer.span(self._slot_track(i), "chunk",
+                                  rid=r.rid, chunk=c):
+                logits, sess.cache = self.model.prefill_paged(
+                    self.params, sess.cache, batch, i, c, s.prefill_pos)
+            s.chunks_done += 1
+        if self.prefix_cache:
+            # publish every full prompt-prefix block; decode writes always
+            # land past prefill_pos, so registered bytes are prefill output
+            seq = list(r.prompt) + list(r.done)
+            for c, key in enumerate(
+                    kvcache.prefix_chain_keys(seq, self.block_size)):
+                self.allocator.register(key, s.blocks[c], self.owner)
+        tok = int(_sample_rows(logits, np.asarray([r.temperature]),
+                               sess.key, np.asarray([r.rid]),
+                               np.asarray([len(r.done)]))[0])
+        t1 = self.clock.now()
+        ttft_ms = (t1 - s.admit_t) * 1e3
+        if self.tracer.enabled:
+            self.tracer.complete(self._slot_track(i), "prefill",
+                                 s.span_t0, t1, rid=r.rid,
+                                 chunks=n_chunks, tokens=s.prefill_pos)
+        if not r.done:
+            sess.metrics.histogram("ttft_ms").observe(ttft_ms)
+            if r.slo_ttft_ms is not None:
+                self._observe_slo_ttft(r, i, s.enqueue_t, s.admit_t, t1)
+        s.ttft_ms = (r.first_ttft_ms if r.first_ttft_ms is not None
+                     else ttft_ms)
+        s.first_tok_t = t1
+        s.tokens.append(tok)
+        self._emit_token(sess, r, tok, len(r.done))
+        s.chunks_done = None            # prefill complete: decode from here
+        if len(r.done) + 1 >= r.max_new_tokens:
+            return self._finish(s)
+        sess.toks[i, 0] = tok
+        sess.tok_idx[i] = len(r.done) + 1
+        return None
+
+    def session_preempt(self, slot: int) -> tuple[int, Request]:
+        """Evict the request in ``slot``: free its blocks and return
+        ``(tag, requeued request)`` carrying the tokens generated so far in
+        ``done``, so a re-admission reproduces the uninterrupted stream.
+        A slot still mid-prefill is a valid victim."""
+        sess = self._require_session()
+        s = sess.slots[slot]
+        if s is None:
+            raise ValueError(f"slot {slot} is not live")
+        requeued = dataclasses.replace(
+            s.req, done=tuple(s.req.done) + tuple(s.tokens),
+            first_ttft_ms=(s.ttft_ms if s.tokens else s.req.first_ttft_ms),
+            first_admit_t=s.admit_t, requeues=s.req.requeues + 1)
+        tr = self.tracer
+        if tr.enabled:
+            st = self._slot_track(slot)
+            t1 = self.clock.now()
+            if s.steps:
+                tr.complete(st, "decode", s.first_tok_t, t1,
+                            rid=s.req.rid, tokens=s.steps)
+            tr.complete(st, f"req {s.req.rid}", s.span_t0, t1,
+                        rid=s.req.rid, preempted=True)
+            tr.instant(st, "preempt", rid=s.req.rid,
+                       tokens_done=len(requeued.done),
+                       mid_prefill=s.chunks_done is not None)
+            tr.flow_start(st, "preempt_flow",
+                          f"preempt-{s.req.rid}-{requeued.requeues}")
+        self._release(s, slot)
+        sess.slots[slot] = None
+        sess.metrics.counter("preempted").inc()
+        return s.tag, requeued
+
+    def session_abort(self) -> None:
+        """Tear down an open session after a failure, returning any blocks
+        and reservations to the pool."""
+        sess = self._sess
+        if sess is None:
+            return
+        if self.tracer.enabled:
+            for i, s in enumerate(sess.slots):
+                if s is not None:
+                    self.tracer.instant(self._slot_track(i), "abort",
+                                        rid=s.req.rid)
+        for s in sess.slots:
+            if s is not None:
+                if s.blocks:
+                    self.allocator.free(s.blocks, self.owner)
+                self.allocator.unreserve(s.reserve_left)
+        if self.prefix_cache:
+            # the aborted session's pool is not trustworthy: drop it and
+            # de-index everything this engine registered
+            self._pcache = None
+            self.allocator.flush_index(self.owner)
+        self._sess = None
+
+    def end_session(self) -> EngineStats:
+        """Close the session and return its aggregate stats."""
+        sess = self._require_session()
+        if self.session_active:
+            raise RuntimeError("end_session with live slots (drain or "
+                               "preempt them first)")
+        if sess.finished_pending:
+            raise RuntimeError(
+                "end_session with undelivered finished Results (a "
+                "PoolPressure interrupted their step; call session_step "
+                "once more to collect them)")
+        wall = self.clock.now() - sess.t_start
+        stats = EngineStats.from_registry(
+            sess.metrics, mode=self.mode, wall_s=wall,
+            block_util_peak=self.allocator.stats().peak_utilization,
+            sched_policy=self.policy.name)
+        self.last_metrics = sess.metrics
+        if self.prefix_cache:
+            self._pcache = sess.cache
+        self._sess = None
+        return stats
+
+    def _finish(self, s: _Slot) -> Result:
+        per_tok = s.decode_s * 1e3 / max(s.steps, 1)
+        tokens = list(s.req.done) + s.tokens
+        m = self._sess.metrics
+        m.counter("generated_tokens").inc(len(tokens))
+        if s.steps:
+            m.histogram("tpot_ms").observe(per_tok)
+            if s.req.slo_tpot_ms is not None:
+                self._observe_slo_tpot(s, per_tok)
+        return Result(s.req.rid, tokens, s.ttft_ms, per_tok)
+
+    def _trace_finish(self, s: _Slot, i: int, t1: float) -> None:
+        tr = self.tracer
+        st = self._slot_track(i)
+        if s.steps:
+            tr.complete(st, "decode", s.first_tok_t, t1, rid=s.req.rid,
+                        tokens=s.steps)
+        tr.complete(st, f"req {s.req.rid}", s.span_t0, t1, rid=s.req.rid)
+        tr.instant(st, "finish", rid=s.req.rid,
+                   tokens=len(s.req.done) + len(s.tokens))
+
+    def _release(self, s: _Slot, i: int) -> None:
+        """Drop slot ``i``'s block references (an unshared block returns to
+        the pool, a registered last reference parks in the cached LRU) and
+        park its table row on the null block so idle decode writes cannot
+        touch recycled blocks."""
+        if self.tracer.enabled and s.blocks:
+            self.tracer.instant("pool", "kv_free", rid=s.req.rid,
+                                n=len(s.blocks))
+        self.allocator.free(s.blocks, self.owner)
+        self.allocator.unreserve(s.reserve_left)
+        s.blocks, s.reserve_left = [], 0
+        kvcache.slot_release(self._sess.cache, i)
+
+    # ------------------------------------------------------------------
+    # Continuous batching (slot pool + admission scheduler).
+    # ------------------------------------------------------------------
+
+    def stream(self, requests: list[Request], key=None):
+        """Streaming ``generate``: a generator of :class:`TokenEvent` rows
+        as tokens are sampled; the run executes on a background thread and
+        any engine exception re-raises here."""
+        return _stream_events(
+            lambda cb: self.generate(requests, key=key, on_token=cb))
+
+    def _generate_continuous(self, items, key, on_token=None) \
+            -> list[Result]:
+        """items: [(submission order, Request)]; results align with items."""
+        self.begin_session(key, on_token)
+        queue = collections.deque(
+            (seq, order, r) for seq, (order, r) in enumerate(items))
+        results: list[Result | None] = [None] * len(items)
+        try:
+            while queue or self.session_active:
+                # admission: refill every free slot before the next step,
+                # stopping at the first inadmissible pick (no skip-ahead)
+                while queue and self.session_free_slot() is not None:
+                    if self.policy.reorders:
+                        now = self.clock.now()
+                        item = min(queue,
+                                   key=lambda it: self.policy.order_key(
+                                       it[0], it[2], self._sess.t_start,
+                                       now))
+                    else:
+                        item = queue[0]
+                    seq, order, r = item
+                    if not self.session_can_admit(r):
+                        break
+                    queue.remove(item)
+                    self.session_admit(r, tag=seq,
+                                       enqueue_t=self._sess.t_start)
+                if queue and not self.session_active:
+                    raise MemoryError(
+                        f"engine owner={self.owner!r} is idle but the "
+                        f"shared pool cannot admit rid="
+                        f"{queue[0][2].rid} (co-tenants hold "
+                        f"{self.allocator.n_live} blocks, "
+                        f"{self.allocator.n_reserved} reserved)")
+                for tag, res in self.session_step():
+                    results[tag] = res
+        except BaseException:
+            # keep the allocator consistent if anything aborts the batch
+            self.session_abort()
+            raise
+        self.last_stats = self.end_session()
+        return results

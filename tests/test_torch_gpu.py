@@ -1,0 +1,167 @@
+"""The port on the card: the hand-written CUDA kernels against their plain
+PyTorch versions, their input checks and launch counts, and the model and
+engine on CUDA against the same code on the CPU.
+
+Every test here is marked ``gpu`` and skips without a card; the file
+imports no JAX, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.models import build_model
+from repro_torch.serving import Request, ServeEngine
+
+pytestmark = pytest.mark.gpu
+
+BT = np.array([[1, 2, 3, 4], [5, 6, 0, 0], [7, 8, 0, 0]], np.int32)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "interpret mode)")
+    return torch.device("cuda")
+
+
+def _case(seed, lens, *, bs, g, sq, dtype, dev, d=16, hkv=2):
+    rng = np.random.default_rng(seed)
+    kp = rng.standard_normal((9, hkv, bs, d), np.float32)
+    vp = rng.standard_normal((9, hkv, bs, d), np.float32)
+    q = rng.standard_normal((3, hkv * g, sq, d), np.float32)
+    t = [torch.from_numpy(x).to(dev) for x in (q, kp, vp, BT,
+                                              np.asarray(lens, np.int32))]
+    return [x.to(dtype) if x.is_floating_point() else x for x in t]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_kernels_match_plain_with_garbage_planted(cuda, dtype, tol):
+    """Both kernels against their plain versions on the same inputs, with
+    NaN wherever neither may read (masked tails, the null block, blocks
+    past a chunk's frontier); the result must be finite.  fp32 at 1e-5; bf16 at 1e-2 (outputs
+    rounded from fp32: one ulp at |x|~1 is 7.8e-3)."""
+    for lens in ([64, 23, 17], [1, 32, 33], [80, 16, 0]):
+        q, kp, vp, bt, kv = _case(1, lens, bs=16, g=3, sq=1, dtype=dtype,
+                                  dev=cuda)
+        kpn, vpn = kp.clone(), vp.clone()
+        reads_null = False
+        for b, n in enumerate(lens):
+            for col, blk in enumerate(BT[b].tolist()):
+                lo = max(n - col * 16, 0)
+                if blk == 0:
+                    reads_null |= lo > 0
+                elif lo < 16:
+                    kpn[blk, :, lo:], vpn[blk, :, lo:] = float("nan"), \
+                        float("nan")
+        if not reads_null:          # no row's valid range reaches block 0
+            kpn[0], vpn[0] = float("nan"), float("nan")
+        n0 = pa.LAUNCHES["paged_decode_attention"]
+        got = pa.paged_decode_attention_cuda(q, kpn, vpn, bt, kv)
+        assert pa.LAUNCHES["paged_decode_attention"] == n0 + 1
+        want = pa.paged_decode_attention_plain(q, kpn, vpn, bt, kv)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    for starts in ([24, 8, 0], [0, 0, 0], [8, 16, 24]):
+        q, kp, vp, bt, qs = _case(2, starts, bs=8, g=2, sq=8, dtype=dtype,
+                                  dev=cuda)
+        kpn, vpn = kp.clone(), vp.clone()
+        read = {blk for b, start in enumerate(starts)
+                for blk in BT[b, :start // 8 + 1].tolist()}
+        for b, start in enumerate(starts):
+            for blk in set(BT[b, start // 8 + 1:].tolist()) - read:
+                kpn[blk], vpn[blk] = float("nan"), float("nan")
+        n0 = pa.LAUNCHES["paged_prefill_attention"]
+        got = pa.paged_prefill_attention_cuda(q, kpn, vpn, bt, qs)
+        assert pa.LAUNCHES["paged_prefill_attention"] == n0 + 1
+        want = pa.paged_prefill_attention_plain(q, kpn, vpn, bt, qs)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_kernels_reject_what_they_do_not_take(cuda):
+    """Wrong dtypes, a non-contiguous q, a head_dim the kernel cannot tile:
+    raise before any launch, and count none."""
+    q, kp, vp, bt, kv = _case(3, [64, 23, 17], bs=16, g=3, sq=1,
+                              dtype=torch.float32, dev=cuda)
+    before = dict(pa.LAUNCHES)
+    with pytest.raises(TypeError):
+        pa.paged_decode_attention_cuda(q.half(), kp.half(), vp.half(), bt, kv)
+    with pytest.raises(TypeError):
+        pa.paged_decode_attention_cuda(q, kp, vp, bt.long(), kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_decode_attention_cuda(q.transpose(0, 1).contiguous()
+                                       .transpose(0, 1), kp, vp, bt, kv)
+    big = [torch.cat([x] * 18, dim=-1) for x in (q, kp, vp)]  # head_dim 288
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_decode_attention_cuda(*big, bt, kv)
+    assert pa.LAUNCHES == before
+
+
+def _params_on(params, dev):
+    return {k: _params_on(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in params.items()}
+
+
+def test_model_on_card_matches_cpu(cuda):
+    """A narrow fp32 copy of qwen3-0.6b: chunked paged prefill and decode
+    logits through the kernels on the card equal the plain path on the CPU
+    at 1e-4 (fp32, other summation orders)."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
+                              d_model=128, d_ff=256, vocab_size=1000)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    prompt = np.random.default_rng(4).integers(0, 1000, 37).tolist()
+    rows = {}
+    for dev, p in (("cpu", params), (cuda, _params_on(params, cuda))):
+        pc = model.paged_cache_init(batch=2, n_blocks=8, block_size=16,
+                                    max_blocks=4, dtype=torch.float32,
+                                    device=dev)
+        pc["bt"][0] = torch.tensor([3, 1, 6, 2], dtype=torch.int32)
+        out = []
+        for c in range(3):
+            toks = torch.zeros((1, 16), dtype=torch.int32)
+            seg = prompt[c * 16:(c + 1) * 16]
+            toks[0, :len(seg)] = torch.tensor(seg)
+            logits, pc = model.prefill_paged(p, pc, {"tokens": toks.to(dev)},
+                                             0, c, 37)
+            out.append(logits.cpu())
+        for t in (5, 9, 11):
+            feed = torch.tensor([[t], [0]], dtype=torch.int32, device=dev)
+            logits, pc = model.decode_paged(p, pc, feed)
+            out.append(logits[:1].cpu())
+        rows[str(dev)] = torch.cat(out)
+    torch.testing.assert_close(rows["cuda"], rows["cpu"], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_engine_on_card_drains_and_repeats(cuda):
+    """The smoke model served on the card: every request finishes, the
+    pool drains, a repeat run is token-identical, and both kernels ran."""
+    cfg = smoke_config("qwen3-0.6b")
+    model = build_model(cfg)
+    eng = ServeEngine(model, model.init(0, device=cuda), max_batch=2,
+                      cache_len=64, block_size=16)
+    prompts = [list(range(1, 1 + n)) for n in (3, 20, 33)]
+    pa.reset_launches()
+    first = [r.tokens for r in eng.generate(
+        [Request(p, 6, rid=i) for i, p in enumerate(prompts)])]
+    assert pa.LAUNCHES["paged_decode_attention"] == \
+        cfg.n_layers * eng.last_stats.decode_steps > 0
+    assert pa.LAUNCHES["paged_prefill_attention"] == \
+        cfg.n_layers * (1 + 2 + 3)
+    assert eng.allocator.n_live == 0
+    eng.allocator.check_integrity()
+    again = [r.tokens for r in eng.generate(
+        [Request(p, 6, rid=i) for i, p in enumerate(prompts)])]
+    assert first == again and all(len(t) == 6 for t in first)
