@@ -8,20 +8,30 @@ Run from the repository root with one card visible:
 Phases, each of which exits non-zero on failure:
 
 1. device   - the card's name and power limit; no CUDA device -> exit 1;
-2. build    - ``nvcc`` builds every kernel source of the main path, with
-              ``-Xptxas -v`` registers / shared memory / spills;
+2. build    - ``nvcc`` builds every kernel source, one process each, all
+              at once, with ``-Xptxas -v`` registers / shared memory / spills;
 3. parity   - each kernel against its plain PyTorch version on the same
-              inputs at the main path's shapes (bf16, Hq 16, Hkv 8, D 128,
-              bs 16, B 8, M 64), with NaN planted wherever neither may read;
+              inputs.  Paged: the paged path's shapes (bf16, Hq 16, Hkv 8,
+              D 128, bs 16, B 8, M 64), NaN planted wherever neither may
+              read.  Flash: bf16 and fp32, g 2 and 8, causal, non-causal and
+              window 64, Sq = Sk in {7, 128, 900}, Sq < Sk, and Sq > Sk
+              causal (fully masked rows: the mean of V);
 4. timing   - kernel, plain version, one PyTorch library call, and the
               least time the card could take (the bound), in ms;
 5. checks   - the whole model on the card against the plain CPU path: a
               narrow fp32 copy of qwen3-0.6b, and the full-width model;
-6. serve    - the main path: ``ServeEngine(kv_layout="paged")`` serving 8
+6. serve    - the paged path: ``ServeEngine(kv_layout="paged")`` serving 8
               greedy requests with the full qwen3-0.6b config on seeded
               random bf16 weights, with every kernel's launch count read
               just after, the pool drained, and a repeat run token-identical;
-7. profile  - wall and device time of one full-width decode step and one
+7. dense    - the dense path, the engine's default: the same 8 requests
+              served continuous, continuous with ``bucket="pow2"`` and
+              lockstep, each twice (token-identical), 28 flash launches per
+              prefill and no paged launch; first-token logits of dense vs
+              paged within 4% of their scale; then the trace with half its
+              rows sampled at temperature 0.7 (repeat-identical, greedy rows
+              unchanged);
+8. profile  - wall and device time of one full-width decode step and one
               prefill chunk, with the top kernels (torch.profiler).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
@@ -38,6 +48,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-2     # bf16 outputs rounded from fp32: one ulp at |x|~1 is 7.8e-3
+TOL_FP32 = 1e-4    # fp32 outputs, other summation orders
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 B, HQ, HKV, D, BS, M = 8, 16, 8, 128, 16, 64
@@ -46,11 +57,19 @@ IDLE_ROW = 7
 PREFILL_CHUNKS = [0, 1, 63]
 SERVE_PROMPT_LENS = [7, 16, 17, 64, 200, 333, 511, 900]
 SERVE_MAX_NEW = 32
+SAMPLED_TEMPERATURE = 0.7
+FLASH_S = 900          # timing: B = 1, Hq 16, Hkv 8, D 128, causal
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/paged_attention.py:103",
     "paged_prefill_attention": "src/repro/kernels/paged_attention.py:224",
+    "flash_attention": "src/repro/kernels/attention.py:73",
 }
-SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+SOURCES = {
+    "paged_decode_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_prefill_attention":
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+}
 
 
 class SmokeFailure(Exception):
@@ -160,11 +179,11 @@ def prefill_case(torch, gen, dev, chunk):
     return (q, kp, vp, bt, qs), (q, kpn, vpn, bt, qs)
 
 
-def _compare(torch, name, got, want):
+def _compare(torch, name, got, want, tol=TOL):
     err = (got.float() - want.float()).abs().max().item()
     ok = bool(torch.isfinite(got).all()) and torch.allclose(
-        got.float(), want.float(), atol=TOL, rtol=TOL)
-    log(f"parity {name}: max_abs_err={err:.3e} (atol=rtol={TOL}) "
+        got.float(), want.float(), atol=tol, rtol=tol)
+    log(f"parity {name}: max_abs_err={err:.3e} (atol=rtol={tol}) "
         f"{'ok' if ok else 'FAIL'}")
     require(ok, f"{name}: kernel disagrees with its plain version")
     return err
@@ -192,6 +211,52 @@ def phase_parity(torch, pa, dev):
     return errs
 
 
+def flash_cases():
+    """(g, sq, sk, causal, window) of the flash parity phase."""
+    cases = []
+    for g in (2, 8):
+        cases += [(g, s, s, True, None) for s in (7, 128, 900)]
+        cases += [(g, s, s, False, None) for s in (128, 900)]
+        cases += [(g, 900, 900, True, 64), (g, 100, 900, True, None),
+                  (g, 300, 200, True, None)]
+    return cases
+
+
+def _flash_inputs(torch, gen, dev, dtype, g, sq, sk, b=2, hq=HQ):
+    hkv = hq // g
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, hq, sq, D), (b, hkv, sk, D), (b, hkv, sk, D))]
+
+
+def phase_flash_parity(torch, fa, dev):
+    """The flash kernel against its plain version on every case of
+    ``flash_cases`` in bf16 and fp32.  Returns the worst bf16 error (the
+    main path's dtype)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    worst = {}
+    for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, TOL_FP32)):
+        name = str(dtype).split(".")[-1]
+        for g, sq, sk, causal, window in flash_cases():
+            q, k, v = _flash_inputs(torch, gen, dev, dtype, g, sq, sk)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window)
+            want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+            torch.cuda.synchronize()
+            err = _compare(torch, f"flash {name} g={g} Sq={sq} Sk={sk} "
+                           f"causal={causal} window={window}", got, want, tol)
+            worst[name] = max(worst.get(name, 0.0), err)
+            if causal and sq > sk:      # rows 0 .. sq-sk-1 see no key
+                mean_v = v.float().mean(dim=2).repeat_interleave(g, dim=1)
+                empty = got[:, :, :sq - sk].float()
+                require(torch.allclose(empty, mean_v[:, :, None].expand_as(
+                    empty), atol=tol, rtol=tol),
+                    "flash: a fully masked row must be the mean of V")
+    log(f"parity flash worst max_abs_err: {worst}")
+    return worst["bfloat16"]
+
+
 def _sdpa_inputs(torch, pa, q, kp, vp, bt, lens, causal):
     """Dense K/V gathered ahead of time (excluded from the library time)
     and the boolean mask of the same function."""
@@ -208,7 +273,7 @@ def _sdpa_inputs(torch, pa, q, kp, vp, bt, lens, causal):
     return q, k, v, mask
 
 
-def phase_timing(torch, pa, dev):
+def phase_timing(torch, pa, fa, dev):
     """kernel / plain / library / bound, in ms, for each kernel."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev)
@@ -246,13 +311,29 @@ def phase_timing(torch, pa, dev):
             time_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=m), sdpa, 100))),
         **dict(zip(("bound_ms", "bound_by"), bound(pbytes, pflops))))
+    # flash: a 900-token causal prefill, the dense path's longest prompt
+    fgen = torch.Generator(device=dev)
+    fgen.manual_seed(5)
+    fl = [_flash_inputs(torch, fgen, dev, torch.bfloat16, HQ // HKV,
+                        FLASH_S, FLASH_S, b=1) for _ in range(6)]
+    fbytes = sum(x.numel() for x in fl[0]) * 2 + fl[0][0].numel() * 2
+    fflops = 4 * HQ * D * FLASH_S * (FLASH_S + 1) // 2
+    out["flash_attention"] = dict(
+        zip(("ms", "plain_ms", "library_ms"), (
+            time_ms(torch, fa.flash_attention_cuda, fl, 50),
+            time_ms(torch, fa.flash_attention_plain, fl, 10),
+            time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), fl, 50))),
+        **dict(zip(("bound_ms", "bound_by"), bound(fbytes, fflops))))
     for name, t in out.items():
-        shape = ("B=8 kv_len=" + str(DECODE_KV_LENS)
-                 if name == "paged_decode_attention"
-                 else f"B=1 Sq=16 chunk={chunk}")
+        shape = {"paged_decode_attention": "B=8 kv_len="
+                 + str(DECODE_KV_LENS),
+                 "paged_prefill_attention": f"B=1 Sq=16 chunk={chunk}",
+                 "flash_attention": f"B=1 Hq={HQ} Hkv={HKV} D={D} "
+                                    f"S={FLASH_S} causal bf16"}[name]
         log(f"timing {name} ({shape}): kernel_ms={t['ms']:.4f} "
             f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f}"
-            f" (SDPA on pre-gathered dense K/V, gather excluded) "
+            f" (SDPA; paged: on pre-gathered dense K/V, gather excluded) "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
     return out
 
@@ -322,17 +403,29 @@ def phase_checks(torch, cfgs, build_model, dev):
         torch.cuda.empty_cache()
 
 
-def phase_serve(torch, cfgs, build_model, serving, pa, dev, name):
+def serve_prompts(vocab):
     import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, n).tolist() for n in SERVE_PROMPT_LENS]
+
+
+def reset_launches(kernel_modules):
+    for mod in kernel_modules:
+        mod.reset_launches()
+
+
+def read_launches(kernel_modules):
+    return {k: n for mod in kernel_modules for k, n in mod.LAUNCHES.items()}
+
+
+def phase_serve(torch, cfgs, build_model, serving, kmods, dev, name):
     cfg = cfgs.get_config("qwen3-0.6b")
     model = build_model(cfg)
     params = model.init(0, device=dev)
     log(f"serve: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} vocab={cfg.vocab_size} "
         f"params={model.n_params} bf16 on {name}")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in SERVE_PROMPT_LENS]
+    prompts = serve_prompts(cfg.vocab_size)
     n_chunks = sum(math.ceil(n / BS) for n in SERVE_PROMPT_LENS)
     eng = serving.ServeEngine(model, params, kv_layout="paged", max_batch=8,
                               cache_len=1024, block_size=BS)
@@ -342,12 +435,12 @@ def phase_serve(torch, cfgs, build_model, serving, pa, dev, name):
                 for i, p in enumerate(prompts)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        pa.reset_launches()
+        reset_launches(kmods)
         t0 = time.perf_counter()
         results = eng.generate(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(pa.LAUNCHES)
+        launches = read_launches(kmods)
         s = eng.last_stats
         toks = [r.tokens for r in results]
         for r in results:
@@ -371,6 +464,8 @@ def phase_serve(torch, cfgs, build_model, serving, pa, dev, name):
                 == cfg.n_layers * n_chunks,
                 f"prefill kernel launches {launches} != "
                 f"{cfg.n_layers} x {n_chunks} chunks")
+        require(launches["flash_attention"] == 0,
+                f"the paged path launched the flash kernel: {launches}")
         require(eng.allocator.n_live == 0 and eng.allocator.n_reserved == 0,
                 "the block pool did not drain")
         eng.allocator.check_integrity()
@@ -379,6 +474,118 @@ def phase_serve(torch, cfgs, build_model, serving, pa, dev, name):
     require(runs[0][0] == runs[1][0], "a repeat run changed the tokens")
     log("serve: repeat run token-identical")
     return runs[0][1], model, params
+
+
+def _dense_run(torch, serving, kmods, eng, reqs, label, name):
+    """One generate on the card with the counts zeroed just before and read
+    just after; returns (tokens, launches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kmods)
+    s = eng.last_stats
+    toks = [r.tokens for r in results]
+    log(f"dense {label} on {name}: wall_s={wall:.3f} "
+        f"tokens_per_s={s.tokens_per_s:.1f} ttft_ms_mean={s.ttft_ms_mean:.1f}"
+        f" tpot_ms_mean={s.tpot_ms_mean:.2f} decode_steps={s.decode_steps} "
+        f"prefill_shapes={s.prefill_compiles} launches={launches} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    require(all(len(t) == r.max_new_tokens and
+                all(0 <= x < eng.model.cfg.vocab_size for x in t)
+                for t, r in zip(toks, reqs)),
+            f"dense {label}: every request must return max_new_tokens "
+            "in-vocab tokens")
+    return toks, launches
+
+
+def phase_dense(torch, serving, kmods, model, params, dev, name):
+    """The dense path at full width: continuous, bucketed and lockstep
+    serving of the serve trace, each twice; dense vs paged first-token
+    logits; then the sampled trace.  Returns the flash launches of the
+    default (continuous, unbucketed) run."""
+    cfg = model.cfg
+    prompts = serve_prompts(cfg.vocab_size)
+    n = len(prompts)
+    greedy = None
+    main_launches = None
+    for label, kw, prefills in (
+            ("continuous", {}, n),
+            ("continuous bucket=pow2", {"bucket": "pow2"}, n),
+            ("lockstep", {"mode": "lockstep"}, -(-n // 8))):
+        eng = serving.ServeEngine(model, params, max_batch=8, cache_len=1024,
+                                  **kw)
+        runs = []
+        for run in range(2):
+            reqs = [serving.Request(p, SERVE_MAX_NEW, rid=i)
+                    for i, p in enumerate(prompts)]
+            runs.append(_dense_run(torch, serving, kmods, eng, reqs,
+                                   f"{label} run {run}", name))
+            launches = runs[-1][1]
+            require(launches["flash_attention"] == cfg.n_layers * prefills,
+                    f"dense {label}: flash launches {launches} != "
+                    f"{cfg.n_layers} x {prefills} prefills")
+            require(launches["paged_decode_attention"] == 0
+                    and launches["paged_prefill_attention"] == 0,
+                    f"dense {label} launched a paged kernel: {launches}")
+        require(runs[0][0] == runs[1][0],
+                f"dense {label}: a repeat run changed the tokens")
+        log(f"dense {label}: repeat run token-identical")
+        if greedy is None:
+            greedy, main_launches = runs[0]
+        for rid, t in enumerate(runs[0][0]):
+            log(f"dense {label} rid={rid} prompt_len={len(prompts[rid])} "
+                f"tokens={t}")
+
+    # dense vs paged first-token logits: other kernels, other summation
+    # orders, bf16 activations -> 4% of the logits' scale (as phase_checks)
+    pc_kw = dict(n_blocks=65, block_size=BS, max_blocks=64)
+    for p in (prompts[0], prompts[4], prompts[-1]):
+        dense = model.prefill(params, {"tokens": torch.tensor(
+            [p], dtype=torch.int32, device=dev)}, cache_len=1024)[0]
+        paged = _run_path(torch, model, params, pc_kw, p, 0, dev)[-1:]
+        dense = dense.float().cpu()
+        scale = paged.abs().max().item()
+        err = (dense - paged).abs().max().item()
+        ok = bool(torch.isfinite(dense).all()) and err <= 0.04 * scale
+        log(f"dense vs paged first-token logits, prompt_len={len(p)}: "
+            f"max_abs_err={err:.3e} (scale {scale:.3e}, atol "
+            f"{0.04 * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        require(ok, "dense and paged first-token logits disagree")
+
+    # sampled: odd rids at temperature 0.7, even rids greedy
+    eng = serving.ServeEngine(model, params, max_batch=8, cache_len=1024)
+    runs = []
+    for run in range(2):
+        reqs = [serving.Request(p, SERVE_MAX_NEW,
+                                SAMPLED_TEMPERATURE if i % 2 else 0.0, rid=i)
+                for i, p in enumerate(prompts)]
+        runs.append(_dense_run(torch, serving, kmods, eng, reqs,
+                               f"sampled run {run}", name)[0])
+    require(runs[0] == runs[1], "sampled: a repeat run changed the tokens")
+    require(all(runs[0][i] == greedy[i] for i in range(0, n, 2)),
+            "sampled: a greedy row changed beside sampled rows")
+    for rid, t in enumerate(runs[0]):
+        log(f"dense sampled rid={rid} temperature="
+            f"{SAMPLED_TEMPERATURE if rid % 2 else 0.0} tokens={t}")
+    log("dense sampled: repeat run token-identical, greedy rows unchanged")
+    from repro_torch.serving.engine import _sample_rows
+    import numpy as np
+    logits = torch.randn((8, cfg.vocab_size), device=dev) * 4
+    temps = np.full(8, SAMPLED_TEMPERATURE, np.float32)
+    ids = np.arange(8, dtype=np.int32)
+    for _ in range(2):
+        _sample_rows(logits, temps, (0, 0), ids, ids)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        _sample_rows(logits, temps, (0, 0), ids, ids)
+    log(f"dense sampled: threefry sampling of 8 rows x {cfg.vocab_size} "
+        f"logits, host wall ms per step (to tokens on the host): "
+        f"{(time.perf_counter() - t0) / 10 * 1e3:.3f}")
+    return main_launches
 
 
 def _profile(torch, fn, n):
@@ -401,11 +608,12 @@ def _profile(torch, fn, n):
 
 
 def phase_profile(torch, model, params, dev):
-    """Where a decode step and a prefill chunk spend their time at full
-    width: wall ms per call (host clock around synchronized calls), the
-    device's kernel ms per call and busy share from torch.profiler, and the
-    top kernels.  Decode: 8 slots at the serve trace's prompt lengths;
-    prefill: one chunk at position 320 (chunk 20)."""
+    """Where a decode step and a prefill spend their time at full width,
+    paged and dense: wall ms per call (host clock around synchronized
+    calls), the device's kernel ms per call and busy share from
+    torch.profiler, and the top kernels.  Decode: 8 slots at the serve
+    trace's prompt lengths; paged prefill: one chunk at position 320
+    (chunk 20); dense prefill: one 900-token prompt."""
     cfg = model.cfg
     pc = model.paged_cache_init(batch=B, n_blocks=B * M + 1, block_size=BS,
                                 max_blocks=M, dtype=torch.bfloat16,
@@ -423,8 +631,23 @@ def phase_profile(torch, model, params, dev):
     def prefill():
         model.prefill_paged(params, pc, chunk, 0, 20, 21 * BS)
 
-    for name, fn in (("decode step (B=8)", decode),
-                     ("prefill chunk 20 (B=1, 16 tokens)", prefill)):
+    prompt = {"tokens": torch.zeros((1, FLASH_S), dtype=torch.int32,
+                                    device=dev)}
+    dc = model.cache_expand(model.prefill(params, prompt,
+                                          cache_len=1024)[1], B)
+
+    def dense_decode():
+        dc["pos"] = lens.clone()
+        model.decode(params, dc, feed)
+
+    def dense_prefill():
+        model.prefill(params, prompt, cache_len=1024)
+
+    for name, fn in (("paged decode step (B=8)", decode),
+                     ("paged prefill chunk 20 (B=1, 16 tokens)", prefill),
+                     ("dense decode step (B=8)", dense_decode),
+                     (f"dense prefill (B=1, {FLASH_S} tokens)",
+                      dense_prefill)):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -455,6 +678,7 @@ def main() -> int:
     from repro_torch import configs as cfgs
     from repro_torch import resolve_device, serving
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import build_model
 
@@ -465,18 +689,23 @@ def main() -> int:
         name = torch.cuda.get_device_name(0)
         log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__}"
             f" cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
+        kmods = (pa, fa)
         phase_build(build)
         errs = phase_parity(torch, pa, dev)
-        times = phase_timing(torch, pa, dev)
+        errs["flash_attention"] = phase_flash_parity(torch, fa, dev)
+        times = phase_timing(torch, pa, fa, dev)
         phase_checks(torch, cfgs, build_model, dev)
         launches, model, params = phase_serve(torch, cfgs, build_model,
-                                              serving, pa, dev, name)
+                                              serving, kmods, dev, name)
+        launches["flash_attention"] = phase_dense(
+            torch, serving, kmods, model, params, dev, name)[
+                "flash_attention"]
         phase_profile(torch, model, params, dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    kernels = [dict(name=k, route="cuda", source=SOURCE,
+    kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=errs[k], ms=times[k]["ms"],
                     plain_ms=times[k]["plain_ms"],

@@ -9,6 +9,7 @@ from .base import ModelConfig
 
 ARCHS = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "qwen2.5-3b": "qwen2_5_3b",
 }
 
 

@@ -35,6 +35,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every entry point, per source
 SIGNATURES = {
+    "flash_attention.cu": {
+        "repro_flash_attention":
+            (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    },
     "paged_attention.cu": {
         "repro_paged_decode_attention":
             (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -7,21 +7,24 @@ The implementation follows the tensor's device, and nothing else:
 * any other device raises.
 
 There is no environment override and no fallback: a CUDA tensor never
-reaches a plain version through this module.
+reaches a plain version through this module.  ``decode_attention`` has no
+kernel (the reference leaves it to XLA) and is plain PyTorch everywhere.
 """
 from __future__ import annotations
 
+import math
+
+import torch
+
+from .flash_attention import (NEG_INF, flash_attention_cuda,
+                              flash_attention_plain)
 from .paged_attention import (paged_decode_attention_cuda,
                               paged_decode_attention_plain,
                               paged_prefill_attention_cuda,
                               paged_prefill_attention_plain)
 
 
-def _pick(x, plain, cuda, what: str, window):
-    if window is not None:
-        raise NotImplementedError(
-            f"{what}(window={window}): sliding-window paged attention "
-            "(gemma3's local layers) is not ported yet")
+def _pick(x, plain, cuda, what: str):
     kind = x.device.type
     if kind == "cpu":
         return plain
@@ -30,13 +33,52 @@ def _pick(x, plain, cuda, what: str, window):
     raise ValueError(f"{what}: no implementation for device {x.device}")
 
 
+def _no_paged_window(what: str, window) -> None:
+    if window is not None:
+        raise NotImplementedError(
+            f"{what}(window={window}): sliding-window paged attention "
+            "(gemma3's local layers) is not ported yet")
+
+
+def attention(q, k, v, *, causal=True, window=None, scale=None):
+    """Dense full-sequence GQA attention (the flash forward).  q:
+    (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), queries right-aligned to the
+    keys; ``window`` None or >= 1.  Returns (B, Hq, Sq, D)."""
+    fn = _pick(q, flash_attention_plain, flash_attention_cuda, "attention")
+    return fn(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, scale=None,
+                     window=None):
+    """Single-token GQA attention against a dense (B, Hkv, Smax, D) cache;
+    ``kv_len``: (B,) valid lengths (the new token sits at kv_len - 1).
+    Plain PyTorch on every device, as the reference leaves it to XLA
+    (``decode_attention_xla``): masked logits at -1e30, softmax in fp32."""
+    b, hq, _, d = q.shape
+    _, hkv, smax, _ = k_cache.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, hkv, g, d) * scale
+    logits = torch.einsum("bhgd,bhsd->bhgs", qf, k_cache.float())
+    kpos = torch.arange(smax, device=q.device)[None, :]
+    kv = kv_len.long()[:, None]
+    mask = kpos < kv
+    if window is not None:
+        mask &= kpos > kv - 1 - window
+    logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
+    return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_table, kv_len, *,
                            scale=None, window=None):
     """Single-token GQA attention against a paged KV pool via a block
     table.  q: (B, Hq, 1, D); pools: (N, Hkv, bs, D); block_table: (B, M)
     int32; kv_len: (B,) int32.  Returns (B, Hq, 1, D)."""
+    _no_paged_window("paged_decode_attention", window)
     fn = _pick(q, paged_decode_attention_plain, paged_decode_attention_cuda,
-               "paged_decode_attention", window)
+               "paged_decode_attention")
     return fn(q, k_pool, v_pool, block_table, kv_len, scale=scale)
 
 
@@ -45,7 +87,7 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, q_start, *,
     """One prompt chunk's causal attention against a paged KV pool (the
     chunk's K/V must already sit in its block).  q: (B, Hq, Sq, D) at
     absolute positions ``q_start[b] + [0, Sq)``.  Returns (B, Hq, Sq, D)."""
+    _no_paged_window("paged_prefill_attention", window)
     fn = _pick(q, paged_prefill_attention_plain,
-               paged_prefill_attention_cuda, "paged_prefill_attention",
-               window)
+               paged_prefill_attention_cuda, "paged_prefill_attention")
     return fn(q, k_pool, v_pool, block_table, q_start, scale=scale)

@@ -1,7 +1,7 @@
-"""Plain PyTorch oracles for the port's kernels, mirroring the paged oracle
-of ``repro/kernels/ref.py``: deliberately naive, fully materialized, fp32
-math.  Tests hold it against the reference's oracle; the plain paged paths
-share its table gather."""
+"""Plain PyTorch oracles for the port's kernels, mirroring the dense and
+paged attention oracles of ``repro/kernels/ref.py``: deliberately naive,
+fully materialized, fp32 math.  Tests hold them against the reference's
+oracles; the plain paged paths share the table gather."""
 from __future__ import annotations
 
 import math
@@ -13,6 +13,29 @@ def _softmax_rows(logits: torch.Tensor) -> torch.Tensor:
     """Softmax over the last axis with -inf masks; fully-masked rows -> 0."""
     p = torch.softmax(logits, dim=-1)
     return torch.where(torch.isnan(p), torch.zeros_like(p), p)
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, scale=None):
+    """q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D); GQA by head broadcast,
+    queries right-aligned to the keys.  Masks with -inf, so a fully masked
+    row is 0 here (the kernels' finite -1e30 makes it the mean of V)."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    k = k.repeat_interleave(g, dim=1).float()
+    v = v.repeat_interleave(g, dim=1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", _softmax_rows(logits),
+                        v).to(q.dtype)
 
 
 def gather_pool(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,18 @@
-"""Serving launcher of the port: continuous-batching generation on the
-paged KV layout, on the card by default.
+"""Serving launcher of the port: generation through ``ServeEngine`` on the
+card by default.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --prompts "1 2 3" "4 5" --max-new 16
 
-The flags are those of ``repro.launch.serve``.  ``--device`` (default
-``cuda``) picks the device; ``--device cpu --smoke`` runs the plain PyTorch
-path at the smoke size.  Weights are seeded random (``--seed``).  The flags
-of parts not ported yet — ``--kv-layout dense``, ``--mode lockstep``,
-``--replicas > 1``, ``--driver threaded``, ``--bucket``, ``--attribution``
-and ``--temperature > 0`` — stop with "not yet ported".
+The flags are those of ``repro.launch.serve``: ``--mode`` picks the
+scheduler (continuous / lockstep), ``--kv-layout`` the cache layout (dense,
+the default, or paged), ``--bucket`` the dense prefill bucketing and
+``--temperature`` sampled decoding (JAX's threefry streams under the
+reference's default key, seed 0; see ``repro_torch.serving.sampling``).  ``--device``
+(default ``cuda``) picks the device; ``--device cpu --smoke`` runs the
+plain PyTorch path at the smoke size.  Weights are seeded random
+(``--seed``).  The flags of parts not ported yet — ``--replicas > 1``,
+``--driver threaded`` and ``--attribution`` — stop with "not yet ported".
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--mode", default="auto",
                     choices=["auto", "continuous", "lockstep"])
-    ap.add_argument("--kv-layout", default="paged",
+    ap.add_argument("--kv-layout", default="dense",
                     choices=["dense", "paged"])
     ap.add_argument("--admission", default="reserve",
                     choices=["reserve", "overcommit"],
@@ -51,7 +54,9 @@ def main(argv=None):
     ap.add_argument("--n-blocks", type=int, default=None,
                     help="pool size (default: max_batch * cache_len "
                          "positions)")
-    ap.add_argument("--bucket", default=None)
+    ap.add_argument("--bucket", default=None,
+                    help="dense prefill length bucketing: 'pow2' or an "
+                         "integer pad-to-multiple (default: exact lengths)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="admit shared prompt prefixes by referencing "
                          "resident pool blocks (refcounted, "
@@ -77,17 +82,22 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     not_ported = [
-        ("--kv-layout dense", args.kv_layout == "dense"),
-        ("--mode lockstep", args.mode == "lockstep"),
         ("--replicas > 1", args.replicas > 1),
         ("--driver threaded", args.driver != "sequential"),
-        ("--bucket", args.bucket is not None),
         ("--attribution", args.attribution),
-        ("--temperature > 0", args.temperature > 0),
     ]
     for flag, asked in not_ported:
         if asked:
             ap.error(f"{flag}: not yet ported to repro_torch")
+    if args.stream and args.mode == "lockstep":
+        ap.error("--stream needs the continuous scheduler (tokens only "
+                 "exist one group at a time under lockstep)")
+    bucket = args.bucket
+    if bucket is not None and bucket != "pow2":
+        if not bucket.isdigit() or int(bucket) < 1:
+            ap.error(f"--bucket {bucket}: expected 'pow2' or a positive "
+                     "integer")
+        bucket = int(bucket)
 
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -95,7 +105,9 @@ def main(argv=None):
     params = model.init(args.seed, device=device)
     tracer = Tracer() if (args.trace or args.metrics) else None
     eng = ServeEngine(model, params, max_batch=args.max_batch,
-                      cache_len=args.cache_len, block_size=args.block_size,
+                      cache_len=args.cache_len, mode=args.mode,
+                      kv_layout=args.kv_layout, bucket=bucket,
+                      block_size=args.block_size,
                       n_blocks=args.n_blocks, admission=args.admission,
                       prefix_cache=args.prefix_cache, policy=args.policy,
                       tracer=tracer)
@@ -119,9 +131,12 @@ def main(argv=None):
     s = eng.last_stats
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else str(device))
-    extra = (f" prefix_hits={s.prefix_hits}"
-             f" prefix_reused={s.prefix_tokens_reused}"
-             if args.prefix_cache else "")
+    extra = (f" block_util_peak={s.block_util_peak:.2f}"
+             f" preempted={s.preempted} requeued={s.requeued}"
+             if args.kv_layout == "paged" else "")
+    if args.prefix_cache:
+        extra += (f" prefix_hits={s.prefix_hits}"
+                  f" prefix_reused={s.prefix_tokens_reused}")
     if args.slo_ttft is not None or args.slo_tpot is not None:
         extra += (f" policy={s.sched_policy}"
                   f" slo_attainment={s.slo_attainment:.2f}"
@@ -131,8 +146,7 @@ def main(argv=None):
           f"tokens/s={s.tokens_per_s:.1f} "
           f"generated={s.generated_tokens} steps={s.decode_steps} "
           f"occupancy={s.occupancy:.2f} ttft_mean={s.ttft_ms_mean:.1f}ms "
-          f"block_util_peak={s.block_util_peak:.2f} "
-          f"preempted={s.preempted} requeued={s.requeued}{extra}")
+          f"prefill_compiles={s.prefill_compiles}{extra}")
     if args.metrics:
         print(f"[metrics] ttft_ms p50={s.ttft_ms_p50:.1f} "
               f"p90={s.ttft_ms_p90:.1f} p99={s.ttft_ms_p99:.1f} "

@@ -1,14 +1,22 @@
 """Family dispatch: the port's ``Model`` API, dense family only.
 
 The counterpart of ``repro/models/model.py``.  A ``Model`` exposes the
-paged-KV serving hooks the engine drives:
+serving hooks the engine drives, for both KV layouts:
 
   model.init(seed, device=, dtype=)           - parameter dict
+  model.prefill(params, batch, cache_len=)    - (logits, dense cache)
+  model.decode(params, cache, tokens)         - (logits, dense cache)
+  model.cache_expand(sub, batch)              - batch-1 prefill cache ->
+                                                empty B-slot pool
+  model.cache_slot_write(cache, sub, i)       - prefill-on-admit into slot i
   model.paged_cache_init(batch=, n_blocks=, block_size=, max_blocks=,
                          dtype=, device=)     - empty block-pool cache
   model.cache_dtype(params)                   - KV dtype of the pool
   model.prefill_paged(params, pc, batch, slot, chunk, prefill_len)
   model.decode_paged(params, pc, tokens)
+
+``supports_prefill_len``: the prefill takes ``batch["prefill_len"]`` for
+right-padded (bucketed) prompts.
 
 Other families (moe, vlm, ssm, hybrid, encdec) raise
 ``NotImplementedError`` until their slices are ported.
@@ -31,10 +39,15 @@ from .layers import init_params, param_count
 class Model:
     cfg: ModelConfig
     templates: Any
+    prefill: Callable
+    decode: Callable
+    cache_expand: Callable
+    cache_slot_write: Callable
     paged_cache_init: Callable
     cache_dtype: Callable
     prefill_paged: Callable
     decode_paged: Callable
+    supports_prefill_len: bool = True
 
     def init(self, seed: int = 0, *, device=None, dtype=torch.bfloat16):
         """Seeded random parameters on ``device`` (``cuda`` by default)."""
@@ -53,6 +66,10 @@ def build_model(cfg: ModelConfig) -> Model:
             "port builds the dense family")
     return Model(
         cfg, transformer.decoder_templates(cfg),
+        functools.partial(transformer.decoder_prefill, cfg=cfg),
+        functools.partial(transformer.decoder_decode_step, cfg=cfg),
+        transformer.decoder_cache_expand,
+        transformer.decoder_cache_slot_write,
         functools.partial(transformer.decoder_paged_cache_init, cfg),
         transformer.decoder_cache_dtype,
         functools.partial(transformer.decoder_prefill_paged, cfg=cfg),

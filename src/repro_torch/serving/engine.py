@@ -1,16 +1,32 @@
-"""Slot-based continuous-batching serving engine over the paged KV layout.
+"""Slot-based continuous-batching serving engine, dense and paged KV layouts.
 
-The port's counterpart of ``repro/serving/engine.py``, paged continuous path
-only.  A fixed pool of ``max_batch`` decode slots shares one global pool of
-fixed-size KV blocks (``repro_torch.serving.kvcache.BlockAllocator``)
-addressed through per-slot block tables.  Both phases run the paged
-attention kernels: a **chunked prefill** admits a prompt in ``block_size``
-chunks, each chunk's K/V written straight into a just-allocated pool block
-and its queries attending over the blocks written so far; decode runs one
-token for every slot per step.  Blocks are allocated lazily as a request's
-position grows and returned the moment it finishes, so admission is
-bounded by *free blocks*, and ``cache_len`` is only the per-request context
-bound (the block table's width).
+The port's counterpart of ``repro/serving/engine.py``.  Two schedulers
+(``mode``): ``continuous`` (the default) keeps a fixed pool of
+``max_batch`` decode slots and admits a queued request into a freed slot
+at once; ``lockstep`` runs requests in groups of ``max_batch`` (left-padded
+batched prefill, the group decoding in step until its longest member is
+done), the baseline the reference keeps beside it.
+
+Two KV layouts (``kv_layout``):
+
+* ``dense`` (default) - every slot owns a full ``(Hkv, cache_len, D)``
+  strip per layer.  A prompt is prefilled on admission through the flash
+  attention kernel and written into its slot (``model.cache_slot_write``);
+  decode attends over each slot's strip up to its own position.  With
+  ``bucket="pow2"`` (or an integer multiple) prompts are right-padded to
+  the bucket and the true length rides in ``batch["prefill_len"]``, so
+  outputs are unchanged and the number of distinct prefill shapes
+  (``EngineStats.prefill_compiles``) drops to one per bucket.
+* ``paged`` - one global pool of fixed-size KV blocks
+  (``repro_torch.serving.kvcache.BlockAllocator``) addressed through
+  per-slot block tables.  Both phases run the paged attention kernels: a
+  **chunked prefill** admits a prompt in ``block_size`` chunks, each
+  chunk's K/V written straight into a just-allocated pool block and its
+  queries attending over the blocks written so far; decode runs one token
+  for every slot per step.  Blocks are allocated lazily as a request's
+  position grows and returned the moment it finishes, so admission is
+  bounded by *free blocks*, and ``cache_len`` is only the per-request
+  context bound (the block table's width).
 
 Admission (``admission=``): ``reserve`` (default) promises a request's
 worst case at admit time, so lazy growth never fails; ``overcommit`` admits
@@ -28,12 +44,11 @@ covered re-runs its final chunk (its logits seed the first token) behind a
 
 The reference's jitted, donated calls become direct calls that update the
 cache tensors in place.  Sampling keeps the reference's request-keyed
-contract (``_sample_rows``); greedy rows take the argmax.
+contract (``_sample_rows``): greedy rows take the argmax, sampled rows draw
+JAX's threefry streams bit for bit (``serving.sampling``).
 
-Not ported yet (later slices): the dense layout and lockstep scheduler,
-prompt bucketing, ``_replay_done`` (scan families), utilization
-attribution, and sampled (temperature > 0) decoding, which needs JAX's
-threefry streams.
+Not ported yet (later slices): ``_replay_done`` (scan families),
+``extra_inputs`` (vlm / encdec) and utilization attribution.
 """
 from __future__ import annotations
 
@@ -47,14 +62,10 @@ import numpy as np
 import torch
 
 from ..models.model import Model
-from . import kvcache
+from . import kvcache, sampling
 from .kvcache import BlockAllocator, PoolPressure, blocks_needed
 from .slo import make_policy
 from .telemetry import MONOTONIC, NULL_TRACER, MetricsRegistry
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
 
 @dataclasses.dataclass
@@ -152,8 +163,9 @@ class EngineStats:
     decode_steps: int              # decode launches
     occupancy: float               # busy slot-steps / (max_batch * steps)
     ttft_ms_mean: float            # mean time-to-first-token
-    kv_layout: str = "paged"
-    block_util_peak: float = 0.0   # peak live blocks / pool capacity
+    kv_layout: str = "dense"
+    prefill_compiles: int = 0      # distinct prefill shapes run so far
+    block_util_peak: float = 0.0   # paged: peak live blocks / pool capacity
     preempted: int = 0             # requests evicted under pool pressure
     requeued: int = 0              # re-admissions of preempted requests
     prefix_hits: int = 0           # prompt blocks admitted by reference
@@ -176,6 +188,7 @@ class EngineStats:
 
     @classmethod
     def from_registry(cls, m: MetricsRegistry, *, mode: str, wall_s: float,
+                      kv_layout: str = "dense", prefill_compiles: int = 0,
                       block_util_peak: float = 0.0,
                       sched_policy: str = "") -> "EngineStats":
         ttft = m.histogram("ttft_ms")
@@ -191,6 +204,7 @@ class EngineStats:
         return cls(
             mode, wall_s, gen, gen / max(wall_s, 1e-9),
             m.counter("decode_steps").n, busy / max(offered, 1), ttft.mean,
+            kv_layout=kv_layout, prefill_compiles=prefill_compiles,
             block_util_peak=block_util_peak,
             preempted=m.counter("preempted").n,
             requeued=m.counter("requeued").n,
@@ -241,7 +255,7 @@ class _Slot:
 class _Session:
     """Mutable state of one stepwise continuous-batching run; all scalar
     accounting and latency samples live in ``metrics``."""
-    key: Any                       # base key of request-keyed sampling
+    key: Any                       # base key (two uint32 words)
     slots: list
     toks: np.ndarray               # (B, 1) next-token feed
     temps: np.ndarray              # (B,) per-slot temperature
@@ -258,33 +272,46 @@ class _Session:
 
 
 def _sample_rows(logits, temps, key, rids, tok_idx) -> np.ndarray:
-    """Per-row sampling over (B, V) logits, request-keyed as in the
-    reference: row ``i``'s draw would use ``fold_in(fold_in(key, rids[i]),
-    tok_idx[i])``, so a stream depends only on (key, rid, token index).
-    Greedy rows (temperature <= 0) take the argmax, the first index on
-    ties as ``jnp.argmax`` does.  Sampled rows need JAX's threefry streams,
-    which arrive with the threefry slice: a torch generator would give a
-    different stream, not the same one."""
-    if np.any(np.asarray(temps) > 0.0):
-        raise _not_ported("sampling at temperature > 0 (bit-exact threefry "
-                          "streams, the threefry slice)")
-    return torch.argmax(logits, dim=-1).cpu().numpy()
+    """Per-row temperature sampling over (B, V) logits, request-keyed as in
+    the reference: row ``i`` draws with ``fold_in(fold_in(key, rids[i]),
+    tok_idx[i])``, so a stream depends only on (key, rid, token index) -
+    never on slot, step order or batch.  Greedy rows (temperature <= 0)
+    take the argmax, the first index on ties as ``jnp.argmax`` does;
+    sampled rows draw ``categorical(logits / temperature)`` on JAX's
+    threefry streams (``serving.sampling``).  ``temps``, ``rids`` and
+    ``tok_idx`` are host arrays of B entries; returns B tokens."""
+    out = torch.argmax(logits, dim=-1)
+    hot = np.flatnonzero(np.asarray(temps) > 0.0)
+    if hot.size:
+        dev = logits.device
+
+        def rows(a, dtype):
+            return torch.from_numpy(np.asarray(a)[hot].astype(dtype)).to(dev)
+        keys = sampling.fold_in(sampling.fold_in(key, rows(rids, np.int64)),
+                                rows(tok_idx, np.int64))
+        safe = torch.clamp_min(rows(temps, np.float32), 1e-6)[:, None]
+        idx = torch.from_numpy(hot).to(dev)
+        out[idx] = sampling.categorical(keys, logits[idx] / safe)
+    return out.cpu().numpy()
 
 
 class ServeEngine:
-    """Batched generation over the port's ``Model`` API, paged KV layout.
+    """Batched generation over the port's ``Model`` API.
 
     Invariants (asserted port against port in ``tests/test_torch_*``):
-    greedy tokens are independent of slot, step order, preemption and
-    prefix-cache hits; after ``generate`` returns or raises, every block
-    and reservation is back in the pool.
+    tokens are independent of layout, scheduler, slot, step order,
+    preemption and prefix-cache hits (sampled rows are request-keyed);
+    after ``generate`` returns or raises, every block and reservation is
+    back in the pool.
 
-    ``mode`` accepts "auto"/"continuous"; ``kv_layout`` accepts "paged";
-    the dense layout, lockstep and ``bucket`` raise ``NotImplementedError``.
-    block_size / n_blocks size the pool (n_blocks defaults to
-    ``max_batch * cache_len`` positions plus the null block);
+    mode: "auto" (continuous), "continuous" or "lockstep" (dense only).
+    kv_layout: "dense" (default) or "paged" (continuous only).
+    bucket: None (exact-length dense prefills), "pow2", or an integer
+    pad-to-multiple.  block_size / n_blocks size the paged pool (n_blocks
+    defaults to ``max_batch * cache_len`` positions plus the null block);
     ``allocator=`` injects an external pool, ``owner=`` tags this engine's
-    allocations in it, ``admission=`` is "reserve" or "overcommit".
+    allocations in it, ``admission=`` is "reserve" or "overcommit"
+    (paged); ``prefix_cache`` is paged only.
     ``policy`` names a scheduling policy of ``serving.slo.POLICIES``.
     ``tracer`` / ``clock`` / ``track``: telemetry, host-side only.
     The device is the parameters' device.
@@ -292,22 +319,43 @@ class ServeEngine:
 
     def __init__(self, model: Model, params, *, max_batch: int = 8,
                  cache_len: int = 1024, mode: str = "auto",
-                 kv_layout: str = "paged", block_size: int | None = None,
+                 kv_layout: str = "dense", block_size: int | None = None,
                  n_blocks: int | None = None, bucket=None,
                  allocator: BlockAllocator | None = None,
                  admission: str = "reserve", owner: Any = 0,
                  prefix_cache: bool = False, policy="fifo",
                  tracer=None, clock=None, track: str | None = None):
-        if mode not in ("auto", "continuous"):
-            raise _not_ported(f"mode={mode!r} (the lockstep scheduler)")
-        if kv_layout != "paged":
-            raise _not_ported(f"kv_layout={kv_layout!r} (the dense layout)")
-        if bucket is not None:
-            raise _not_ported("bucket= (prompt bucketing belongs to the "
-                              "dense layout)")
+        if mode not in ("auto", "continuous", "lockstep"):
+            raise ValueError(f"mode={mode!r}: expected auto, continuous or "
+                             "lockstep")
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout={kv_layout!r}: expected dense or "
+                             "paged")
         if admission not in ("reserve", "overcommit"):
             raise ValueError(f"admission={admission!r}: expected reserve "
                              "or overcommit")
+        if bucket is not None and bucket != "pow2" and (
+                isinstance(bucket, bool) or not isinstance(bucket, int)
+                or bucket < 1):
+            raise ValueError(f"bucket={bucket!r}: expected None, 'pow2' or "
+                             "a positive integer")
+        if bucket and not model.supports_prefill_len:
+            raise ValueError(f"bucket={bucket!r}: family "
+                             f"{model.cfg.family!r} prefill cannot mask "
+                             "right-pads")
+        mode = "continuous" if mode == "auto" else mode
+        if kv_layout == "paged" and mode != "continuous":
+            raise ValueError(
+                "kv_layout='paged' requires the continuous scheduler")
+        if kv_layout == "dense":
+            if allocator is not None:
+                raise ValueError("allocator= requires kv_layout='paged'")
+            if admission != "reserve":
+                raise ValueError("admission='overcommit' requires "
+                                 "kv_layout='paged'")
+            if prefix_cache:
+                raise ValueError("prefix_cache=True requires kv_layout="
+                                 "'paged' (there are no blocks to share)")
         self.model = model
         self.params = params
         self.device = params["embed"]["embedding"].device
@@ -318,13 +366,28 @@ class ServeEngine:
         self.clock = MONOTONIC
         self.track = track if track is not None else f"engine{owner}"
         self.last_metrics = MetricsRegistry()
-        self.mode = "continuous"
+        self.mode = mode
         self.kv_layout = kv_layout
+        self.bucket = bucket
         self.policy = make_policy(policy)
         self._admission = admission
         self.prefix_cache = prefix_cache
         self.last_stats: EngineStats | None = None
         self._sess: _Session | None = None
+        self._prefill_shapes: set[int] = set()   # prefill lengths run
+        self._owns_pool = False
+        if kv_layout == "paged":
+            self._init_pool(allocator, block_size, n_blocks, admission)
+        self._decode = (model.decode_paged if kv_layout == "paged"
+                        else model.decode)
+        if tracer is not None:
+            self.set_tracer(tracer)
+        if clock is not None:
+            self.clock = clock
+
+    def _init_pool(self, allocator, block_size, n_blocks, admission) -> None:
+        """The paged layout's block pool: an owned one sized here, or an
+        external (shared) ``allocator``."""
         if allocator is not None:
             if n_blocks is not None:
                 raise ValueError("n_blocks conflicts with an external "
@@ -333,27 +396,22 @@ class ServeEngine:
                 raise ValueError(
                     f"block_size={block_size} conflicts with the external "
                     f"allocator's {allocator.block_size}")
-            self._owns_pool = False
             block_size = allocator.block_size
         else:
             self._owns_pool = True
             if block_size is None:
                 block_size = 16
         self.block_size = block_size
-        self.max_blocks = blocks_needed(cache_len, block_size)
+        self.max_blocks = blocks_needed(self.cache_len, block_size)
         if allocator is None:
             if n_blocks is None:
-                n_blocks = max_batch * self.max_blocks + 1
+                n_blocks = self.max_batch * self.max_blocks + 1
             allocator = BlockAllocator(n_blocks, block_size)
         allocator.claim_policy(admission)
         self.allocator = allocator
         # device pool kept across sessions (prefix_cache only): cached
         # blocks' bytes must stay resident to be hit again
         self._pcache = None
-        if tracer is not None:
-            self.set_tracer(tracer)
-        if clock is not None:
-            self.clock = clock
 
     # ------------------------------------------------------------------
     # Telemetry plumbing.
@@ -381,35 +439,43 @@ class ServeEngine:
                  on_token=None) -> list[Result]:
         """Run ``requests`` to completion and return their Results.
         ``on_token`` streams every sampled token as a :class:`TokenEvent`
-        the moment it exists."""
-        key = key if key is not None else 0
+        the moment it exists (continuous mode only).  ``key``: the base
+        key of sampled rows, two uint32 words (None: seed 0)."""
+        key = sampling.as_key(key)
         requests = list(requests)
         todo = [(i, r) for i, r in enumerate(requests)
                 if r.max_new_tokens - len(r.done) > 0]
         if not todo:
             self.last_metrics = MetricsRegistry()
-            self.last_stats = EngineStats(self.mode, 0.0, 0, 0.0, 0, 0.0,
-                                          0.0)
+            self.last_stats = EngineStats(
+                self.mode, 0.0, 0, 0.0, 0, 0.0, 0.0,
+                kv_layout=self.kv_layout,
+                prefill_compiles=len(self._prefill_shapes))
             return [Result(r.rid, list(r.done)) for r in requests]
-        # reject impossible requests before any work is scheduled
-        for _, r in todo:
-            self.check_request(r)
-        done = self._generate_continuous(todo, key, on_token)
+        if self.kv_layout == "paged":
+            # reject impossible requests before any work is scheduled: a
+            # raise mid-schedule would abort the batch with blocks held
+            for _, r in todo:
+                self.check_request(r)
+        if self.mode == "continuous":
+            done = self._generate_continuous(todo, key, on_token)
+        else:
+            if on_token is not None:
+                raise ValueError("streaming (on_token) requires the "
+                                 "continuous scheduler")
+            done = self._generate_lockstep(todo, key)
         results = [Result(r.rid, list(r.done)) for r in requests]
         for (i, _), res in zip(todo, done):
             results[i] = res
         return results
 
     def check_request(self, r: Request) -> None:
-        """Reject a request that can never be served: context overflow, a
-        worst case larger than the whole pool, or sampling that is not
-        ported yet."""
-        if r.temperature > 0.0:
-            raise _not_ported(f"request rid={r.rid}: temperature "
-                              f"{r.temperature} (sampled decoding, the "
-                              "threefry slice)")
+        """Reject a request that can never be served: context overflow, or
+        (paged) a worst case larger than the whole pool."""
         self._check_budget(len(r.prompt) + len(r.done),
                            r.max_new_tokens - len(r.done), r.rid)
+        if self.kv_layout != "paged":
+            return
         worst = self._worst_blocks(r)
         if worst > self.allocator.capacity:
             raise ValueError(
@@ -422,14 +488,27 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def _check_budget(self, prefill_pos: int, max_new: int, rid) -> None:
-        """Every position written past prefill must fit the block table's
-        width, ``cache_len``."""
+        """Every position written past prefill must fit ``cache_len``: the
+        per-slot strip length (dense) or the block table's width (paged)."""
         writes = prefill_pos + max(max_new - 1, 0)
         if writes > self.cache_len:
             raise ValueError(
                 f"request rid={rid} needs {writes} cache positions "
                 f"(prefill {prefill_pos} + {max_new - 1} decode writes) "
                 f"but cache_len={self.cache_len}")
+
+    def _bucket_len(self, n: int) -> int:
+        """Round a prompt length up to its bucket (pow2 or pad-to-multiple),
+        capped so the padded sequence still fits the per-request bound."""
+        if not self.bucket:
+            return n
+        if self.bucket == "pow2":
+            b = 1
+            while b < n:
+                b <<= 1
+        else:
+            b = -(-n // self.bucket) * self.bucket
+        return max(min(b, self.cache_len), n)
 
     def _worst_blocks(self, r: Request) -> int:
         """Worst-case block count for a request (all cache positions it can
@@ -472,13 +551,16 @@ class ServeEngine:
     def begin_session(self, key=None, on_token=None) -> None:
         """Open a stepwise session; ``on_token`` streams every sampled
         token as a :class:`TokenEvent`."""
+        if self.mode != "continuous":
+            raise ValueError("stepwise sessions require the continuous "
+                             "scheduler")
         if self._sess is not None:
             raise RuntimeError("a session is already open on this engine")
         bsz = self.max_batch
         if self._owns_pool:
             self.allocator.reset_peak()
         self._sess = _Session(
-            key=key if key is not None else 0,
+            key=sampling.as_key(key),
             slots=[None] * bsz,
             toks=np.zeros((bsz, 1), np.int32),
             temps=np.zeros((bsz,), np.float32),
@@ -524,9 +606,12 @@ class ServeEngine:
                    for _, s in self.session_slots())
 
     def session_can_admit(self, r: Request) -> bool:
-        """Pool-side admission test.  reserve: the pool must cover the
+        """Pool-side admission test (always true for the dense layout,
+        whose slots own their strips).  reserve: the pool must cover the
         request's worst case on top of standing reservations.  overcommit:
         one block must be free (later growth may raise PoolPressure)."""
+        if self.kv_layout != "paged":
+            return True
         if self._admission == "overcommit":
             return self.allocator.n_avail >= 1
         return self.allocator.n_avail >= self._admit_block_need(r)
@@ -571,13 +656,22 @@ class ServeEngine:
 
     def session_admit(self, r: Request, tag: int,
                       admit_seq: int | None = None,
-                      enqueue_t: float | None = None) -> None:
-        """Admit ``r`` into the first free slot.  Admission installs the
-        request and (under reserve) promises its worst case; the prefill
-        itself runs chunk by chunk inside ``session_step``, allocating each
-        chunk's block lazily.  ``tag`` is echoed back with the Result from
-        ``session_step``; ``admit_seq`` orders admissions for victim
-        selection; ``enqueue_t`` is the clock time the request was queued."""
+                      enqueue_t: float | None = None) -> Result | None:
+        """Admit ``r`` into the first free slot.
+
+        dense: the prefill runs here (prefill-on-admit) and the first token
+        is sampled; returns the finished Result when the token budget is
+        satisfied by the admission itself, else None.
+
+        paged: admission installs the request and (under reserve) promises
+        its worst case; the prefill itself runs chunk by chunk inside
+        ``session_step``, allocating each chunk's block lazily.  Returns
+        None; budget-satisfied-by-prefill Results arrive from
+        ``session_step``.
+
+        ``tag`` is echoed back with the Result; ``admit_seq`` orders
+        admissions for victim selection; ``enqueue_t`` is the clock time
+        the request was queued."""
         sess = self._require_session()
         slot = self.session_free_slot()
         if slot is None:
@@ -592,6 +686,9 @@ class ServeEngine:
         prefill_pos = len(r.prompt) + len(r.done)
         self._check_budget(prefill_pos, r.max_new_tokens - len(r.done),
                            r.rid)
+        if self.kv_layout != "paged":
+            return self._admit_dense(sess, r, tag, slot, admit_seq, t0,
+                                     enqueue_t)
         if sess.cache is None:
             if self._pcache is not None:
                 # prefix cache: the previous session's pool is revived so
@@ -652,17 +749,84 @@ class ServeEngine:
                      else t0), enqueue_t=enqueue_t, span_t0=t0)
         sess.temps[slot] = r.temperature
         sess.rids[slot] = r.rid
+        return None
+
+    def _admit_dense(self, sess: _Session, r: Request, tag: int, slot: int,
+                     admit_seq: int, t0: float,
+                     enqueue_t: float | None) -> Result | None:
+        """Prefill ``r`` (prompt + done, in one pass: KV families re-admit
+        byte-exactly) into dense slot ``slot`` and sample its first token.
+        With ``bucket`` the prompt is right-padded to its bucket and the
+        true length rides in ``prefill_len``."""
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant(self._slot_track(slot), "admit", rid=r.rid,
+                       slot=slot, readmit=bool(r.done or r.requeues),
+                       prefix_hits=0, prefix_tokens=0)
+            if r.requeues:
+                tr.flow_end(self._slot_track(slot), "preempt_flow",
+                            f"preempt-{r.rid}-{r.requeues}")
+        seq = list(r.prompt) + list(r.done)
+        plen = len(seq)
+        toks = np.zeros((1, self._bucket_len(plen)), np.int32)
+        toks[0, :plen] = seq
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if self.bucket:
+            batch["prefill_len"] = torch.tensor([plen], dtype=torch.int32,
+                                                device=self.device)
+        self._prefill_shapes.add(toks.shape[1])
+        logits, sub = self.model.prefill(self.params, batch,
+                                         cache_len=self.cache_len)
+        if sess.cache is None:
+            sess.cache = self.model.cache_expand(sub, self.max_batch)
+        sess.cache = self.model.cache_slot_write(sess.cache, sub, slot)
+        # the request's t-th token always uses stream index t, so a
+        # re-admitted (preempted) request resumes its stream at len(done)
+        tok = int(_sample_rows(logits, np.asarray([r.temperature],
+                                                  np.float32),
+                               sess.key, np.asarray([r.rid]),
+                               np.asarray([len(r.done)]))[0])
+        t1 = self.clock.now()
+        ttft_ms = (t1 - t0) * 1e3
+        if tr.enabled:
+            tr.complete(self._slot_track(slot), "prefill", t0, t1,
+                        rid=r.rid, tokens=plen)
+        if r.done or r.requeues:
+            sess.metrics.counter("requeued").inc()
+        if not r.done:
+            sess.metrics.histogram("ttft_ms").observe(ttft_ms)
+            if r.slo_ttft_ms is not None:
+                self._observe_slo_ttft(r, slot, enqueue_t, t0, t1)
+        if r.first_ttft_ms is not None:
+            ttft_ms = r.first_ttft_ms   # re-admission: keep the real TTFT
+        self._emit_token(sess, r, tok, len(r.done))
+        s = _Slot(req=r, tag=tag, tokens=[tok], ttft_ms=ttft_ms,
+                  admit_seq=admit_seq, prefill_pos=plen, admit_t=t0,
+                  enqueue_t=enqueue_t, span_t0=t0, first_tok_t=t1)
+        if len(r.done) + 1 >= r.max_new_tokens:
+            res = self._finish(s)       # satisfied by prefill alone
+            self._release(s, slot)
+            if tr.enabled:
+                self._trace_finish(s, slot, self.clock.now())
+            return res
+        sess.slots[slot] = s
+        sess.toks[slot, 0] = tok
+        sess.temps[slot] = r.temperature
+        sess.rids[slot] = r.rid
+        sess.tok_idx[slot] = len(r.done) + 1
+        return None
 
     def session_step(self) -> list[tuple[int, Result]]:
-        """One scheduler step: finish any pending chunked prefills, then
-        one decode launch over the slot pool.  Returns the (tag, Result)
+        """One scheduler step: finish any pending chunked prefills (paged),
+        then one decode launch over the slot pool.  Returns the (tag, Result)
         pairs that finished this step.  Under overcommit, raises
         PoolPressure when lazy block growth finds the pool empty; the call
         can be retried after the caller frees blocks, and resumes a
         half-prefilled slot at its next chunk."""
         sess = self._require_session()
         bsz = self.max_batch
-        for i in range(bsz):
+        paged = self.kv_layout == "paged"
+        for i in range(bsz) if paged else ():
             s = sess.slots[i]
             if s is not None and s.chunks_done is not None:
                 res = self._advance_prefill(sess, i, s)
@@ -674,7 +838,7 @@ class ServeEngine:
                         self._trace_finish(s, i, self.clock.now())
         active = [i for i in range(bsz) if sess.slots[i] is not None]
         # lazy growth: each slot's next write position needs a block
-        for i in active:
+        for i in active if paged else ():
             s = sess.slots[i]
             pos = s.prefill_pos + s.steps
             while len(s.blocks) * self.block_size <= pos:
@@ -684,12 +848,12 @@ class ServeEngine:
         if not active:
             return finished
         # one decode step over the whole slot pool (idle rows compute too:
-        # they write into the null block and are never read)
+        # dense idle rows are masked by their pos and rewritten on the next
+        # admission; paged ones write into the null block, never read)
         tr = self.tracer
         t0 = self.clock.now()
         toks = torch.from_numpy(sess.toks).to(self.device)
-        logits, sess.cache = self.model.decode_paged(self.params,
-                                                     sess.cache, toks)
+        logits, sess.cache = self._decode(self.params, sess.cache, toks)
         # [t0, t_disp] is host dispatch; sampling below waits for the
         # device, so [t_disp, t1] is device time + sampling + transfer
         t_disp = self.clock.now()
@@ -702,8 +866,9 @@ class ServeEngine:
         m.counter("busy_slot_steps").inc(len(active))
         m.counter("offered_slot_steps").inc(bsz)
         m.timeline("occupancy").record(t1, len(active) / bsz)
-        m.timeline("pool_util").record(
-            t1, self.allocator.n_live / max(self.allocator.capacity, 1))
+        if paged:
+            m.timeline("pool_util").record(
+                t1, self.allocator.n_live / max(self.allocator.capacity, 1))
         if tr.enabled:
             tr.complete(self.track, "step", t0, t1, active=len(active))
             tr.complete(self.track, "dispatch", t0, t_disp)
@@ -879,7 +1044,7 @@ class ServeEngine:
                 if s is not None:
                     self.tracer.instant(self._slot_track(i), "abort",
                                         rid=s.req.rid)
-        for s in sess.slots:
+        for s in sess.slots if self.kv_layout == "paged" else ():
             if s is not None:
                 if s.blocks:
                     self.allocator.free(s.blocks, self.owner)
@@ -905,7 +1070,10 @@ class ServeEngine:
         wall = self.clock.now() - sess.t_start
         stats = EngineStats.from_registry(
             sess.metrics, mode=self.mode, wall_s=wall,
-            block_util_peak=self.allocator.stats().peak_utilization,
+            kv_layout=self.kv_layout,
+            prefill_compiles=len(self._prefill_shapes),
+            block_util_peak=(self.allocator.stats().peak_utilization
+                             if self.kv_layout == "paged" else 0.0),
             sched_policy=self.policy.name)
         self.last_metrics = sess.metrics
         if self.prefix_cache:
@@ -935,10 +1103,14 @@ class ServeEngine:
                    tokens=len(s.req.done) + len(s.tokens))
 
     def _release(self, s: _Slot, i: int) -> None:
-        """Drop slot ``i``'s block references (an unshared block returns to
-        the pool, a registered last reference parks in the cached LRU) and
-        park its table row on the null block so idle decode writes cannot
-        touch recycled blocks."""
+        """Free slot ``i``'s cache-side state.  dense: nothing - the strip
+        is masked by the slot's pos and fully rewritten at the next
+        admission.  paged: drop the slot's block references (an unshared
+        block returns to the pool, a registered last reference parks in
+        the cached LRU) and park its table row on the null block so idle
+        decode writes cannot touch recycled blocks."""
+        if self.kv_layout != "paged":
+            return
         if self.tracer.enabled and s.blocks:
             self.tracer.instant("pool", "kv_free", rid=s.req.rid,
                                 n=len(s.blocks))
@@ -982,8 +1154,10 @@ class ServeEngine:
                     if not self.session_can_admit(r):
                         break
                     queue.remove(item)
-                    self.session_admit(r, tag=seq,
-                                       enqueue_t=self._sess.t_start)
+                    res = self.session_admit(r, tag=seq,
+                                             enqueue_t=self._sess.t_start)
+                    if res is not None:
+                        results[seq] = res
                 if queue and not self.session_active:
                     raise MemoryError(
                         f"engine owner={self.owner!r} is idle but the "
@@ -999,3 +1173,92 @@ class ServeEngine:
             raise
         self.last_stats = self.end_session()
         return results
+
+    # ------------------------------------------------------------------
+    # Lock-step group batching (the baseline scheduler, dense layout).
+    # ------------------------------------------------------------------
+
+    def _pad_prompts(self, prompts: list[list[int]]) -> np.ndarray:
+        """Left-pad to a common length (the uniform-position cache
+        layout).  The pads are token 0 and are attended as real tokens, as
+        in the reference."""
+        maxlen = max(len(p) for p in prompts)
+        out = np.zeros((len(prompts), maxlen), np.int32)
+        for i, p in enumerate(prompts):
+            out[i, maxlen - len(p):] = p
+        return out
+
+    def _generate_lockstep(self, items, key) -> list[Result]:
+        """items: [(submission order, Request)]; results align with items."""
+        results: list[Result | None] = [None] * len(items)
+        queue = [(seq, order, r) for seq, (order, r) in enumerate(items)]
+        m = MetricsRegistry()
+        t_start = self.clock.now()
+        while queue:
+            group = queue[: self.max_batch]
+            queue = queue[self.max_batch:]
+            self._generate_group(group, key, results, m)
+        wall = self.clock.now() - t_start
+        m.counter("generated_tokens").inc(
+            sum(len(r.tokens) for r in results))
+        self.last_metrics = m
+        self.last_stats = EngineStats.from_registry(
+            m, mode="lockstep", wall_s=wall,
+            prefill_compiles=len(self._prefill_shapes))
+        return results
+
+    def _generate_group(self, group, key, results, m: MetricsRegistry):
+        """One group: a batched prefill of the left-padded prompts, then
+        decode steps until the longest budget is spent (a finished row's
+        lane idles until then).  Every row of the group sits at one
+        position, so the group's longest prompt and budget set the write
+        budget."""
+        reqs = [r for _, _, r in group]
+        prompts = self._pad_prompts([list(r.prompt) + list(r.done)
+                                     for r in reqs])
+        remaining = [r.max_new_tokens - len(r.done) for r in reqs]
+        max_new = max(remaining)
+        self._check_budget(prompts.shape[1], max_new, [r.rid for r in reqs])
+        self._prefill_shapes.add(prompts.shape[1])
+        t0 = self.clock.now()
+        logits, cache = self.model.prefill(
+            self.params, {"tokens": torch.from_numpy(prompts).to(self.device)},
+            cache_len=self.cache_len)
+        temps = np.asarray([r.temperature for r in reqs], np.float32)
+        rids = np.asarray([r.rid for r in reqs], np.int32)
+        base_idx = np.asarray([len(r.done) for r in reqs], np.int32)
+        toks = _sample_rows(logits, temps, key, rids, base_idx)
+        t_pf = self.clock.now()
+        prefill_ms = (t_pf - t0) * 1e3     # to the first sampled tokens
+        if self.tracer.enabled:
+            self.tracer.complete(self.track, "prefill", t0, t_pf,
+                                 group=len(reqs))
+        outs = [[int(t)] for t in toks]
+        t1 = self.clock.now()
+        n_steps = 0
+        for _ in range(max_new - 1):
+            feed = torch.from_numpy(toks.astype(np.int32)[:, None])
+            logits, cache = self.model.decode(self.params, cache,
+                                              feed.to(self.device))
+            n_steps += 1
+            toks = _sample_rows(logits, temps, key, rids, base_idx + n_steps)
+            for i in range(len(reqs)):
+                if len(outs[i]) < remaining[i]:
+                    outs[i].append(int(toks[i]))
+        t2 = self.clock.now()
+        decode_ms = (t2 - t1) * 1e3 / max(n_steps, 1)
+        if self.tracer.enabled and n_steps:
+            self.tracer.complete(self.track, "decode_group", t1, t2,
+                                 steps=n_steps, group=len(reqs))
+        # request i is busy for its first (remaining - 1) decode steps
+        busy_total = sum(min(max(rem - 1, 0), n_steps) for rem in remaining)
+        m.counter("decode_steps").inc(n_steps)
+        m.counter("busy_slot_steps").inc(busy_total)
+        m.counter("offered_slot_steps").inc(self.max_batch * n_steps)
+        for _ in reqs:
+            m.histogram("ttft_ms").observe(prefill_ms)
+        for i, (seq, _, r) in enumerate(group):
+            results[seq] = Result(r.rid, list(r.done) + outs[i], prefill_ms,
+                                  decode_ms)
+            if remaining[i] > 1:
+                m.histogram("tpot_ms").observe(decode_ms)

@@ -1,11 +1,10 @@
-"""The port's ``ServeEngine`` (``repro_torch.serving``): greedy tokens held
-against the reference's paged ``ServeEngine`` on the same fp32 weights, and
-the reference's serving invariants asserted again port against port —
-prefix-cache hits, preemption and re-admission, a pool that drains clean,
-and an idle slot whose position runs past its table.
-
-Sampled (temperature > 0) streams wait for the threefry slice; every
-comparison here is greedy."""
+"""The port's ``ServeEngine`` (``repro_torch.serving``) on the paged KV
+layout: greedy tokens held against the reference's paged ``ServeEngine`` on
+the same fp32 weights, and the reference's serving invariants asserted
+again port against port — prefix-cache hits, preemption and re-admission,
+a pool that drains clean, and an idle slot whose position runs past its
+table.  Every engine here asks for ``kv_layout="paged"`` (the default is
+dense, tested in ``test_torch_dense.py``, with sampled streams)."""
 import collections
 import contextlib
 import io
@@ -52,6 +51,7 @@ def _requests(prompts, max_new=6):
 
 
 def _engine(params, **kw):
+    kw.setdefault("kv_layout", "paged")
     kw.setdefault("max_batch", 2)
     kw.setdefault("cache_len", 64)
     kw.setdefault("block_size", BS)
@@ -251,8 +251,10 @@ def test_tracing_and_policies_change_no_token(weights):
 
 
 def test_stream_and_not_ported_paths(weights):
-    """stream() yields every token in order; the dense layout, lockstep,
-    bucketing and sampling raise (later slices) and leave the pool clean."""
+    """stream() yields every token in order; the dense layout (the
+    default), lockstep, bucketing and sampling serve every request, and
+    sampling leaves the paged pool clean.  Paged lockstep and the dense
+    layout's pool options are refused, as in the reference."""
     _, params = weights
     eng = _engine(params)
     reqs = _requests(_prompts()[:3])
@@ -262,25 +264,45 @@ def test_stream_and_not_ported_paths(weights):
         assert ev.index == len(got[ev.rid])
         got[ev.rid].append(ev.token)
     assert [got[i] for i in range(3)] == want
-    for kw in (dict(kv_layout="dense"), dict(mode="lockstep"),
-               dict(bucket="pow2")):
-        with pytest.raises(NotImplementedError):
-            _engine(params, **kw)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        eng.generate([Request([1, 2], 4, temperature=0.7)])
+    for kw in (dict(kv_layout="dense"), dict(kv_layout="dense",
+                                             mode="lockstep"),
+               dict(kv_layout="dense", bucket="pow2")):
+        e = _engine(params, **kw)
+        assert e.kv_layout == "dense"
+        out = e.generate(reqs)
+        assert [len(r.tokens) for r in out] == [6, 6, 6]
+    assert ServeEngine(build_model(CFG), params).kv_layout == "dense"
+    sampled = eng.generate([Request([1, 2], 4, temperature=0.7)])
+    assert len(sampled[0].tokens) == 4
     assert _drained(eng)
+    for kw in (dict(mode="lockstep"),
+               dict(kv_layout="dense", prefix_cache=True),
+               dict(kv_layout="dense", admission="overcommit")):
+        with pytest.raises(ValueError):
+            _engine(params, **kw)
 
 
 def test_serve_cli_on_cpu():
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        serve_cli.main(["--smoke", "--device", "cpu", "--prompts", "1 2 3",
-                        "4 5 6 7 8 9 10 11 12 13 14 15 16 17 18",
-                        "--max-new", "4", "--prefix-cache", "--metrics"])
-    text = out.getvalue()
-    assert text.count("[serve] rid=") == 2 and "kv=paged" in text
-    for flags in (["--kv-layout", "dense"], ["--replicas", "2"],
-                  ["--temperature", "0.5"], ["--bucket", "pow2"]):
-        with pytest.raises(SystemExit), \
-                contextlib.redirect_stderr(io.StringIO()):
+    """The launcher serves paged (prefix cache, metrics) and, by default,
+    dense: continuous, lockstep, bucketed and sampled.  Only the cluster,
+    its threaded driver and attribution still stop."""
+    prompts = ["--prompts", "1 2 3", "4 5 6 7 8 9 10 11 12 13 14 15 16 17 18",
+               "--max-new", "4"]
+    for flags, want in (
+            (["--kv-layout", "paged", "--prefix-cache", "--metrics"],
+             "mode=continuous kv=paged"),
+            ([], "mode=continuous kv=dense"),
+            (["--mode", "lockstep"], "mode=lockstep kv=dense"),
+            (["--bucket", "pow2", "--temperature", "0.5"],
+             "kv=dense")):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            serve_cli.main(["--smoke", "--device", "cpu", *prompts, *flags])
+        text = out.getvalue()
+        assert text.count("[serve] rid=") == 2 and want in text, text
+    for flags in (["--replicas", "2"], ["--driver", "threaded"],
+                  ["--attribution"], ["--bucket", "x"]):
+        err = io.StringIO()
+        with pytest.raises(SystemExit), contextlib.redirect_stderr(err):
             serve_cli.main(["--smoke", "--device", "cpu", *flags])
+        assert "--" in err.getvalue()

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServeEngine
@@ -151,7 +152,7 @@ def test_engine_on_card_drains_and_repeats(cuda):
     cfg = smoke_config("qwen3-0.6b")
     model = build_model(cfg)
     eng = ServeEngine(model, model.init(0, device=cuda), max_batch=2,
-                      cache_len=64, block_size=16)
+                      cache_len=64, kv_layout="paged", block_size=16)
     prompts = [list(range(1, 1 + n)) for n in (3, 20, 33)]
     pa.reset_launches()
     first = [r.tokens for r in eng.generate(
@@ -165,3 +166,76 @@ def test_engine_on_card_drains_and_repeats(cuda):
     again = [r.tokens for r in eng.generate(
         [Request(p, 6, rid=i) for i, p in enumerate(prompts)])]
     assert first == again and all(len(t) == 6 for t in first)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_flash_kernel_matches_plain(cuda, dtype, tol):
+    """The flash kernel against its plain version: GQA ratios 1, 2 and 8,
+    causal, non-causal and windowed, ragged lengths (tail tiles), queries
+    right-aligned (Sq < Sk), and Sq > Sk causal, whose first rows see no
+    key and are the mean of V.  fp32 at 1e-4 (other summation orders);
+    bf16 at 1e-2 (outputs rounded from fp32)."""
+    rng = np.random.default_rng(5)
+    cases = [(1, 64, 64, True, None), (2, 7, 7, True, None),
+             (2, 200, 200, False, None), (8, 133, 133, True, 17),
+             (2, 50, 300, True, None), (2, 90, 40, True, None),
+             (4, 129, 257, False, 64)]
+    for g, sq, sk, causal, window in cases:
+        q, k, v = [torch.from_numpy(rng.standard_normal(shape, np.float32))
+                   .to(cuda, dtype) for shape in
+                   ((2, 2 * g, sq, 32), (2, 2, sk, 32), (2, 2, sk, 32))]
+        n0 = fa.LAUNCHES["flash_attention"]
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        assert fa.LAUNCHES["flash_attention"] == n0 + 1
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = [torch.zeros(shape, device=cuda) for shape in
+               ((1, 4, 8, 32), (1, 2, 8, 32), (1, 2, 8, 32))]
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(q.transpose(2, 3).contiguous()
+                                .transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention_cuda(q, k, v, window=0)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_cuda(*[torch.cat([x] * 9, dim=-1)
+                                  for x in (q, k, v)])           # D 288
+    assert fa.LAUNCHES == before
+
+
+def test_dense_engine_on_card_matches_cpu(cuda):
+    """The fp32 smoke model on the dense layout: the card's greedy tokens
+    (continuous and bucketed) equal the CPU's, the flash kernel runs
+    once per layer and prefill, and a sampled run repeats exactly."""
+    cfg = smoke_config("qwen3-0.6b")
+    model = build_model(cfg)
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    prompts = [list(range(1, 1 + n)) for n in (3, 20, 33)]
+    reqs = [Request(p, 6, rid=i) for i, p in enumerate(prompts)]
+    want = [r.tokens for r in ServeEngine(model, params, max_batch=2,
+                                          cache_len=64).generate(reqs)]
+    on_card = _params_on(params, cuda)
+    for kw, prefills in ((dict(), 3), (dict(bucket="pow2"), 3),
+                         (dict(mode="lockstep"), 2)):
+        eng = ServeEngine(model, on_card, max_batch=2, cache_len=64, **kw)
+        fa.reset_launches()
+        got = [r.tokens for r in eng.generate(reqs)]
+        assert fa.LAUNCHES["flash_attention"] == cfg.n_layers * prefills
+        if "mode" not in kw:    # lockstep left-pads: other tokens
+            assert got == want
+    eng = ServeEngine(model, on_card, max_batch=2, cache_len=64)
+    sampled = [Request(p, 6, 0.7, rid=i) for i, p in enumerate(prompts)]
+    first = [r.tokens for r in eng.generate(sampled)]
+    assert first == [r.tokens for r in eng.generate(sampled)]

@@ -118,20 +118,24 @@ def test_bridge_carries_bf16_bits_and_rejects_mismatches():
 
 
 def test_registry_and_templates_match_reference():
-    """The port builds qwen3-0.6b only, with the reference's config and the
-    reference's param tree (names and shapes) at full width."""
-    assert list_archs() == ["qwen3-0.6b"]
-    assert dataclasses.asdict(get_config("qwen3-0.6b")) == \
-        dataclasses.asdict(ref_get("qwen3-0.6b"))
-    ref_model = ref_build(ref_get("qwen3-0.6b"))
-    model = build_model(get_config("qwen3-0.6b"))
+    """The port builds the dense archs qwen3-0.6b and qwen2.5-3b, with the
+    reference's configs and the reference's param trees (names and shapes)
+    at full width."""
+    assert list_archs() == ["qwen2.5-3b", "qwen3-0.6b"]
 
     def shapes(t, f):
         return {k: shapes(v, f) if isinstance(v, dict) else f(v)
                 for k, v in t.items()}
-    assert shapes(model.templates, lambda t: t.shape) == \
-        shapes(ref_model.templates, lambda t: t.shape)
-    assert model.n_params == ref_model.n_params
+    for arch in list_archs():
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(ref_get(arch))
+        assert dataclasses.asdict(smoke_config(arch)) == \
+            dataclasses.asdict(ref_smoke(arch))
+        ref_model = ref_build(ref_get(arch))
+        model = build_model(get_config(arch))
+        assert shapes(model.templates, lambda t: t.shape) == \
+            shapes(ref_model.templates, lambda t: t.shape)
+        assert model.n_params == ref_model.n_params
     with pytest.raises(NotImplementedError, match="moe"):
         build_model(dataclasses.replace(get_config("qwen3-0.6b"),
                                         family="moe"))
