@@ -15,11 +15,18 @@ Phases, each of which exits non-zero on failure:
               D 128, bs 16, B 8, M 64), NaN planted wherever neither may
               read.  Flash: bf16 and fp32, g 2 and 8, causal, non-causal and
               window 64, Sq = Sk in {7, 128, 900}, Sq < Sk, and Sq > Sk
-              causal (fully masked rows: the mean of V);
-4. timing   - kernel, plain version, one PyTorch library call, and the
-              least time the card could take (the bound), in ms;
+              causal (fully masked rows: the mean of V).  SSD: bf16 and
+              fp32, S in {7, 64, 960}, (B, G) in {(1, 1), (2, 2)}, H 64,
+              P 64, N 64, with and without h0 and d_skip; S = 200 raises;
+4. timing   - kernel, plain version, one PyTorch library call (none for
+              SSD), and the least time the card could take (the bound), ms;
 5. checks   - the whole model on the card against the plain CPU path: a
-              narrow fp32 copy of qwen3-0.6b, and the full-width model;
+              narrow fp32 copy of qwen3-0.6b, and the full-width model; a
+              narrow fp32 copy of zamba2-1.2b with a tail layer (7 layers,
+              a shared block every 3), and the full-width zamba2's
+              first-token logits at prompts of 64 and 960 tokens (fp32
+              within 1e-4 of their scale; bf16 no farther from the fp32
+              logits than 1.5 times the CPU's own bf16 run);
 6. serve    - the paged path: ``ServeEngine(kv_layout="paged")`` serving 8
               greedy requests with the full qwen3-0.6b config on seeded
               random bf16 weights, with every kernel's launch count read
@@ -31,8 +38,18 @@ Phases, each of which exits non-zero on failure:
               paged within 4% of their scale; then the trace with half its
               rows sampled at temperature 0.7 (repeat-identical, greedy rows
               unchanged);
-8. profile  - wall and device time of one full-width decode step and one
-              prefill chunk, with the top kernels (torch.profiler).
+8. hybrid   - zamba2-1.2b at full width on seeded random bf16 weights:
+              8 requests (prompts of 7 to 960 tokens) served continuous
+              twice (token-identical, 38 SSD and 6 flash launches per
+              prefill), lockstep (its prefill row by row) equal to
+              continuous on a uniform trace of 8 x 128 tokens, one sampled
+              row preempted after 5 decode steps
+              and resumed by replay (its tokens unchanged, every replayed
+              token counted), and every freed slot's state zero after the
+              drain;
+9. profile  - wall and device time of one full-width decode step and one
+              prefill (chunk) of each path, with the top kernels
+              (torch.profiler).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line, and the result line
@@ -59,16 +76,23 @@ SERVE_PROMPT_LENS = [7, 16, 17, 64, 200, 333, 511, 900]
 SERVE_MAX_NEW = 32
 SAMPLED_TEMPERATURE = 0.7
 FLASH_S = 900          # timing: B = 1, Hq 16, Hkv 8, D 128, causal
+SSD_H, SSD_P, SSD_N = 64, 64, 64   # zamba2-1.2b's SSD heads, head dim, state
+SSD_S = 960            # timing: B = 1, G = 1, bf16: the longest hybrid prompt
+HYBRID_PROMPT_LENS = [7, 16, 33, 64, 128, 320, 512, 960]   # <= 64 or 64k
+HYBRID_UNIFORM = (8, 128)     # lockstep vs continuous: 8 prompts of 128
+PREEMPT_RID, PREEMPT_AFTER = 3, 5
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/paged_attention.py:103",
     "paged_prefill_attention": "src/repro/kernels/paged_attention.py:224",
     "flash_attention": "src/repro/kernels/attention.py:73",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:153",
 }
 SOURCES = {
     "paged_decode_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_prefill_attention":
         "src/repro_torch/kernels/csrc/paged_attention.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 
 
@@ -257,6 +281,73 @@ def phase_flash_parity(torch, fa, dev):
     return worst["bfloat16"]
 
 
+def _ssd_inputs(torch, gen, dev, dtype, b, s, g):
+    """x, dt, a_log, B, C, d_skip, h0 at the hybrid path's SSD widths (H 64,
+    P 64, N 64), with dt and A in the model's ranges: dt = softplus(N(-2,
+    1)) (about 0.13), a_log = log U(1, 16)."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = rnd(b, s, SSD_H, SSD_P).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(b, s, SSD_H) - 2.0)
+    a_log = torch.log(1.0 + 15.0 * torch.rand(SSD_H, generator=gen,
+                                              device=dev))
+    bm = (rnd(b, s, g, SSD_N) * 0.3).to(dtype)
+    cm = (rnd(b, s, g, SSD_N) * 0.3).to(dtype)
+    return x, dt, a_log, bm, cm, rnd(SSD_H), rnd(b, SSD_H, SSD_P, SSD_N) * 0.2
+
+
+def phase_ssd_parity(torch, ss, dev):
+    """The SSD kernel against its plain version, y and the final state, on
+    every case; one launch counted per call; S = 200 (neither at most 64
+    nor a multiple of it) raises in both.  Returns the worst bf16 y error
+    (the main path's dtype)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    worst = {}
+    n_cases = 0
+    for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, TOL_FP32)):
+        name = str(dtype).split(".")[-1]
+        for s in (7, 64, SSD_S):
+            for b, g in ((1, 1), (2, 2)):
+                x, dt, a_log, bm, cm, d_skip, h0 = _ssd_inputs(
+                    torch, gen, dev, dtype, b, s, g)
+                for kw in ({}, {"h0": h0}, {"d_skip": d_skip},
+                           {"h0": h0, "d_skip": d_skip}):
+                    n0 = ss.LAUNCHES["ssd_scan"]
+                    y, hf = ss.ssd_cuda(x, dt, a_log, bm, cm, **kw)
+                    require(ss.LAUNCHES["ssd_scan"] == n0 + 1,
+                            "ssd: one launch must count one")
+                    yp, hp = ss.ssd_plain(x, dt, a_log, bm, cm, **kw)
+                    torch.cuda.synchronize()
+                    label = (f"ssd {name} B={b} S={s} G={g} "
+                             f"h0={'h0' in kw} d_skip={'d_skip' in kw}")
+                    for what, got, want, t in (("y", y, yp, tol),
+                                               ("h", hf, hp, TOL_FP32)):
+                        err = (got.float() - want.float()).abs().max().item()
+                        ok = bool(torch.isfinite(got.float()).all()) and \
+                            torch.allclose(got.float(), want.float(), atol=t,
+                                           rtol=t)
+                        if not ok:
+                            log(f"parity {label} {what}: max_abs_err="
+                                f"{err:.3e} (atol=rtol={t}) FAIL")
+                        require(ok, f"{label}: the SSD kernel's {what} "
+                                    "disagrees with its plain version")
+                        key = f"{name} {what}"
+                        worst[key] = max(worst.get(key, 0.0), err)
+                    n_cases += 1
+    x, dt, a_log, bm, cm, _, _ = _ssd_inputs(torch, gen, dev, torch.bfloat16,
+                                             1, 200, 1)
+    for fn in (ss.ssd_cuda, ss.ssd_plain):
+        try:
+            fn(x, dt, a_log, bm, cm)
+        except ValueError:
+            continue
+        raise SmokeFailure(f"ssd: {fn.__name__} took S = 200")
+    log(f"parity ssd: {n_cases} cases ok, worst max_abs_err {worst}; "
+        "S = 200 raises in kernel and plain")
+    return worst["bfloat16 y"]
+
+
 def _sdpa_inputs(torch, pa, q, kp, vp, bt, lens, causal):
     """Dense K/V gathered ahead of time (excluded from the library time)
     and the boolean mask of the same function."""
@@ -273,7 +364,7 @@ def _sdpa_inputs(torch, pa, q, kp, vp, bt, lens, causal):
     return q, k, v, mask
 
 
-def phase_timing(torch, pa, fa, dev):
+def phase_timing(torch, pa, fa, ss, dev):
     """kernel / plain / library / bound, in ms, for each kernel."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev)
@@ -325,15 +416,40 @@ def phase_timing(torch, pa, fa, dev):
             time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), fl, 50))),
         **dict(zip(("bound_ms", "bound_by"), bound(fbytes, fflops))))
+    # ssd: the hybrid path's longest prefill, as mamba_forward calls it
+    # (d_skip, no h0); no single PyTorch call computes the function
+    sgen = torch.Generator(device=dev)
+    sgen.manual_seed(7)
+    sd = [_ssd_inputs(torch, sgen, dev, torch.bfloat16, 1, SSD_S, 1)[:6]
+          for _ in range(6)]       # 6 x ~9 MB of inputs > 50 MB L2
+    x, dt, a_log, bm, cm, d_skip = sd[0]
+    q = min(64, SSD_S)
+    sbytes = (2 * x.numel() * 2 + dt.numel() * 4 + (bm.numel() + cm.numel())
+              * 2 + SSD_H * SSD_P * SSD_N * 4 + (a_log.numel()
+                                                 + d_skip.numel()) * 4)
+    tri = q * (q + 1) // 2         # the causal half of each chunk's products
+    sflops = (SSD_S // q) * SSD_H * 2 * (tri * (SSD_N + SSD_P)
+                                         + 2 * q * SSD_P * SSD_N)
+    out["ssd_scan"] = dict(
+        ms=time_ms(torch, lambda *a: ss.ssd_cuda(*a[:5], d_skip=a[5]), sd,
+                   50),
+        plain_ms=time_ms(torch, lambda *a: ss.ssd_plain(*a[:5], d_skip=a[5]),
+                         sd, 10),
+        library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"), bound(sbytes, sflops))))
     for name, t in out.items():
         shape = {"paged_decode_attention": "B=8 kv_len="
                  + str(DECODE_KV_LENS),
                  "paged_prefill_attention": f"B=1 Sq=16 chunk={chunk}",
                  "flash_attention": f"B=1 Hq={HQ} Hkv={HKV} D={D} "
-                                    f"S={FLASH_S} causal bf16"}[name]
+                                    f"S={FLASH_S} causal bf16",
+                 "ssd_scan": f"B=1 S={SSD_S} H={SSD_H} P={SSD_P} N={SSD_N} "
+                             "G=1 d_skip bf16"}[name]
+        lib = ("none" if t["library_ms"] is None else
+               f"{t['library_ms']:.4f} (SDPA; paged: on pre-gathered dense "
+               "K/V, gather excluded)")
         log(f"timing {name} ({shape}): kernel_ms={t['ms']:.4f} "
-            f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f}"
-            f" (SDPA; paged: on pre-gathered dense K/V, gather excluded) "
+            f"plain_ms={t['plain_ms']:.4f} library_ms={lib} "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
     return out
 
@@ -364,6 +480,12 @@ def _run_path(torch, model, params, pc_kw, prompt, n_decode, dev):
     return torch.cat(rows)
 
 
+def _cpu_copy(tree):
+    """Every leaf on the CPU in fp32 (the plain path's reference run)."""
+    return {k: _cpu_copy(v) if isinstance(v, dict) else v.float().cpu()
+            for k, v in tree.items()}
+
+
 def phase_checks(torch, cfgs, build_model, dev):
     """The model on the card (kernels) against the plain path on the CPU,
     on the same weights: a narrow fp32 copy of qwen3-0.6b at fp32
@@ -378,11 +500,7 @@ def phase_checks(torch, cfgs, build_model, dev):
                               (cfg, torch.bfloat16, None)):
         model = build_model(cfg_i)
         params = model.init(3, device=dev, dtype=dtype)
-
-        def to_cpu(tree):
-            return {k: to_cpu(v) if isinstance(v, dict) else v.float().cpu()
-                    for k, v in tree.items()}
-        cpu = to_cpu(params)
+        cpu = _cpu_copy(params)
         toks = [t % cfg_i.vocab_size for t in prompt]
         got = _run_path(torch, model, params, pc_kw, toks, 3, dev)
         want = _run_path(torch, model, cpu, pc_kw, toks, 3, "cpu")
@@ -476,7 +594,7 @@ def phase_serve(torch, cfgs, build_model, serving, kmods, dev, name):
     return runs[0][1], model, params
 
 
-def _dense_run(torch, serving, kmods, eng, reqs, label, name):
+def _serve_run(torch, kmods, eng, reqs, label, name):
     """One generate on the card with the counts zeroed just before and read
     just after; returns (tokens, launches)."""
     torch.cuda.synchronize()
@@ -489,7 +607,7 @@ def _dense_run(torch, serving, kmods, eng, reqs, label, name):
     launches = read_launches(kmods)
     s = eng.last_stats
     toks = [r.tokens for r in results]
-    log(f"dense {label} on {name}: wall_s={wall:.3f} "
+    log(f"{label} on {name}: wall_s={wall:.3f} "
         f"tokens_per_s={s.tokens_per_s:.1f} ttft_ms_mean={s.ttft_ms_mean:.1f}"
         f" tpot_ms_mean={s.tpot_ms_mean:.2f} decode_steps={s.decode_steps} "
         f"prefill_shapes={s.prefill_compiles} launches={launches} "
@@ -497,8 +615,8 @@ def _dense_run(torch, serving, kmods, eng, reqs, label, name):
     require(all(len(t) == r.max_new_tokens and
                 all(0 <= x < eng.model.cfg.vocab_size for x in t)
                 for t, r in zip(toks, reqs)),
-            f"dense {label}: every request must return max_new_tokens "
-            "in-vocab tokens")
+            f"{label}: every request must return max_new_tokens in-vocab "
+            "tokens")
     return toks, launches
 
 
@@ -522,8 +640,8 @@ def phase_dense(torch, serving, kmods, model, params, dev, name):
         for run in range(2):
             reqs = [serving.Request(p, SERVE_MAX_NEW, rid=i)
                     for i, p in enumerate(prompts)]
-            runs.append(_dense_run(torch, serving, kmods, eng, reqs,
-                                   f"{label} run {run}", name))
+            runs.append(_serve_run(torch, kmods, eng, reqs,
+                                   f"dense {label} run {run}", name))
             launches = runs[-1][1]
             require(launches["flash_attention"] == cfg.n_layers * prefills,
                     f"dense {label}: flash launches {launches} != "
@@ -563,8 +681,8 @@ def phase_dense(torch, serving, kmods, model, params, dev, name):
         reqs = [serving.Request(p, SERVE_MAX_NEW,
                                 SAMPLED_TEMPERATURE if i % 2 else 0.0, rid=i)
                 for i, p in enumerate(prompts)]
-        runs.append(_dense_run(torch, serving, kmods, eng, reqs,
-                               f"sampled run {run}", name)[0])
+        runs.append(_serve_run(torch, kmods, eng, reqs,
+                               f"dense sampled run {run}", name)[0])
     require(runs[0] == runs[1], "sampled: a repeat run changed the tokens")
     require(all(runs[0][i] == greedy[i] for i in range(0, n, 2)),
             "sampled: a greedy row changed beside sampled rows")
@@ -586,6 +704,198 @@ def phase_dense(torch, serving, kmods, model, params, dev, name):
         f"logits, host wall ms per step (to tokens on the host): "
         f"{(time.perf_counter() - t0) / 10 * 1e3:.3f}")
     return main_launches
+
+
+def _hybrid_logits(torch, model, params, prompt, n_decode, dev):
+    """Prefill of ``prompt`` (B = 1), then ``n_decode`` greedy steps;
+    returns every logits row on the CPU in fp32."""
+    logits, cache = model.prefill(params, {"tokens": torch.tensor(
+        [prompt], dtype=torch.int32, device=dev)}, cache_len=1024)
+    rows = [logits.float().cpu()]
+    for _ in range(n_decode):
+        feed = torch.tensor([[int(rows[-1].argmax())]], dtype=torch.int32,
+                            device=dev)
+        logits, cache = model.decode(params, cache, feed)
+        rows.append(logits.float().cpu())
+    return torch.cat(rows)
+
+
+def phase_hybrid_checks(torch, cfgs, build_model, dev):
+    """zamba2 on the card (SSD and flash kernels) against the plain path on
+    the CPU, on the same weights.  A narrow fp32 copy with a tail layer: a
+    192-token prefill (three SSD chunks) and 3 decode steps at 1e-4.  The
+    full-width model's first-token logits at prompts of 64 and 960 tokens:
+    in fp32, card against CPU within 1e-4 of their scale; in bf16, the
+    card's distance from the fp32 logits at most 1.5 times the CPU plain
+    path's own bf16 distance.  (bf16 rounding noise compounds through the
+    38 recurrent layers: the CPU's own bf16 logits sit about 6% of the
+    scale from its fp32 ones, so a fixed 4% bound, as qwen3's check uses,
+    cannot hold for any bf16 run of this model.)"""
+    cfg = cfgs.get_config("zamba2-1.2b")
+    narrow = dataclasses.replace(cfg, n_layers=7, shared_attn_every=3,
+                                 d_model=256, d_ff=512, vocab_size=1000)
+    rng = torch.Generator().manual_seed(8)
+
+    def prompt(n, vocab):
+        return torch.randint(0, vocab, (n,), generator=rng).tolist()
+
+    def report(label, err, scale, atol):
+        ok = err <= atol
+        log(f"check {label}: max_abs_err={err:.3e} (scale {scale:.3e}, "
+            f"atol {atol:.3e}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"{label}: the card's logits disagree with the plain "
+                    "CPU path")
+
+    model = build_model(narrow)
+    params = model.init(3, device=dev, dtype=torch.float32)
+    p = prompt(192, narrow.vocab_size)
+    got = _hybrid_logits(torch, model, params, p, 3, dev)
+    want = _hybrid_logits(torch, model, _cpu_copy(params), p, 3, "cpu")
+    require(bool(torch.isfinite(got).all()), "narrow zamba2: non-finite")
+    report(f"{narrow.name} L=7 d=256 float32 prompt_len=192 decode=3, card "
+           "vs CPU", (got - want).abs().max().item(),
+           want.abs().max().item(), TOL_FP32)
+
+    def like(tree, ref, device):
+        """``tree`` on ``device`` at ``ref``'s leaf dtypes."""
+        return {k: like(v, ref[k], device) if isinstance(v, dict)
+                else v.to(device=device, dtype=ref[k].dtype)
+                for k, v in tree.items()}
+    model = build_model(cfg)
+    params = model.init(3, device=dev)
+    cpu32 = _cpu_copy(params)
+    card32 = like(cpu32, cpu32, dev)
+    cpu16 = like(cpu32, params, "cpu")
+    for n in (64, SSD_S):
+        p = prompt(n, cfg.vocab_size)
+        want = _hybrid_logits(torch, model, cpu32, p, 0, "cpu")
+        scale = want.abs().max().item()
+        runs = {k: _hybrid_logits(torch, model, prm, p, 0, d) for k, prm, d in
+                (("card fp32", card32, dev), ("card bf16", params, dev),
+                 ("cpu bf16", cpu16, "cpu"))}
+        require(all(bool(torch.isfinite(r).all()) for r in runs.values()),
+                "zamba2: non-finite logits")
+        err = {k: (r - want).abs().max().item() for k, r in runs.items()}
+        report(f"{cfg.name} L={cfg.n_layers} float32 prompt_len={n}, card "
+               "vs CPU", err["card fp32"], scale, TOL_FP32 * scale)
+        report(f"{cfg.name} L={cfg.n_layers} bfloat16 prompt_len={n}, card "
+               f"bf16 vs CPU fp32 (CPU bf16 vs CPU fp32: "
+               f"{err['cpu bf16']:.3e}, {err['cpu bf16'] / scale:.4f} of "
+               f"scale; card bf16 {err['card bf16'] / scale:.4f})",
+               err["card bf16"], scale, 1.5 * err["cpu bf16"])
+    del params, card32, cpu32, cpu16
+    torch.cuda.empty_cache()
+
+
+def _drain_session(torch, eng, reqs, preempt=None):
+    """Serve ``reqs`` through the session API (admit all, step to the end).
+    ``preempt=(rid, steps)``: after ``steps`` decode steps the request
+    ``rid`` is preempted and at once re-admitted.  Returns (tokens per rid,
+    the requeued request or None, the live cache before the session
+    closes, the session's metrics)."""
+    eng.begin_session()
+    for i, r in enumerate(reqs):
+        require(eng.session_admit(r, tag=i) is None,
+                "hybrid: a request finished at admission")
+    out, requeued, steps = {}, None, 0
+    while eng.session_active:
+        for tag, res in eng.session_step():
+            out[tag] = res.tokens
+        steps += 1
+        if preempt is not None and steps == preempt[1]:
+            slot = next(i for i, sl in eng.session_slots()
+                        if sl.req.rid == preempt[0])
+            tag, requeued = eng.session_preempt(slot)
+            eng.session_admit(requeued, tag=tag)
+    cache = eng._sess.cache
+    eng.end_session()
+    torch.cuda.synchronize()
+    return [out[i] for i in range(len(reqs))], requeued, cache, \
+        eng.last_metrics
+
+
+def phase_hybrid(torch, cfgs, build_model, serving, kmods, dev, name):
+    """zamba2-1.2b served at full width; returns (the launches of its
+    continuous run, model, params)."""
+    import numpy as np
+    cfg = cfgs.get_config("zamba2-1.2b")
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    n_attn = cfg.n_layers // cfg.shared_attn_every
+    log(f"hybrid: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"shared attention after every {cfg.shared_attn_every} "
+        f"({n_attn} blocks) vocab={cfg.vocab_size} params={model.n_params} "
+        f"bf16 on {name}")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in HYBRID_PROMPT_LENS]
+    eng = serving.ServeEngine(model, params, max_batch=8, cache_len=1024)
+
+    def counted(launches, label, prefills):
+        ssd = cfg.n_layers * prefills
+        require(launches["ssd_scan"] == ssd
+                and launches["flash_attention"] == n_attn * prefills
+                and launches["paged_decode_attention"] == 0
+                and launches["paged_prefill_attention"] == 0,
+                f"hybrid {label}: launches {launches}, expected ssd_scan "
+                f"{ssd} and flash_attention {n_attn * prefills}")
+
+    runs = []
+    for run in range(2):
+        reqs = [serving.Request(p, SERVE_MAX_NEW, rid=i)
+                for i, p in enumerate(prompts)]
+        runs.append(_serve_run(torch, kmods, eng, reqs,
+                               f"hybrid continuous run {run}", name))
+        counted(runs[-1][1], "continuous", len(prompts))
+    require(runs[0][0] == runs[1][0],
+            "hybrid continuous: a repeat run changed the tokens")
+    for rid, t in enumerate(runs[0][0]):
+        log(f"hybrid continuous rid={rid} prompt_len={len(prompts[rid])} "
+            f"tokens={t}")
+    log("hybrid continuous: repeat run token-identical")
+
+    n_uni, len_uni = HYBRID_UNIFORM
+    uniform = [rng.integers(0, cfg.vocab_size, len_uni).tolist()
+               for _ in range(n_uni)]
+    modes = {}
+    for mode in ("continuous", "lockstep"):
+        e = serving.ServeEngine(model, params, max_batch=8, cache_len=1024,
+                                mode=mode)
+        reqs = [serving.Request(p, SERVE_MAX_NEW, rid=i)
+                for i, p in enumerate(uniform)]
+        modes[mode], launches = _serve_run(
+            torch, kmods, e, reqs, f"hybrid {mode} uniform {n_uni}x{len_uni}",
+            name)
+        counted(launches, f"{mode} uniform", n_uni)  # lockstep: row by row
+    require(modes["lockstep"] == modes["continuous"],
+            "hybrid: lockstep and continuous differ on the uniform trace")
+    log("hybrid lockstep == continuous on the uniform trace")
+
+    reqs = [serving.Request(p, SERVE_MAX_NEW, SAMPLED_TEMPERATURE
+                            if i == PREEMPT_RID else 0.0, rid=i)
+            for i, p in enumerate(prompts)]
+    whole, _, cache, _ = _drain_session(torch, eng, reqs)
+    for k in ("conv", "ssm", "attn_k", "attn_v", "pos"):
+        require(not bool(cache[k].any()),
+                f"hybrid: freed slots' {k} is not zero after the drain")
+    log("hybrid: after the drain every freed slot's conv, ssm, attn_k, "
+        "attn_v and pos are zero")
+    resumed, requeued, _, metrics = _drain_session(
+        torch, eng, reqs, preempt=(PREEMPT_RID, PREEMPT_AFTER))
+    replayed = metrics.counter("resume_replay_tokens").n
+    log(f"hybrid preempt: rid={PREEMPT_RID} temperature="
+        f"{SAMPLED_TEMPERATURE} preempted after {PREEMPT_AFTER} decode "
+        f"steps with done={len(requeued.done)} tokens, replayed {replayed}; "
+        f"tokens={resumed[PREEMPT_RID]}")
+    require(len(requeued.done) == PREEMPT_AFTER + 1
+            and replayed == len(requeued.done),
+            f"hybrid preempt: done {len(requeued.done)}, replayed "
+            f"{replayed}, expected {PREEMPT_AFTER + 1} each")
+    require(resumed == whole, "hybrid preempt: the resumed stream differs "
+                              "from the uninterrupted run")
+    log("hybrid preempt + replay: every row token-identical to the "
+        "uninterrupted run")
+    return runs[0][1], model, params
 
 
 def _profile(torch, fn, n):
@@ -643,11 +953,39 @@ def phase_profile(torch, model, params, dev):
     def dense_prefill():
         model.prefill(params, prompt, cache_len=1024)
 
-    for name, fn in (("paged decode step (B=8)", decode),
-                     ("paged prefill chunk 20 (B=1, 16 tokens)", prefill),
-                     ("dense decode step (B=8)", dense_decode),
-                     (f"dense prefill (B=1, {FLASH_S} tokens)",
-                      dense_prefill)):
+    _profile_calls(torch, cfg.name, (
+        ("paged decode step (B=8)", decode),
+        ("paged prefill chunk 20 (B=1, 16 tokens)", prefill),
+        ("dense decode step (B=8)", dense_decode),
+        (f"dense prefill (B=1, {FLASH_S} tokens)", dense_prefill)))
+
+
+def phase_hybrid_profile(torch, model, params, dev):
+    """A zamba2 decode step over 8 slots at the hybrid trace's positions,
+    and one prefill of its longest prompt."""
+    prompt = {"tokens": torch.zeros((1, SSD_S), dtype=torch.int32,
+                                    device=dev)}
+    hc = model.cache_expand(model.prefill(params, prompt,
+                                          cache_len=1024)[1], B)
+    lens = torch.tensor(HYBRID_PROMPT_LENS, dtype=torch.int32, device=dev)
+    feed = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+
+    def decode():
+        hc["pos"] = lens.clone()
+        model.decode(params, hc, feed)
+
+    def prefill():
+        model.prefill(params, prompt, cache_len=1024)
+
+    _profile_calls(torch, model.cfg.name, (
+        ("hybrid decode step (B=8)", decode),
+        (f"hybrid prefill (B=1, {SSD_S} tokens)", prefill)))
+
+
+def _profile_calls(torch, cfg_name, calls):
+    """Wall ms per call (host clock around synchronized calls), device
+    kernel ms and busy share from torch.profiler, and the top kernels."""
+    for name, fn in calls:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -659,7 +997,7 @@ def phase_profile(torch, model, params, dev):
         dev_ms, top = _profile(torch, fn, 3)
         busy = (f"device_kernel_ms={dev_ms:.3f} busy_share={dev_ms / wall:.3f}"
                 if dev_ms is not None else "device time not captured")
-        log(f"profile {cfg.name} {name}: wall_ms={wall:.3f} {busy}")
+        log(f"profile {cfg_name} {name}: wall_ms={wall:.3f} {busy}")
         for kname, ms, count in top:
             log(f"profile   {ms:8.4f} ms x{count} {kname}")
 
@@ -680,6 +1018,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import build_model
 
     t_start = time.perf_counter()
@@ -689,18 +1028,26 @@ def main() -> int:
         name = torch.cuda.get_device_name(0)
         log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__}"
             f" cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
-        kmods = (pa, fa)
+        kmods = (pa, fa, ss)
         phase_build(build)
         errs = phase_parity(torch, pa, dev)
         errs["flash_attention"] = phase_flash_parity(torch, fa, dev)
-        times = phase_timing(torch, pa, fa, dev)
+        errs["ssd_scan"] = phase_ssd_parity(torch, ss, dev)
+        times = phase_timing(torch, pa, fa, ss, dev)
         phase_checks(torch, cfgs, build_model, dev)
+        phase_hybrid_checks(torch, cfgs, build_model, dev)
         launches, model, params = phase_serve(torch, cfgs, build_model,
                                               serving, kmods, dev, name)
         launches["flash_attention"] = phase_dense(
             torch, serving, kmods, model, params, dev, name)[
                 "flash_attention"]
         phase_profile(torch, model, params, dev)
+        del params
+        torch.cuda.empty_cache()
+        hybrid_launches, hmodel, hparams = phase_hybrid(
+            torch, cfgs, build_model, serving, kmods, dev, name)
+        launches["ssd_scan"] = hybrid_launches["ssd_scan"]
+        phase_hybrid_profile(torch, hmodel, hparams, dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

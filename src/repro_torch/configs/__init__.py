@@ -10,6 +10,7 @@ from .base import ModelConfig
 ARCHS = {
     "qwen3-0.6b": "qwen3_0_6b",
     "qwen2.5-3b": "qwen2_5_3b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 

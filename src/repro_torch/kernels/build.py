@@ -39,6 +39,11 @@ SIGNATURES = {
         "repro_flash_attention":
             (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     },
+    "ssd_scan.cu": {
+        "repro_ssd_scan":
+            (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+             _I, _P),
+    },
     "paged_attention.cu": {
         "repro_paged_decode_attention":
             (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -7,8 +7,9 @@ The implementation follows the tensor's device, and nothing else:
 * any other device raises.
 
 There is no environment override and no fallback: a CUDA tensor never
-reaches a plain version through this module.  ``decode_attention`` has no
-kernel (the reference leaves it to XLA) and is plain PyTorch everywhere.
+reaches a plain version through this module.  ``decode_attention`` and
+``ssd_step`` have no kernel (the reference leaves them to XLA) and are
+plain PyTorch everywhere.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from .paged_attention import (paged_decode_attention_cuda,
                               paged_decode_attention_plain,
                               paged_prefill_attention_cuda,
                               paged_prefill_attention_plain)
+from .ssd_scan import ssd_cuda, ssd_plain, ssd_step_plain
 
 
 def _pick(x, plain, cuda, what: str):
@@ -91,3 +93,19 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, q_start, *,
     fn = _pick(q, paged_prefill_attention_plain,
                paged_prefill_attention_cuda, "paged_prefill_attention")
     return fn(q, k_pool, v_pool, block_table, q_start, scale=scale)
+
+
+def ssd_scan(x, dt, a_log, b_mat, c_mat, *, d_skip=None, h0=None):
+    """Mamba2 SSD chunked scan (chunk ``min(64, S)``).  x: (B, S, H, P),
+    dt: (B, S, H) fp32, a_log: (H,), b_mat/c_mat: (B, S, G, N); optional
+    d_skip (H,) and initial state h0 (B, H, P, N).  Returns (y, h_final
+    (B, H, P, N) fp32).  A CUDA tensor always launches the kernel, with or
+    without ``h0`` (the reference sends ``h0`` to XLA)."""
+    fn = _pick(x, ssd_plain, ssd_cuda, "ssd_scan")
+    return fn(x, dt, a_log, b_mat, c_mat, d_skip=d_skip, h0=h0)
+
+
+def ssd_step(h_state, xt, dtt, a_log, bt, ct, *, d_skip=None):
+    """One-token SSD recurrence (decode).  Plain PyTorch on every device,
+    as the reference leaves it to XLA (``ssd_step_xla``)."""
+    return ssd_step_plain(h_state, xt, dtt, a_log, bt, ct, d_skip=d_skip)

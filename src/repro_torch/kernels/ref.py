@@ -1,7 +1,8 @@
 """Plain PyTorch oracles for the port's kernels, mirroring the dense and
-paged attention oracles of ``repro/kernels/ref.py``: deliberately naive,
-fully materialized, fp32 math.  Tests hold them against the reference's
-oracles; the plain paged paths share the table gather."""
+paged attention oracles and the SSD recurrence of ``repro/kernels/ref.py``:
+deliberately naive, fully materialized or sequential, fp32 math.  Tests
+hold them against the reference's oracles; the plain paged paths share the
+table gather."""
 from __future__ import annotations
 
 import math
@@ -67,3 +68,30 @@ def paged_prefill_attention_ref(q, k_pool, v_pool, block_table, q_start, *,
     logits = logits.masked_fill(~mask[:, None], float("-inf"))
     p = _softmax_rows(logits)
     return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
+
+
+def ssd_ref(x, dt, a_log, b_mat, c_mat, *, d_skip=None, h0=None):
+    """Mamba2 SSD, the exact sequential recurrence (the oracle).
+
+    x: (B, S, H, P), dt: (B, S, H), a_log: (H,) (A = -exp(a_log) < 0),
+    b_mat/c_mat: (B, S, G, N) with H % G == 0, optional d_skip: (H,),
+    h0: (B, H, P, N) initial state.  Returns (y in x's dtype, h_final fp32)."""
+    bsz, s, h, p = x.shape
+    rep = h // b_mat.shape[2]
+    a = -torch.exp(a_log.float())
+    bh = b_mat.float().repeat_interleave(rep, dim=2)           # (B, S, H, N)
+    ch = c_mat.float().repeat_interleave(rep, dim=2)
+    xf, dtf = x.float(), dt.float()
+    state = (torch.zeros((bsz, h, p, b_mat.shape[3]), device=x.device)
+             if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * a)                        # (B, H)
+        dx = dtf[:, t, :, None] * xf[:, t]                      # (B, H, P)
+        state = (decay[..., None, None] * state
+                 + dx[..., None] * bh[:, t, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
+    y = torch.stack(ys, dim=1)
+    if d_skip is not None:
+        y = y + d_skip.float()[None, None, :, None] * xf
+    return y.to(x.dtype), state

@@ -22,10 +22,13 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class PT:
     """Param template: shape + init scheme (``normal | zeros | ones |
-    scaled``) + stddev override."""
+    scaled | ssm_dt | ssm_a``) + stddev override + the leaf's own dtype
+    (None: the dtype ``init_params`` is given; Mamba2's ``a_log``,
+    ``dt_bias`` and ``d_skip`` stay fp32, as in the reference)."""
     shape: tuple[int, ...]
     init: str = "normal"
     scale: float | None = None
+    dtype: torch.dtype | None = None
 
 
 def stack_layers(template: dict, n_layers: int) -> dict:
@@ -42,10 +45,17 @@ def leaf_path(path: tuple[str, ...]) -> str:
 
 
 def _init_leaf(t: PT, gen: torch.Generator, device, dtype) -> torch.Tensor:
+    dtype = t.dtype or dtype
     if t.init == "zeros":
         return torch.zeros(t.shape, dtype=dtype, device=device)
     if t.init == "ones":
         return torch.ones(t.shape, dtype=dtype, device=device)
+    if t.init in ("ssm_dt", "ssm_a"):
+        u = torch.rand(t.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        if t.init == "ssm_dt":    # dt bias: softplus^-1 of U(0.001, 0.1)
+            return torch.log(torch.expm1(0.001 + 0.099 * u)).to(dtype)
+        return torch.log(1.0 + 15.0 * u).to(dtype)    # a_log: log U(1, 16)
     if t.init == "scaled":     # fan-in scaled normal
         fan_in = t.shape[-2] if len(t.shape) >= 2 else t.shape[-1]
         std = t.scale if t.scale is not None else 1.0 / math.sqrt(fan_in)
@@ -84,6 +94,12 @@ def init_params(templates: dict, seed: int, *, device,
     return out
 
 
+def tree_index(tree: dict, i: int) -> dict:
+    """Entry ``i`` of every leaf of a stacked tree (views, no copies)."""
+    return {k: tree_index(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
 def param_count(templates: dict) -> int:
     return sum(param_count(v) if isinstance(v, dict)
                else int(np.prod(v.shape)) for v in templates.values())
@@ -102,6 +118,12 @@ def rmsnorm(w, x, eps=1e-6):
 
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (``F.softplus`` switches to
+    the identity above a threshold of 20, which the reference does not)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 # ---------------------------------------------------------------------------

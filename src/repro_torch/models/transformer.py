@@ -16,7 +16,7 @@ from .attention import (attn_decode, attn_decode_paged, attn_prefill,
                         attn_prefill_paged, attn_templates)
 from .layers import (PT, embed_lookup, embed_templates, rmsnorm,
                      rope_cos_sin, stack_layers, swiglu_apply,
-                     swiglu_templates)
+                     swiglu_templates, tree_index)
 
 # ---------------------------------------------------------------------------
 # Templates.
@@ -45,10 +45,7 @@ def decoder_templates(cfg) -> dict:
 
 def layer_params(params, i: int) -> dict:
     """Layer ``i``'s slice of the stacked layer tree (views, no copies)."""
-    def take(tree):
-        return {k: take(v) if isinstance(v, dict) else v[i]
-                for k, v in tree.items()}
-    return take(params["layers"])
+    return tree_index(params["layers"], i)
 
 
 def lm_head_weight(params, cfg):

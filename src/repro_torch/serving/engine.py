@@ -42,13 +42,20 @@ blocks instead of recomputing them.  A request whose whole prefill is
 covered re-runs its final chunk (its logits seed the first token) behind a
 **copy-on-write** barrier (``_cow_block``).
 
+Scan families (hybrid) serve on the dense slot layout only: a prefill
+folds every position into recurrent state, so ``bucket=`` is refused, and
+there is no block pool to page.  A freed slot's state is zeroed
+(``model.cache_slot_reset``), and a preempted request resumes by *replay*
+(``_replay_done``): the prompt is prefilled and the generated tokens are
+stepped through the decode recurrence again, byte-exactly.
+
 The reference's jitted, donated calls become direct calls that update the
 cache tensors in place.  Sampling keeps the reference's request-keyed
 contract (``_sample_rows``): greedy rows take the argmax, sampled rows draw
 JAX's threefry streams bit for bit (``serving.sampling``).
 
-Not ported yet (later slices): ``_replay_done`` (scan families),
-``extra_inputs`` (vlm / encdec) and utilization attribution.
+Not ported yet (later slices): ``extra_inputs`` (vlm / encdec) and
+utilization attribution.
 """
 from __future__ import annotations
 
@@ -340,10 +347,14 @@ class ServeEngine:
             raise ValueError(f"bucket={bucket!r}: expected None, 'pow2' or "
                              "a positive integer")
         if bucket and not model.supports_prefill_len:
-            raise ValueError(f"bucket={bucket!r}: family "
-                             f"{model.cfg.family!r} prefill cannot mask "
-                             "right-pads")
+            raise ValueError(
+                f"bucket={bucket!r}: family {model.cfg.family!r} prefill "
+                "cannot mask right-pads (recurrent state would absorb "
+                "them); drop bucket= for scan families")
         mode = "continuous" if mode == "auto" else mode
+        if kv_layout == "paged" and model.decode_paged is None:
+            raise ValueError(f"kv_layout='paged': family "
+                             f"{model.cfg.family!r} has no paged cache hooks")
         if kv_layout == "paged" and mode != "continuous":
             raise ValueError(
                 "kv_layout='paged' requires the continuous scheduler")
@@ -489,7 +500,11 @@ class ServeEngine:
 
     def _check_budget(self, prefill_pos: int, max_new: int, rid) -> None:
         """Every position written past prefill must fit ``cache_len``: the
-        per-slot strip length (dense) or the block table's width (paged)."""
+        per-slot strip length (dense) or the block table's width (paged).
+        A family whose state is unbounded in context (``model.bounded_cache``
+        False: hybrid's recurrent state and wrapping ring) has no budget."""
+        if not self.model.bounded_cache:
+            return
         writes = prefill_pos + max(max_new - 1, 0)
         if writes > self.cache_len:
             raise ValueError(
@@ -751,13 +766,35 @@ class ServeEngine:
         sess.rids[slot] = r.rid
         return None
 
+    def _replay_done(self, sub, done):
+        """Rebuild a preempted scan-family request's state from its
+        prompt-only prefill cache ``sub`` by feeding each ``done`` token
+        through the decode step, as the uninterrupted run did: a prefill of
+        prompt + done is the same function in another summation order, and
+        would perturb the resumed stream.  The replay pool is as wide as the
+        engine's (the request in slot 0, the other rows idle), so every
+        call has the shapes the uninterrupted run's decode had: on the card
+        a kernel's summation order may follow its shapes.  Returns (the
+        logits for stream index ``len(done)``, a batch-1 view of the
+        replayed cache for ``cache_slot_write``)."""
+        mini = self.model.cache_slot_write(
+            self.model.cache_expand(sub, self.max_batch), sub, 0)
+        feed = torch.zeros((self.max_batch, 1), dtype=torch.int32,
+                           device=self.device)
+        logits = None
+        for t in done:
+            feed[0, 0] = t
+            logits, mini = self.model.decode(self.params, mini, feed)
+        return logits[:1], dict(mini, pos=mini["pos"][:1])
+
     def _admit_dense(self, sess: _Session, r: Request, tag: int, slot: int,
                      admit_seq: int, t0: float,
                      enqueue_t: float | None) -> Result | None:
-        """Prefill ``r`` (prompt + done, in one pass: KV families re-admit
-        byte-exactly) into dense slot ``slot`` and sample its first token.
-        With ``bucket`` the prompt is right-padded to its bucket and the
-        true length rides in ``prefill_len``."""
+        """Prefill ``r`` into dense slot ``slot`` and sample its first token.
+        KV families prefill prompt + done in one pass (re-admitting
+        byte-exactly); scan families prefill the prompt and replay ``done``
+        (``_replay_done``).  With ``bucket`` the prompt is right-padded to
+        its bucket and the true length rides in ``prefill_len``."""
         tr = self.tracer
         if tr.enabled:
             tr.instant(self._slot_track(slot), "admit", rid=r.rid,
@@ -766,7 +803,8 @@ class ServeEngine:
             if r.requeues:
                 tr.flow_end(self._slot_track(slot), "preempt_flow",
                             f"preempt-{r.rid}-{r.requeues}")
-        seq = list(r.prompt) + list(r.done)
+        replay = bool(r.done) and self.model.cache_slot_reset is not None
+        seq = list(r.prompt) + ([] if replay else list(r.done))
         plen = len(seq)
         toks = np.zeros((1, self._bucket_len(plen)), np.int32)
         toks[0, :plen] = seq
@@ -777,6 +815,9 @@ class ServeEngine:
         self._prefill_shapes.add(toks.shape[1])
         logits, sub = self.model.prefill(self.params, batch,
                                          cache_len=self.cache_len)
+        if replay:
+            logits, sub = self._replay_done(sub, r.done)
+            sess.metrics.counter("resume_replay_tokens").inc(len(r.done))
         if sess.cache is None:
             sess.cache = self.model.cache_expand(sub, self.max_batch)
         sess.cache = self.model.cache_slot_write(sess.cache, sub, slot)
@@ -801,7 +842,8 @@ class ServeEngine:
             ttft_ms = r.first_ttft_ms   # re-admission: keep the real TTFT
         self._emit_token(sess, r, tok, len(r.done))
         s = _Slot(req=r, tag=tag, tokens=[tok], ttft_ms=ttft_ms,
-                  admit_seq=admit_seq, prefill_pos=plen, admit_t=t0,
+                  admit_seq=admit_seq,
+                  prefill_pos=len(r.prompt) + len(r.done), admit_t=t0,
                   enqueue_t=enqueue_t, span_t0=t0, first_tok_t=t1)
         if len(r.done) + 1 >= r.max_new_tokens:
             res = self._finish(s)       # satisfied by prefill alone
@@ -1103,13 +1145,19 @@ class ServeEngine:
                    tokens=len(s.req.done) + len(s.tokens))
 
     def _release(self, s: _Slot, i: int) -> None:
-        """Free slot ``i``'s cache-side state.  dense: nothing - the strip
-        is masked by the slot's pos and fully rewritten at the next
-        admission.  paged: drop the slot's block references (an unshared
-        block returns to the pool, a registered last reference parks in
-        the cached LRU) and park its table row on the null block so idle
-        decode writes cannot touch recycled blocks."""
+        """Free slot ``i``'s cache-side state.  dense, scan family: zero the
+        slot's state and position (``model.cache_slot_reset``), so nothing
+        of the finished or preempted request survives in the pool.  dense,
+        KV family: nothing - the strip is masked by the slot's pos and
+        fully rewritten at the next admission.  paged: drop the slot's block
+        references (an unshared block returns to the pool, a registered
+        last reference parks in the cached LRU) and park its table row on
+        the null block so idle decode writes cannot touch recycled
+        blocks."""
         if self.kv_layout != "paged":
+            reset = self.model.cache_slot_reset
+            if reset is not None and self._sess.cache is not None:
+                self._sess.cache = reset(self._sess.cache, i)
             return
         if self.tracer.enabled and s.blocks:
             self.tracer.instant("pool", "kv_free", rid=s.req.rid,

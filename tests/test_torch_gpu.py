@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServeEngine
 
@@ -239,3 +240,101 @@ def test_dense_engine_on_card_matches_cpu(cuda):
     sampled = [Request(p, 6, 0.7, rid=i) for i, p in enumerate(prompts)]
     first = [r.tokens for r in eng.generate(sampled)]
     assert first == [r.tokens for r in eng.generate(sampled)]
+
+
+def _ssd_case(seed, b, s, h, p, g, n, dtype, dev):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    x = rng.standard_normal((b, s, h, p), f32)
+    dt = np.logaddexp(rng.standard_normal((b, s, h), f32) - 2.0, 0.0)
+    a_log = np.log(rng.uniform(1.0, 16.0, h)).astype(f32)
+    bm = rng.standard_normal((b, s, g, n), f32) * 0.3
+    cm = rng.standard_normal((b, s, g, n), f32) * 0.3
+    d_skip = rng.standard_normal(h, f32)
+    h0 = rng.standard_normal((b, h, p, n), f32) * 0.2
+    t = [torch.from_numpy(np.ascontiguousarray(a, f32)).to(dev)
+         for a in (x, dt, a_log, bm, cm, d_skip, h0)]
+    for i in (0, 3, 4):
+        t[i] = t[i].to(dtype)
+    return t
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_ssd_kernel_matches_plain(cuda, dtype, tol):
+    """The SSD kernel against its plain version: one ragged chunk (S = 7,
+    33) and several (S = 128, 192), groups 1, 2 and 4, P = 20 (a short
+    16-row slice), with and without h0 and d_skip.  y at fp32 1e-4 (other
+    summation orders) or bf16 1e-2 (outputs rounded from fp32); the final
+    state, fp32 in both, at 1e-4."""
+    for seed, (b, s, h, p, g, n) in enumerate([
+            (1, 7, 4, 16, 1, 16), (2, 33, 4, 20, 2, 8),
+            (2, 128, 8, 16, 4, 32), (1, 192, 4, 64, 1, 64)]):
+        x, dt, a_log, bm, cm, d_skip, h0 = _ssd_case(seed, b, s, h, p, g, n,
+                                                     dtype, cuda)
+        for kw in (dict(), dict(d_skip=d_skip, h0=h0), dict(h0=h0)):
+            n0 = ss.LAUNCHES["ssd_scan"]
+            y, hf = ss.ssd_cuda(x, dt, a_log, bm, cm, **kw)
+            assert ss.LAUNCHES["ssd_scan"] == n0 + 1
+            yp, hp = ss.ssd_plain(x, dt, a_log, bm, cm, **kw)
+            torch.cuda.synchronize()
+            assert y.dtype == dtype and hf.dtype == torch.float32
+            assert torch.isfinite(y.float()).all()
+            torch.testing.assert_close(y.float(), yp.float(), rtol=tol,
+                                       atol=tol)
+            torch.testing.assert_close(hf, hp, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, a_log, bm, cm, d_skip, h0 = _ssd_case(9, 1, 64, 4, 16, 2, 8,
+                                                 torch.float32, cuda)
+    before = dict(ss.LAUNCHES)
+    with pytest.raises(TypeError):
+        ss.ssd_cuda(x.half(), dt, a_log, bm.half(), cm.half())
+    with pytest.raises(TypeError):
+        ss.ssd_cuda(x, dt, a_log, bm.bfloat16(), cm)
+    with pytest.raises(TypeError):
+        ss.ssd_cuda(x, dt.double(), a_log, bm, cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
+                    a_log, bm, cm)
+    with pytest.raises(ValueError, match="shapes"):
+        ss.ssd_cuda(x, dt, a_log, bm[:, :, :1].repeat(1, 1, 3, 1).contiguous(),
+                    cm[:, :, :1].repeat(1, 1, 3, 1).contiguous())  # G = 3
+    with pytest.raises(ValueError, match="shapes"):
+        ss.ssd_cuda(x, dt, a_log, bm, cm, h0=h0[:, :2].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssd_cuda(x, dt, a_log, bm, cm, d_skip=d_skip.cpu())
+    with pytest.raises(ValueError, match="multiple"):
+        ss.ssd_cuda(*_ssd_case(9, 1, 200, 4, 16, 2, 8, torch.float32,
+                               cuda)[:5])
+    assert ss.LAUNCHES == before
+
+
+def test_hybrid_engine_on_card_matches_cpu(cuda):
+    """The fp32 zamba2 smoke model: the card's greedy tokens equal the
+    CPU's, the SSD kernel runs once per Mamba2 layer and prefill, and a
+    preempted request resumes on the card exactly."""
+    cfg = smoke_config("zamba2-1.2b")
+    model = build_model(cfg)
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    prompts = [list(range(1, 1 + n)) for n in (3, 20, 64)]
+    reqs = [Request(p, 6, rid=i) for i, p in enumerate(prompts)]
+    want = [r.tokens for r in ServeEngine(model, params, max_batch=2,
+                                          cache_len=64).generate(reqs)]
+    on_card = _params_on(params, cuda)
+    eng = ServeEngine(model, on_card, max_batch=2, cache_len=64)
+    ss.reset_launches()
+    assert [r.tokens for r in eng.generate(reqs)] == want
+    assert ss.LAUNCHES["ssd_scan"] == cfg.n_layers * len(prompts)
+    eng.begin_session()
+    eng.session_admit(reqs[2], tag=0)
+    eng.session_step()
+    _, requeued = eng.session_preempt(0)
+    eng.session_admit(requeued, tag=0)
+    got = None
+    while eng.session_active:
+        for _, res in eng.session_step():
+            got = res.tokens
+    eng.end_session()
+    assert got == want[2]

@@ -118,10 +118,10 @@ def test_bridge_carries_bf16_bits_and_rejects_mismatches():
 
 
 def test_registry_and_templates_match_reference():
-    """The port builds the dense archs qwen3-0.6b and qwen2.5-3b, with the
-    reference's configs and the reference's param trees (names and shapes)
-    at full width."""
-    assert list_archs() == ["qwen2.5-3b", "qwen3-0.6b"]
+    """The port builds the dense archs qwen3-0.6b and qwen2.5-3b and the
+    hybrid zamba2-1.2b, with the reference's configs and the reference's
+    param trees (names and shapes) at full width."""
+    assert list_archs() == ["qwen2.5-3b", "qwen3-0.6b", "zamba2-1.2b"]
 
     def shapes(t, f):
         return {k: shapes(v, f) if isinstance(v, dict) else f(v)
