@@ -49,7 +49,19 @@ Phases, each of which exits non-zero on failure:
               drain;
 9. profile  - wall and device time of one full-width decode step and one
               prefill (chunk) of each path, with the top kernels
-              (torch.profiler).
+              (torch.profiler);
+10. pool    - the paper's kernel pool (matmul, dotproduct, softmax,
+              conv2d): each kernel against its plain version in fp32 and
+              bf16 at the reference's benchmark sizes, at sizes that fill
+              the card and on ragged shapes, dotproduct also
+              bit-identical when called again; then the pool's entry
+              point, ``repro_torch.launch.ideality``, at both ladders of
+              sizes, the counts zeroed just before each and read just
+              after (each timed call launched its kernels, and no other
+              kernel ran); its Fig 4/5 model rows; and beside the kernel
+              times of those runs, which are the pool's only kernel
+              timer, the plain version's, the library call's and the
+              bound.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line, and the result line
@@ -68,6 +80,7 @@ TOL = 1e-2     # bf16 outputs rounded from fp32: one ulp at |x|~1 is 7.8e-3
 TOL_FP32 = 1e-4    # fp32 outputs, other summation orders
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 CUDA-core peak (no TF32)
 B, HQ, HKV, D, BS, M = 8, 16, 8, 128, 16, 64
 DECODE_KV_LENS = [1, 15, 16, 17, 1023, 1024, 500, M * BS + 16]   # last: idle
 IDLE_ROW = 7
@@ -86,6 +99,10 @@ REPLACES = {
     "paged_prefill_attention": "src/repro/kernels/paged_attention.py:224",
     "flash_attention": "src/repro/kernels/attention.py:73",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:153",
+    "matmul": "src/repro/kernels/matmul.py:40",
+    "dotproduct": "src/repro/kernels/dotproduct.py:51",
+    "softmax": "src/repro/kernels/softmax.py:24",
+    "conv2d": "src/repro/kernels/conv2d.py:31",
 }
 SOURCES = {
     "paged_decode_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -93,7 +110,22 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/paged_attention.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
+    "dotproduct": "src/repro_torch/kernels/csrc/dotproduct.cu",
+    "softmax": "src/repro_torch/kernels/csrc/softmax.cu",
+    "conv2d": "src/repro_torch/kernels/csrc/conv2d.cu",
 }
+# ragged pool shapes that no TPU tile divides (as launch.ideality.Case);
+# softmax: 12280 columns is the kernel's longest cached row, 12281 and
+# 20000 take its uncached path
+POOL_RAGGED = (("matmul", ((127, 129), (129, 65))),
+               ("matmul", ((1, 1000), (1000, 3))),
+               ("dotproduct", ((1003,), (1003,))),
+               ("dotproduct", (((1 << 20) + 3,), ((1 << 20) + 3,))),
+               ("softmax", ((3, 1000),)), ("softmax", ((2, 12280),)),
+               ("softmax", ((2, 12281),)), ("softmax", ((2, 20000),)),
+               ("conv2d", ((3, 7, 7), (3, 7, 7))),
+               ("conv2d", ((1, 70, 33), (1, 3, 3))))
 
 
 class SmokeFailure(Exception):
@@ -134,9 +166,12 @@ def time_ms(torch, fn, args_list, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
+    """The least ms for the work: bytes over the memory rate, operations
+    over the peak of the unit the work's type runs on."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -898,6 +933,217 @@ def phase_hybrid(torch, cfgs, build_model, serving, kmods, dev, name):
     return runs[0][1], model, params
 
 
+# ---------------------------------------------------------------------------
+# The paper's kernel pool.
+# ---------------------------------------------------------------------------
+
+DOT_RTOL = 1e-6    # of sum |x_i y_i|: a few fp32 steps of a sum of n terms
+
+
+def dot_tolerance(x, y):
+    """(the fp64 dot product, its tolerance 1e-6 of sum |x_i y_i|)."""
+    p = x.double() * y.double()
+    return p.sum().item(), DOT_RTOL * p.abs().sum().item()
+
+
+def dot_plants(mod, x, y):
+    """fp64 sums that a faulty dotproduct kernel would return: without one
+    first-pass block's share of the products (where there are two or more
+    blocks), and without the ragged tail past the last 16-byte chunk up to
+    2^16 elements (at 2^20 + 3 three products are about the tolerance)."""
+    n = x.shape[0]
+    p = x.double() * y.double()
+    blocks, tail = mod.n_blocks(n), n % (16 // x.element_size())
+    plants = {}
+    if blocks > 1:
+        plants["last block"] = p[:n - n // blocks].sum().item()
+    if tail and n <= 1 << 16:
+        plants["tail"] = p[:n - tail].sum().item()
+    return plants
+
+
+def pool_close(torch, case, args, got, want, out_dtype=None):
+    """(max |got - want|, ok) at the satellite tests' tolerances: matmul
+    atol 2e-5 K (fp32 inputs) or 2e-2 sqrt(K) (bf16), rtol 1e-5 for an
+    fp32 output (a TF32 product fails it) or 1e-2 for bf16; dotproduct
+    against the fp64 sum, within 1e-6 of sum |x_i y_i|; softmax atol 1e-6,
+    rtol 0 (fp32) or one bf16 step, 2^-7 (bf16); conv2d 1e-4 (fp32) or
+    atol 1e-4, rtol 2^-7 (bf16)."""
+    f32 = case.dtype == torch.float32
+    if case.op == "dotproduct":
+        want64, tol = dot_tolerance(*args)
+        err = abs(got.item() - want64)
+        return err, err <= tol
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item() if g.numel() else 0.0
+    if case.op == "matmul":
+        k = case.shapes[0][1]
+        atol = 2e-5 * k if f32 else 2e-2 * math.sqrt(k)
+        rtol = 1e-5 if (out_dtype or case.dtype) == torch.float32 else 1e-2
+    elif case.op == "softmax":
+        atol, rtol = 1e-6, (0.0 if f32 else 2.0 ** -7)
+    else:
+        atol, rtol = 1e-4, (1e-4 if f32 else 2.0 ** -7)
+    return err, torch.allclose(g, w, atol=atol, rtol=rtol)
+
+
+def pool_cases(torch, ideality):
+    """Every parity case: the entry point's two ladders (the reference's
+    sizes in bf16 too) and the ragged shapes, in fp32 and bf16."""
+    ragged = (ideality.Case(f"{op}_ragged_{'x'.join(map(str, sh[0]))}", op,
+                            sh) for op, sh in POOL_RAGGED)
+    cases = list(ideality.CARD)
+    for case in (*ideality.REFERENCE, *ragged):
+        cases += [case, dataclasses.replace(case, name=f"{case.name}_bf16",
+                                            dtype=torch.bfloat16)]
+    return cases
+
+
+def pool_inputs(torch, case, gen, dev):
+    """The case's seeded normal inputs; a dotproduct's have mean 1, so the
+    sum grows like n and a lost block or tail stands above the
+    tolerance."""
+    if case.op != "dotproduct":
+        return case.inputs(gen, dev)
+    return [(torch.randn(s, generator=gen, device=dev) + 1).to(case.dtype)
+            for s in case.shapes]
+
+
+def _pool_check(torch, mod, case, args, out_dtype=None):
+    """One counted kernel call against the plain version; returns
+    (result, max_abs_err)."""
+    kw = {} if out_dtype is None else {"out_dtype": out_dtype}
+    label = case.name + (f" out {out_dtype}" if kw else "")
+    n0 = mod.LAUNCHES[case.op]
+    got = getattr(mod, f"{case.op}_cuda")(*args, **kw)
+    require(mod.LAUNCHES[case.op] == n0 + mod.KERNELS_PER_CALL,
+            f"{label}: the count did not move by one call's kernels")
+    want = getattr(mod, f"{case.op}_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    err, close = pool_close(torch, case, args, got, want, out_dtype)
+    ok = (close and got.dtype == want.dtype and got.shape == want.shape
+          and bool(torch.isfinite(got.float()).all()))
+    log(f"parity {label} shapes={case.shapes}: max_abs_err={err:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{label}: the kernel disagrees with its plain version")
+    return got, err
+
+
+def phase_pool_parity(torch, ideality, pool, dev):
+    """Each pool kernel against its plain version on the card, its count
+    moving by its kernels per call; matmul with the other output dtype
+    too, and a TF32 product shown to fail the fp32 tolerance; dotproduct
+    called twice, bit-identical, and a lost block or tail shown to fail.
+    Returns the worst fp32 error of each kernel."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    worst = {}
+    for case in pool_cases(torch, ideality):
+        mod = pool[case.op]
+        args = pool_inputs(torch, case, gen, dev)
+        got, err = _pool_check(torch, mod, case, args)
+        if case.op == "matmul":
+            other = (torch.bfloat16 if case.dtype == torch.float32
+                     else torch.float32)
+            _pool_check(torch, mod, case, args, out_dtype=other)
+        if case.op == "matmul" and case in ideality.CARD and \
+                case.dtype == torch.float32:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = torch.matmul(*args)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            e, close = pool_close(torch, case, args, tf32,
+                                  mod.matmul_plain(*args))
+            log(f"parity {case.name}: a TF32 product is {e:.3e} away, "
+                f"{'within' if close else 'outside'} the fp32 tolerance")
+            require(not close, f"{case.name}: the fp32 tolerance passes a "
+                               "TF32 product")
+        if case.op == "dotproduct":
+            require(torch.equal(got, mod.dotproduct_cuda(*args)),
+                    f"{case.name}: a repeated dotproduct changed its bits")
+            want64, tol = dot_tolerance(*args)
+            for fault, v in dot_plants(mod, *args).items():
+                log(f"parity {case.name}: without the {fault} the sum is "
+                    f"{abs(v - want64):.3e} away (tolerance {tol:.3e})")
+                require(abs(v - want64) > tol,
+                        f"{case.name}: the tolerance passes a sum without "
+                        f"the {fault}")
+        if case.dtype == torch.float32:
+            worst[case.op] = max(worst.get(case.op, 0.0), err)
+        del args, got
+    log(f"parity pool: worst fp32 max_abs_err {worst}; every dotproduct "
+        "bit-identical when repeated")
+    return worst
+
+
+def phase_pool(torch, ideality, pool, others):
+    """The pool's entry point on the card at both ladders, every count
+    zeroed just before each run and read just after: each timed row's
+    calls (warm-up included) launched its kernels, and no other kernel of
+    the port ran.  Returns the launches of both runs and each row's
+    kernel ms, the only kernel times of the pool."""
+    launches = {op: 0 for op in pool}
+    kernel_ms = {}
+    for sizes in ("reference", "card"):
+        reset_launches([*pool.values(), *others])
+        rows = ideality.run("cuda", sizes,
+                            out=lambda line: log(f"ideality {line}"))
+        got = read_launches([*pool.values(), *others])
+        want = {k: 0 for k in got}
+        want.update(ideality.expected_launches(sizes))
+        require(got == want, f"pool {sizes}: launches {got}, expected "
+                             f"{want}")
+        model = [r for r in rows if r[0].startswith("fig")]
+        require(len(model) == 48, f"pool {sizes}: {len(model)} model rows")
+        for name, us, _ in rows[len(model):]:
+            require(math.isfinite(us) and us > 0, f"{name}: no time")
+            kernel_ms[name.removeprefix("kernel/")] = us / 1e3
+        for op in pool:
+            launches[op] += got[op]
+        log(f"pool {sizes}: entry point launches {got} (expected {want})")
+    return launches, kernel_ms
+
+
+def phase_pool_timing(torch, ideality, pool, dev, kernel_ms):
+    """plain / library / bound ms of every row of the entry point's two
+    ladders, beside the kernel ms of that run.  Returns, per kernel, the
+    numbers of its card-scale fp32 case, the one the kernels line
+    reports."""
+    import torch.nn.functional as F
+    torch.backends.cudnn.allow_tf32 = False    # F.conv2d in full fp32
+    library = {"matmul": torch.matmul, "dotproduct": torch.dot,
+               "softmax": lambda x: torch.softmax(x, -1),
+               "conv2d": lambda x, w: F.conv2d(x[None], w[None])}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    out = {}
+    for sizes in ("reference", "card"):
+        cases, iters = ideality.SIZES[sizes]
+        for case in cases:
+            args = [case.inputs(gen, dev)]
+            nbytes, flops = case.work()
+            peak = (FP32_FLOPS_PER_S if case.dtype == torch.float32
+                    else BF16_FLOPS_PER_S)
+            t = dict(
+                ms=kernel_ms[case.name],
+                plain_ms=time_ms(torch, getattr(pool[case.op],
+                                                f"{case.op}_plain"),
+                                 args, max(iters // 5, 3)),
+                library_ms=time_ms(torch, library[case.op], args, iters),
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(nbytes, flops, peak))))
+            log(f"timing {case.name}: kernel_ms={t['ms']:.4f} "
+                f"plain_ms={t['plain_ms']:.4f} "
+                f"library_ms={t['library_ms']:.4f} "
+                f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}; "
+                f"{nbytes} bytes, {flops} operations)")
+            if sizes == "card" and case.dtype == torch.float32:
+                out[case.op] = t
+            del args
+    return out
+
+
 def _profile(torch, fn, n):
     """(device kernel ms per call, top kernels) of ``n`` calls of ``fn``
     under torch.profiler, or (None, []) if the trace holds no device time."""
@@ -1016,9 +1262,14 @@ def main() -> int:
     from repro_torch import configs as cfgs
     from repro_torch import resolve_device, serving
     from repro_torch.kernels import build
+    from repro_torch.kernels import conv2d as k_conv2d
+    from repro_torch.kernels import dotproduct as k_dot
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as k_matmul
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import softmax as k_softmax
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import ideality
     from repro_torch.models import build_model
 
     t_start = time.perf_counter()
@@ -1048,6 +1299,15 @@ def main() -> int:
             torch, cfgs, build_model, serving, kmods, dev, name)
         launches["ssd_scan"] = hybrid_launches["ssd_scan"]
         phase_hybrid_profile(torch, hmodel, hparams, dev)
+        del hparams
+        torch.cuda.empty_cache()
+        pool = {"matmul": k_matmul, "dotproduct": k_dot,
+                "softmax": k_softmax, "conv2d": k_conv2d}
+        errs.update(phase_pool_parity(torch, ideality, pool, dev))
+        pool_launches, kernel_ms = phase_pool(torch, ideality, pool, kmods)
+        launches.update(pool_launches)
+        times.update(phase_pool_timing(torch, ideality, pool, dev,
+                                       kernel_ms))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,0 +1,54 @@
+"""The latency model of the 3-step hierarchical reduction (paper
+contribution C3, §3 "Reductions"): a copy of the cycle functions of the
+reference's ``repro/core/reduction.py`` (lines 129-162), pure Python.
+
+Ara2 reduces a vector in three phases: intra-lane (each lane reduces its
+resident elements, the FPU pipeline registers as accumulators), inter-lane
+(a log2(L)+1-step tree over the slide interconnect) and SIMD (a log-tree
+within the final 64-bit word).  ``reduction_drain_cycles`` is the paper's
+closed form ``R*(1+log2(ceil(R))) - (ceil(R)-R) - 1`` for the intra-lane
+pipeline drain.  (The reference's collectives in that module are not part
+of this copy; on the card the same three steps are the dot-product kernel's
+thread, warp and block levels, ``kernels/csrc/dotproduct.cu``.)
+"""
+from __future__ import annotations
+
+import math
+
+from .vector_engine import log2i
+
+
+def reduction_drain_cycles(r: float) -> float:
+    """Cycles to drain R pipeline-register partial sums into one:
+    ``R*(1+log2(ceil(R))) - (ceil(R)-R) - 1``; for power-of-two R this is
+    ``R*(1+log2(R)) - 1`` (paper §3)."""
+    rc = math.ceil(r)
+    if rc <= 1:
+        return 0.0
+    return r * (1 + math.log2(rc)) - (rc - r) - 1
+
+
+def interlane_reduction_cycles(n_lanes: int, fpu_latency: int, slide_latency: int = 2) -> float:
+    """(log2(L)+1) tree steps; the slide<->FPU dependency feedback pays both
+    latencies at every step (paper §3)."""
+    if n_lanes == 1:
+        return 0.0
+    return (log2i(n_lanes) + 1) * (fpu_latency + slide_latency)
+
+
+def simd_reduction_cycles(ew_bits: int, fpu_latency: int) -> float:
+    """Final intra-word tree: log2(64/EW) steps, each paying FPU latency."""
+    steps = max(0, log2i(64 // ew_bits)) if ew_bits < 64 else 0
+    return steps * fpu_latency
+
+
+def vector_reduction_cycles(n_elems: int, n_lanes: int, ew_bits: int,
+                            fpu_pipe: int) -> float:
+    """End-to-end reduction latency: N/L streaming + intra-lane drain +
+    inter-lane tree + SIMD tree."""
+    n64 = n_elems * ew_bits // 64  # 64-bit packets (paper's N)
+    stream = max(n64 / n_lanes, 1.0)
+    return (stream
+            + reduction_drain_cycles(fpu_pipe)
+            + interlane_reduction_cycles(n_lanes, fpu_pipe)
+            + simd_reduction_cycles(ew_bits, fpu_pipe))

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every entry point, per source
 SIGNATURES = {
     "flash_attention.cu": {
@@ -44,6 +45,10 @@ SIGNATURES = {
             (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _I, _P),
     },
+    "matmul.cu": {"repro_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _P)},
+    "dotproduct.cu": {"repro_dotproduct": (_I, _P, _P, _P, _P, _L, _I, _P)},
+    "softmax.cu": {"repro_softmax": (_I, _P, _P, _L, _I, _P)},
+    "conv2d.cu": {"repro_conv2d": (_I, _P, _P, _P, _I, _I, _I, _I, _P)},
     "paged_attention.cu": {
         "repro_paged_decode_attention":
             (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
@@ -112,6 +117,23 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def check_operands(what: str, dtypes, **named) -> None:
+    """Raise unless every named tensor lies on the first one's CUDA device,
+    is contiguous and has one of ``dtypes`` (the pool kernels' common
+    input checks; shapes are each wrapper's own)."""
+    first = next(iter(named.values()))
+    for name, t in named.items():
+        if t.device.type != "cuda" or t.device != first.device:
+            raise ValueError(f"{what}: {name} on {t.device}, expected one "
+                             f"CUDA device ({first.device})")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.dtype not in dtypes or t.dtype != first.dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}; the kernel takes "
+                            f"{' or '.join(map(str, dtypes))}, every operand "
+                            "the same")
 
 
 def ptxas_report(source: str) -> str:

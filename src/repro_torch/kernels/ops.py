@@ -17,12 +17,16 @@ import math
 
 import torch
 
+from .conv2d import conv2d_cuda, conv2d_plain
+from .dotproduct import dotproduct_cuda, dotproduct_plain
 from .flash_attention import (NEG_INF, flash_attention_cuda,
                               flash_attention_plain)
+from .matmul import matmul_cuda, matmul_plain
 from .paged_attention import (paged_decode_attention_cuda,
                               paged_decode_attention_plain,
                               paged_prefill_attention_cuda,
                               paged_prefill_attention_plain)
+from .softmax import softmax_cuda, softmax_plain
 from .ssd_scan import ssd_cuda, ssd_plain, ssd_step_plain
 
 
@@ -109,3 +113,32 @@ def ssd_step(h_state, xt, dtt, a_log, bt, ct, *, d_skip=None):
     """One-token SSD recurrence (decode).  Plain PyTorch on every device,
     as the reference leaves it to XLA (``ssd_step_xla``)."""
     return ssd_step_plain(h_state, xt, dtt, a_log, bt, ct, d_skip=d_skip)
+
+
+# ---------------------------------------------------------------------------
+# The paper's kernel pool.  Each kernel picks its own tiling (the reference's
+# TPU tile knobs, bm / bn / bk and block_rows, are not carried over) and
+# takes every shape the reference's ``xla`` impl takes.
+# ---------------------------------------------------------------------------
+
+def matmul(x, w, *, out_dtype=None):
+    """(M, K) @ (K, N), fp32 accumulation, out in ``out_dtype`` (default
+    x's)."""
+    fn = _pick(x, matmul_plain, matmul_cuda, "matmul")
+    return fn(x, w, out_dtype=out_dtype)
+
+
+def dotproduct(x, y):
+    """fp32 sum of x * y over two length-n vectors: a 0-d fp32 tensor."""
+    return _pick(x, dotproduct_plain, dotproduct_cuda, "dotproduct")(x, y)
+
+
+def softmax(x):
+    """Softmax over the last axis, fp32 math, out in x's dtype."""
+    return _pick(x, softmax_plain, softmax_cuda, "softmax")(x)
+
+
+def conv2d(x, w):
+    """Valid conv of x (C, H, W) with one filter w (C, k, k): (H-k+1,
+    W-k+1) in x's dtype (as ``conv2d_pallas``)."""
+    return _pick(x, conv2d_plain, conv2d_cuda, "conv2d")(x, w)

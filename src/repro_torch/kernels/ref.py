@@ -1,13 +1,46 @@
-"""Plain PyTorch oracles for the port's kernels, mirroring the dense and
-paged attention oracles and the SSD recurrence of ``repro/kernels/ref.py``:
-deliberately naive, fully materialized or sequential, fp32 math.  Tests
-hold them against the reference's oracles; the plain paged paths share the
-table gather."""
+"""Plain PyTorch oracles for the port's kernels, mirroring the pool kernels'
+oracles, the dense and paged attention oracles and the SSD recurrence of
+``repro/kernels/ref.py``: deliberately naive, fully materialized or
+sequential, fp32 math.  Tests hold them against the reference's oracles;
+the plain paged paths share the table gather."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def matmul_ref(x, w, out_dtype=None):
+    """(M, K) @ (K, N) in fp32, cast to ``out_dtype`` (default x's)."""
+    return (x.float() @ w.float()).to(out_dtype or x.dtype)
+
+
+def dotproduct_ref(x, y):
+    """Sum of x * y in fp32, a 0-d tensor."""
+    return (x.float() * y.float()).sum()
+
+
+def softmax_ref(x, axis=-1):
+    """Softmax along ``axis`` in fp32, max subtracted first; x's dtype."""
+    x32 = x.float()
+    e = torch.exp(x32 - x32.amax(dim=axis, keepdim=True))
+    return (e / e.sum(dim=axis, keepdim=True)).to(x.dtype)
+
+
+def conv2d_ref(x, w):
+    """x: (C, H, W), w: (C, K, K) -> (H-K+1, W-K+1) in fp32 for fp32 and
+    bf16 inputs alike, as the reference's oracle: the paper's 3x7x7
+    single-output-channel convolution, tap by tap."""
+    c, h, ww = x.shape
+    k = w.shape[1]
+    xf, wf = x.float(), w.float()
+    out = torch.zeros((h - k + 1, ww - k + 1), device=x.device)
+    for ci in range(c):
+        for ki in range(k):
+            for kj in range(k):
+                out = out + wf[ci, ki, kj] * xf[ci, ki:h - k + 1 + ki,
+                                                kj:ww - k + 1 + kj]
+    return out
 
 
 def _softmax_rows(logits: torch.Tensor) -> torch.Tensor:

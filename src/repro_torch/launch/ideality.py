@@ -1,0 +1,207 @@
+"""Ideality entry point of the port: the paper's Figs 4-5 from the port's
+copy of the analytical model, and the pool kernels timed on the card.
+
+  PYTHONPATH=src python -m repro_torch.launch.ideality \
+      [--device cuda|cpu] [--sizes reference|card]
+
+The port's counterpart of ``benchmarks/bench_ideality.py::run``.  Every
+row is ``name,us_per_call,derived``, the reference's format:
+
+* ``fig5/<kernel>/L<lanes>`` - raw-throughput ideality over the vector
+  lengths ``VL_BYTES`` (:mod:`repro_torch.core.perf_model`);
+* ``fig4/diag_bpl<b>`` - matmul's ideality at b bytes per lane over
+  ``LANES``;
+* ``kernel/<case>`` - microseconds per call of ``ops.<op>`` on the device,
+  with GFLOP/s or GB/s.  ``--sizes reference`` (the default) times the
+  reference's sizes (matmul 512^3, dotproduct 64 k, softmax 256 x 1024,
+  conv2d 3 x 128 x 128, fp32; its fft and pathfinder rows are not ported
+  yet), ``card`` sizes that fill an H100, in fp32 and bf16;
+* ``launches`` - the pool kernels' launch counts over the run (on the CPU
+  the plain versions run and every count stays 0).
+
+The device is ``cuda`` unless ``--device cpu`` is given; with no GPU it
+raises.  On the card every kernel row runs the hand-written kernels
+through ``ops``; no plain version runs there.  :func:`run` is the one
+timer of the pool kernels: ``chip_smoke.py`` takes their times from its
+rows.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from .. import resolve_device
+from ..core import KERNELS, VectorEngineConfig, ideality
+from ..kernels import conv2d as k_conv2d
+from ..kernels import dotproduct as k_dot
+from ..kernels import matmul as k_matmul
+from ..kernels import ops
+from ..kernels import softmax as k_softmax
+
+VL_BYTES = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+LANES = (2, 4, 8, 16)
+POOL = (k_matmul, k_dot, k_softmax, k_conv2d)
+WARMUP = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Case:
+    """One timed row: ``op`` of ``repro_torch.kernels.ops`` on seeded
+    normal inputs of ``shapes`` in ``dtype``."""
+    name: str
+    op: str
+    shapes: tuple
+    dtype: torch.dtype = torch.float32
+
+    def inputs(self, gen, device):
+        return [torch.randn(s, generator=gen, device=device).to(self.dtype)
+                for s in self.shapes]
+
+    def work(self) -> tuple[int, int]:
+        """(bytes, operations) of one call: each input read once, the
+        output written once."""
+        b = torch.tensor([], dtype=self.dtype).element_size()
+        if self.op == "matmul":
+            (m, k), (_, n) = self.shapes
+            return b * (m * k + k * n + m * n), 2 * m * n * k
+        if self.op == "dotproduct":
+            n = self.shapes[0][0]
+            return 2 * b * n + 4, 2 * n
+        if self.op == "softmax":
+            r, c = self.shapes[0]
+            return 2 * b * r * c, 5 * r * c    # max, sub, exp, add, divide
+        (c, h, w), (_, k, _) = self.shapes
+        ho, wo = h - k + 1, w - k + 1
+        return b * (c * h * w + c * k * k + ho * wo), 2 * c * k * k * ho * wo
+
+
+def _both(case: Case):
+    """``case`` in fp32 and in bf16."""
+    return case, dataclasses.replace(case, name=f"{case.name}_bf16",
+                                     dtype=torch.bfloat16)
+
+
+# the reference's sizes (bench_ideality.py:31-47), fp32 as there
+REFERENCE = (
+    Case("matmul_512", "matmul", ((512, 512), (512, 512))),
+    Case("dotproduct_64k", "dotproduct", ((1 << 16,), (1 << 16,))),
+    Case("softmax_256x1024", "softmax", ((256, 1024),)),
+    Case("conv2d_3x128x128", "conv2d", ((3, 128, 128), (3, 7, 7))),
+)
+# sizes at which each call does real work on an H100 (137 GFLOP, or
+# 100-540 MB moved), each in fp32 and bf16
+CARD = (
+    *_both(Case("matmul_4096", "matmul", ((4096, 4096), (4096, 4096)))),
+    *_both(Case("dotproduct_64m", "dotproduct", ((1 << 26,), (1 << 26,)))),
+    *_both(Case("softmax_16384x4096", "softmax", ((16384, 4096),))),
+    *_both(Case("conv2d_3x4096x4096", "conv2d",
+                ((3, 4096, 4096), (3, 7, 7)))),
+)
+# --sizes: (cases, timed calls of each after WARMUP calls)
+SIZES = {"reference": (REFERENCE, 100), "card": (CARD, 20)}
+
+
+def model_rows():
+    """The Fig 5 heatmap and the Fig 4 diagonals, as the reference prints
+    them."""
+    rows = []
+    for kern in KERNELS:
+        for lanes in LANES:
+            eng = VectorEngineConfig(n_lanes=lanes)
+            vals = [f"{ideality(kern, vb, eng):.3f}" for vb in VL_BYTES]
+            rows.append((f"fig5/{kern}/L{lanes}", 0.0, "|".join(vals)))
+    for bpl in (32, 64, 128, 256):
+        vals = [f"{ideality('matmul', bpl * n, VectorEngineConfig(n_lanes=n)):.3f}"
+                for n in LANES]
+        rows.append((f"fig4/diag_bpl{bpl}", 0.0, "|".join(vals)))
+    return rows
+
+
+def time_us(fn, args, device, iters: int) -> float:
+    """Microseconds per call over ``iters`` calls after ``WARMUP`` calls:
+    CUDA events on the card, the host clock on the CPU."""
+    for _ in range(WARMUP):
+        fn(*args)
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*args)
+        return (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / iters * 1e3
+
+
+def kernel_row(case: Case, device, gen, iters: int):
+    args = case.inputs(gen, device)
+    us = time_us(getattr(ops, case.op), args, device, iters)
+    nbytes, flops = case.work()
+    rate = (f"gflops={flops / us / 1e3:.2f}"
+            if case.op in ("matmul", "conv2d")
+            else f"gbps={nbytes / us / 1e3:.2f}")
+    return f"kernel/{case.name}", us, rate
+
+
+def run(device=None, sizes="reference", out=print):
+    """The model rows, then one timed row per case of ``SIZES[sizes]``,
+    each printed through ``out`` as it comes; returns the rows."""
+    dev = resolve_device(device)
+    cases, iters = SIZES[sizes]
+    rows = model_rows()
+    for row in rows:
+        out(fmt(*row))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for case in cases:
+        rows.append(kernel_row(case, dev, gen, iters))
+        out(fmt(*rows[-1]))
+    return rows
+
+
+def launches() -> dict[str, int]:
+    return {k: n for mod in POOL for k, n in mod.LAUNCHES.items()}
+
+
+def expected_launches(sizes="reference") -> dict[str, int]:
+    """What :func:`run` at ``sizes`` adds to :func:`launches` on the card:
+    each case's calls, warm-up included, times its kernels per call."""
+    cases, iters = SIZES[sizes]
+    per_call = {k: mod.KERNELS_PER_CALL for mod in POOL for k in mod.LAUNCHES}
+    want = dict.fromkeys(per_call, 0)
+    for case in cases:
+        want[case.op] += (WARMUP + iters) * per_call[case.op]
+    return want
+
+
+def fmt(name, us, derived) -> str:
+    """The reference's row; a kernel's time to the nanosecond."""
+    us = f"{us:.3f}" if name.startswith("kernel/") else f"{us:.1f}"
+    return f"{name},{us},{derived}"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; cpu runs the plain "
+                         "PyTorch versions)")
+    ap.add_argument("--sizes", choices=tuple(SIZES), default="reference",
+                    help="the kernel rows' sizes (default: the reference's)")
+    args = ap.parse_args(argv)
+    for mod in POOL:
+        mod.reset_launches()
+    run(args.device, args.sizes)
+    print(fmt("launches", 0.0,
+              "|".join(f"{k}={n}" for k, n in launches().items())))
+
+
+if __name__ == "__main__":
+    main()

@@ -14,9 +14,14 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.kernels import conv2d as k_conv2d
+from repro_torch.kernels import dotproduct as k_dot
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import matmul as k_matmul
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import softmax as k_softmax
 from repro_torch.kernels import ssd_scan as ss
+from repro_torch.launch import ideality
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServeEngine
 
@@ -338,3 +343,149 @@ def test_hybrid_engine_on_card_matches_cpu(cuda):
             got = res.tokens
     eng.end_session()
     assert got == want[2]
+
+
+
+def _randn(seed, dev, dtype, *shapes, scale=1.0, loc=0.0):
+    rng = np.random.default_rng(seed)
+    return [(torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+             * scale + loc).to(device=dev, dtype=dtype) for sh in shapes]
+
+
+def _counted(mod, name, fn, *args, **kw):
+    """fn(*args), its count moving by the kernels one call launches."""
+    n0 = mod.LAUNCHES[name]
+    out = fn(*args, **kw)
+    assert mod.LAUNCHES[name] == n0 + mod.KERNELS_PER_CALL
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_matmul_matches_plain(cuda, dtype):
+    """Ragged shapes and the reference's 512^3, into each output dtype:
+    atol 2e-5 K (fp32 inputs) or 2e-2 sqrt(K) (bf16), rtol 1e-5 for an
+    fp32 output, which a TF32 product fails, or 1e-2 for bf16."""
+    f32 = dtype == torch.float32
+    for seed, (m, k, n) in enumerate([(127, 129, 65), (32, 32, 32),
+                                      (512, 512, 512), (1, 1000, 3)]):
+        x, w = _randn(seed, cuda, dtype, (m, k), (k, n))
+        atol = 2e-5 * k if f32 else 2e-2 * k ** 0.5
+        for out_dtype in (None, torch.float32, torch.bfloat16):
+            got = _counted(k_matmul, "matmul", k_matmul.matmul_cuda, x, w,
+                           out_dtype=out_dtype)
+            want = k_matmul.matmul_plain(x, w, out_dtype=out_dtype)
+            assert got.dtype == want.dtype
+            rtol = 1e-5 if got.dtype == torch.float32 else 1e-2
+            torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                       rtol=rtol)
+        if f32 and k == 512:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = x @ w
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            with pytest.raises(AssertionError):     # the tolerance has teeth
+                torch.testing.assert_close(tf32, k_matmul.matmul_plain(x, w),
+                                           atol=atol, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_dotproduct_matches_plain(cuda, dtype):
+    """Against the fp64 sum, within 1e-6 of sum |x_i y_i|, on inputs of
+    mean 1, so that a sum without one first-pass block's share, or (up to
+    2^16 elements) without the ragged tail, fails; two kernels counted a
+    call; a repeated call bit-identical; an offset view (not 16-byte
+    aligned) too."""
+    for seed, n in enumerate([1, 1003, 1 << 16, (1 << 20) + 3]):
+        x, y = _randn(seed, cuda, dtype, (n,), (n,), loc=1.0)
+        for a, b in ((x, y), (x[1:], y[1:])):
+            got = _counted(k_dot, "dotproduct", k_dot.dotproduct_cuda, a, b)
+            assert got.dtype == torch.float32 and got.dim() == 0
+            p = a.double() * b.double()
+            want, tol = p.sum().item(), 1e-6 * p.abs().sum().item()
+            assert abs(got.item() - want) <= tol, (n, got.item(), want, tol)
+            assert torch.equal(got, k_dot.dotproduct_cuda(a, b))
+            m = a.shape[0]
+            blocks, tail = k_dot.n_blocks(m), m % (16 // a.element_size())
+            if blocks > 1:                          # the tolerance has teeth
+                assert abs(p[:m - m // blocks].sum().item() - want) > tol
+            if tail and m <= 1 << 16:
+                assert abs(p[:m - tail].sum().item() - want) > tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_softmax_matches_plain(cuda, dtype):
+    """Cached rows (up to 12280 columns) and uncached ones (12281,
+    20000); atol 1e-6 with rtol 0 (fp32) or one bf16 step, 2^-7 (bf16),
+    which an all-zero or wrongly normalised output fails."""
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    for seed, shape in enumerate([(3, 1000), (256, 1024), (2, 12280),
+                                  (2, 12281), (2, 20000), (1, 1),
+                                  (4, 3, 33)]):
+        (x,) = _randn(seed, cuda, dtype, shape, scale=30.0 if seed else 3.0)
+        got = _counted(k_softmax, "softmax", k_softmax.softmax_cuda, x)
+        want = k_softmax.softmax_plain(x)
+        assert got.dtype == dtype and torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-6,
+                                   rtol=rtol)
+        with pytest.raises(AssertionError):     # the tolerance has teeth
+            torch.testing.assert_close(torch.zeros_like(want).float(),
+                                       want.float(), atol=1e-6, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_conv2d_matches_plain(cuda, dtype):
+    """bench_ideality's 3x128x128 and ragged shapes; out in x's dtype;
+    1e-4 (fp32) or atol 1e-4, rtol one bf16 step (bf16)."""
+    f32 = dtype == torch.float32
+    for seed, (c, h, w, k) in enumerate([(3, 128, 128, 7), (3, 7, 7, 7),
+                                         (1, 70, 33, 3), (2, 40, 65, 1)]):
+        x, f = _randn(seed, cuda, dtype, (c, h, w), (c, k, k))
+        got = _counted(k_conv2d, "conv2d", k_conv2d.conv2d_cuda, x, f)
+        assert got.dtype == dtype and got.shape == (h - k + 1, w - k + 1)
+        torch.testing.assert_close(got.float(),
+                                   k_conv2d.conv2d_plain(x, f).float(),
+                                   atol=1e-4, rtol=1e-4 if f32 else 2.0 ** -7)
+
+
+def test_pool_kernels_reject_what_they_do_not_take(cuda):
+    x, w = _randn(0, cuda, torch.float32, (8, 8), (8, 8))
+    before = ideality.launches()
+    with pytest.raises(TypeError):
+        k_matmul.matmul_cuda(x.half(), w.half())
+    with pytest.raises(TypeError):
+        k_matmul.matmul_cuda(x, w.bfloat16())
+    with pytest.raises(TypeError):
+        k_matmul.matmul_cuda(x, w, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_matmul.matmul_cuda(x, w.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        k_matmul.matmul_cuda(x.T, w)
+    with pytest.raises(ValueError, match="must be"):
+        k_matmul.matmul_cuda(x, w[:5].contiguous())
+    with pytest.raises(TypeError):
+        k_dot.dotproduct_cuda(x[0].double(), w[0].double())
+    with pytest.raises(ValueError, match="one length"):
+        k_dot.dotproduct_cuda(x[0], w[0, :5].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        k_softmax.softmax_cuda(x.T)
+    with pytest.raises(TypeError):
+        k_softmax.softmax_cuda(x.half())
+    with pytest.raises(ValueError, match="H, W >= k"):
+        k_conv2d.conv2d_cuda(x[None], w[None].repeat(1, 2, 2).contiguous())
+    with pytest.raises(TypeError):
+        k_conv2d.conv2d_cuda(x[None], w[None, :3, :3].bfloat16())
+    assert ideality.launches() == before
+
+
+def test_ideality_entry_point_runs_the_kernels(cuda):
+    """``launch.ideality`` on the card at the reference's sizes: every row
+    through the kernels, each call (warm-up included) counted, two a
+    dotproduct."""
+    for mod in ideality.POOL:
+        mod.reset_launches()
+    rows = ideality.run("cuda", out=lambda _: None)
+    cases, _ = ideality.SIZES["reference"]
+    assert ideality.launches() == ideality.expected_launches("reference")
+    timed = [r for r in rows if r[0].startswith("kernel/")]
+    assert len(timed) == len(cases) and all(us > 0 for _, us, _ in timed)
