@@ -27,18 +27,26 @@ Phases, each of which exits non-zero on failure:
               first-token logits at prompts of 64 and 960 tokens (fp32
               within 1e-4 of their scale; bf16 no farther from the fp32
               logits than 1.5 times the CPU's own bf16 run);
-6. serve    - the paged path: ``ServeEngine(kv_layout="paged")`` serving 8
+6. fp32     - paged == dense: the full-width qwen3-0.6b on seeded random
+              fp32 weights (TF32 off) serving the 8-request trace greedy on
+              the paged layout and on the dense one; the tokens must agree
+              row for row (where rows part, each row's first differing
+              token and the logits' top-2 gap there are logged);
+7. serve    - the paged path: ``ServeEngine(kv_layout="paged")`` serving 8
               greedy requests with the full qwen3-0.6b config on seeded
               random bf16 weights, with every kernel's launch count read
               just after, the pool drained, and a repeat run token-identical;
-7. dense    - the dense path, the engine's default: the same 8 requests
+8. dense    - the dense path, the engine's default: the same 8 requests
               served continuous, continuous with ``bucket="pow2"`` and
               lockstep, each twice (token-identical), 28 flash launches per
-              prefill and no paged launch; first-token logits of dense vs
+              prefill and no paged launch; the bf16 rids whose tokens part
+              from the paged run's, with their top-2 logit gaps (bf16
+              rounds along other kernels: logged, not required); first-token
+              logits of dense vs
               paged within 4% of their scale; then the trace with half its
               rows sampled at temperature 0.7 (repeat-identical, greedy rows
               unchanged);
-8. hybrid   - zamba2-1.2b at full width on seeded random bf16 weights:
+9. hybrid   - zamba2-1.2b at full width on seeded random bf16 weights:
               8 requests (prompts of 7 to 960 tokens) served continuous
               twice (token-identical, 38 SSD and 6 flash launches per
               prefill), lockstep (its prefill row by row) equal to
@@ -47,13 +55,16 @@ Phases, each of which exits non-zero on failure:
               and resumed by replay (its tokens unchanged, every replayed
               token counted), and every freed slot's state zero after the
               drain;
-9. profile  - wall and device time of one full-width decode step and one
+10. profile - wall and device time of one full-width decode step and one
               prefill (chunk) of each path, with the top kernels
               (torch.profiler);
-10. pool    - the paper's kernel pool (matmul, dotproduct, softmax,
-              conv2d): each kernel against its plain version in fp32 and
-              bf16 at the reference's benchmark sizes, at sizes that fill
-              the card and on ragged shapes, dotproduct also
+11. pool    - the paper's kernel pool (matmul, dotproduct, softmax, fft,
+              conv2d, pathfinder, jacobi2d, dropout): each kernel against
+              its plain version in fp32 and bf16 at the reference's
+              benchmark sizes, at sizes that fill the card and on ragged
+              shapes (pathfinder, jacobi2d and dropout bit for bit; fft,
+              kernel and plain version, within 5e-6 sqrt(n) of an fp64
+              transform, which a conjugated stage fails), dotproduct also
               bit-identical when called again; then the pool's entry
               point, ``repro_torch.launch.ideality``, at both ladders of
               sizes, the counts zeroed just before each and read just
@@ -61,7 +72,7 @@ Phases, each of which exits non-zero on failure:
               kernel ran); its Fig 4/5 model rows; and beside the kernel
               times of those runs, which are the pool's only kernel
               timer, the plain version's, the library call's and the
-              bound.
+              bound; then each launch of fft's plan at 2^24 timed alone.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line, and the result line
@@ -103,6 +114,10 @@ REPLACES = {
     "dotproduct": "src/repro/kernels/dotproduct.py:51",
     "softmax": "src/repro/kernels/softmax.py:24",
     "conv2d": "src/repro/kernels/conv2d.py:31",
+    "fft": "src/repro/kernels/fft.py:61",
+    "pathfinder": "src/repro/kernels/pathfinder.py:50",
+    "jacobi2d": "src/repro/kernels/jacobi2d.py:26",
+    "dropout": "src/repro/kernels/dropout.py:25",
 }
 SOURCES = {
     "paged_decode_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -114,18 +129,41 @@ SOURCES = {
     "dotproduct": "src/repro_torch/kernels/csrc/dotproduct.cu",
     "softmax": "src/repro_torch/kernels/csrc/softmax.cu",
     "conv2d": "src/repro_torch/kernels/csrc/conv2d.cu",
+    "fft": "src/repro_torch/kernels/csrc/fft.cu",
+    "pathfinder": "src/repro_torch/kernels/csrc/pathfinder.cu",
+    "jacobi2d": "src/repro_torch/kernels/csrc/jacobi2d.cu",
+    "dropout": "src/repro_torch/kernels/csrc/dropout.cu",
 }
-# ragged pool shapes that no TPU tile divides (as launch.ideality.Case);
-# softmax: 12280 columns is the kernel's longest cached row, 12281 and
-# 20000 take its uncached path
-POOL_RAGGED = (("matmul", ((127, 129), (129, 65))),
-               ("matmul", ((1, 1000), (1000, 3))),
-               ("dotproduct", ((1003,), (1003,))),
-               ("dotproduct", (((1 << 20) + 3,), ((1 << 20) + 3,))),
-               ("softmax", ((3, 1000),)), ("softmax", ((2, 12280),)),
-               ("softmax", ((2, 12281),)), ("softmax", ((2, 20000),)),
-               ("conv2d", ((3, 7, 7), (3, 7, 7))),
-               ("conv2d", ((1, 70, 33), (1, 3, 3))))
+# ragged pool shapes that no TPU tile divides, (op, shapes, keyword
+# arguments) as launch.ideality.Case; softmax: 12280 columns is the
+# kernel's longest cached row, 12281 and 20000 take its uncached path; fft:
+# the shortest signal and the first that takes two passes; pathfinder: one
+# row, one column, several windows, several launches; jacobi2d: no interior,
+# and three sweeps; dropout: the edge bits (DROPOUT_EDGE_BITS)
+POOL_RAGGED = (("matmul", ((127, 129), (129, 65)), ()),
+               ("matmul", ((1, 1000), (1000, 3)), ()),
+               ("dotproduct", ((1003,), (1003,)), ()),
+               ("dotproduct", (((1 << 20) + 3,), ((1 << 20) + 3,)), ()),
+               ("softmax", ((3, 1000),), ()), ("softmax", ((2, 12280),), ()),
+               ("softmax", ((2, 12281),), ()), ("softmax", ((2, 20000),), ()),
+               ("fft", ((2,),), ()), ("fft", ((8192,),), ()),
+               ("conv2d", ((3, 7, 7), (3, 7, 7)), ()),
+               ("conv2d", ((1, 70, 33), (1, 3, 3)), ()),
+               ("pathfinder", ((1, 5),), ()), ("pathfinder", ((2, 1),), ()),
+               ("pathfinder", ((20, 257),), ()),
+               ("pathfinder", ((3, 70000),), ()),
+               ("pathfinder", ((200, 1000),), ()),
+               ("jacobi2d", ((35, 67),), ()), ("jacobi2d", ((3, 3),), ()),
+               ("jacobi2d", ((2, 5),), ()),
+               ("jacobi2d", ((35, 67),), (("steps", 3),)),
+               ("dropout", ((1000,), (1000,)), (("rate", 0.1),)),
+               ("dropout", ((1000,), (1000,)), (("rate", 0.5),)))
+# uint32 bits at the edges of the fp32 conversion: 2^32 - 129 becomes
+# 1 - 2^-24, 2^32 - 128 and above become 1.0
+DROPOUT_EDGE_BITS = (0, 1 << 31, (1 << 32) - 129, (1 << 32) - 128,
+                     (1 << 32) - 1)
+FFT_TOL = 5e-6     # times sqrt(n), against an fp64 transform
+EXACT_OPS = ("pathfinder", "jacobi2d", "dropout")   # torch.equal
 
 
 class SmokeFailure(Exception):
@@ -626,7 +664,7 @@ def phase_serve(torch, cfgs, build_model, serving, kmods, dev, name):
         runs.append((toks, launches))
     require(runs[0][0] == runs[1][0], "a repeat run changed the tokens")
     log("serve: repeat run token-identical")
-    return runs[0][1], model, params
+    return runs[0][1], model, params, runs[0][0]
 
 
 def _serve_run(torch, kmods, eng, reqs, label, name):
@@ -655,11 +693,70 @@ def _serve_run(torch, kmods, eng, reqs, label, name):
     return toks, launches
 
 
-def phase_dense(torch, serving, kmods, model, params, dev, name):
+def first_diffs(a, b):
+    """Per row of two runs' tokens (rows of one length), the index of the
+    first token where ``a`` and ``b`` differ (None where they agree)."""
+    return [next((i for i, (x, y) in enumerate(zip(s, t)) if x != y), None)
+            for s, t in zip(a, b)]
+
+
+def log_margins(torch, model, params, prompts, a, b, diffs, label, dev):
+    """For each row where ``a`` and ``b`` part, the dense logits of the
+    common prefix: the two tokens' logits and the top-2 gap there."""
+    for rid, i in enumerate(diffs):
+        if i is None:
+            continue
+        seq = prompts[rid] + a[rid][:i]
+        logits = model.prefill(params, {"tokens": torch.tensor(
+            [seq], dtype=torch.int32, device=dev)}, cache_len=1024)[0]
+        row = logits.float().reshape(-1)
+        top = torch.topk(row, 2).values
+        log(f"{label} rid={rid} first differs at token {i}: "
+            f"{a[rid][i]} vs {b[rid][i]}, dense logits "
+            f"{row[a[rid][i]].item():.6f} vs {row[b[rid][i]].item():.6f}, "
+            f"top-2 gap {(top[0] - top[1]).item():.3e}")
+
+
+def phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods, dev,
+                           name):
+    """paged == dense at full width in fp32: qwen3-0.6b on seeded random
+    fp32 weights (TF32 off), the serve trace greedy, served by the paged
+    layout and by dense continuous; the tokens must agree row for row."""
+    cfg = cfgs.get_config("qwen3-0.6b")
+    model = build_model(cfg)
+    params = model.init(0, device=dev, dtype=torch.float32)
+    prompts = serve_prompts(cfg.vocab_size)
+    toks = {}
+    for layout, kw in (("paged", dict(kv_layout="paged", block_size=BS)),
+                       ("dense", {})):
+        eng = serving.ServeEngine(model, params, max_batch=8, cache_len=1024,
+                                  **kw)
+        reqs = [serving.Request(p, SERVE_MAX_NEW, rid=i)
+                for i, p in enumerate(prompts)]
+        toks[layout], launches = _serve_run(
+            torch, kmods, eng, reqs, f"fp32 {layout}", name)
+        kernel = ("paged_prefill_attention" if layout == "paged"
+                  else "flash_attention")
+        require(launches[kernel] > 0, f"fp32 {layout}: {kernel} never "
+                                      f"launched ({launches})")
+    diffs = first_diffs(toks["paged"], toks["dense"])
+    log(f"fp32 paged vs dense: first differing token per rid {diffs}")
+    log_margins(torch, model, params, prompts, toks["paged"], toks["dense"],
+                diffs, "fp32 paged vs dense", dev)
+    require(all(d is None for d in diffs),
+            f"fp32 paged and dense tokens differ (first index per rid "
+            f"{diffs})")
+    log("fp32 paged vs dense: all 8 rids token-identical")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_dense(torch, serving, kmods, model, params, paged, dev, name):
     """The dense path at full width: continuous, bucketed and lockstep
-    serving of the serve trace, each twice; dense vs paged first-token
-    logits; then the sampled trace.  Returns the flash launches of the
-    default (continuous, unbucketed) run."""
+    serving of the serve trace, each twice; the rids whose bf16 tokens
+    part from the paged run's (``paged``), logged with their logit gaps;
+    dense vs paged first-token logits; then the sampled trace.  Returns
+    the flash launches of the default (continuous, unbucketed) run."""
     cfg = model.cfg
     prompts = serve_prompts(cfg.vocab_size)
     n = len(prompts)
@@ -692,6 +789,14 @@ def phase_dense(torch, serving, kmods, model, params, dev, name):
         for rid, t in enumerate(runs[0][0]):
             log(f"dense {label} rid={rid} prompt_len={len(prompts[rid])} "
                 f"tokens={t}")
+
+    # bf16: the layouts round along other kernels, so near-ties may part
+    # (fp32 token identity is phase_paged_dense_fp32's)
+    diffs = first_diffs(paged, greedy)
+    log(f"bf16 paged vs dense: {sum(d is not None for d in diffs)} of {n} "
+        f"rids differ, first differing token per rid {diffs}")
+    log_margins(torch, model, params, prompts, paged, greedy, diffs,
+                "bf16 paged vs dense", dev)
 
     # dense vs paged first-token logits: other kernels, other summation
     # orders, bf16 activations -> 4% of the logits' scale (as phase_checks)
@@ -968,12 +1073,20 @@ def pool_close(torch, case, args, got, want, out_dtype=None):
     fp32 output (a TF32 product fails it) or 1e-2 for bf16; dotproduct
     against the fp64 sum, within 1e-6 of sum |x_i y_i|; softmax atol 1e-6,
     rtol 0 (fp32) or one bf16 step, 2^-7 (bf16); conv2d 1e-4 (fp32) or
-    atol 1e-4, rtol 2^-7 (bf16)."""
+    atol 1e-4, rtol 2^-7 (bf16); fft, kernel and plain version both,
+    within 5e-6 sqrt(n) of an fp64 transform (the kernel's distance
+    returned); pathfinder, jacobi2d and dropout bit for bit."""
     f32 = case.dtype == torch.float32
     if case.op == "dotproduct":
         want64, tol = dot_tolerance(*args)
         err = abs(got.item() - want64)
         return err, err <= tol
+    if case.op == "fft":
+        errs = [fft_distance(torch, args, y) for y in (got, want)]
+        return errs[0], max(errs) <= FFT_TOL * math.sqrt(args[0].shape[0])
+    if case.op in EXACT_OPS:
+        err = (got.float() - want.float()).abs().max().item()
+        return err, torch.equal(got, want)
     g, w = got.float(), want.float()
     err = (g - w).abs().max().item() if g.numel() else 0.0
     if case.op == "matmul":
@@ -987,11 +1100,30 @@ def pool_close(torch, case, args, got, want, out_dtype=None):
     return err, torch.allclose(g, w, atol=atol, rtol=rtol)
 
 
+def fft_distance(torch, args, y):
+    """Largest |y - the fp64 DFT of args| over both planes (torch.fft on
+    complex128, an oracle only)."""
+    want = torch.fft.fft(torch.complex(args[0].double(), args[1].double()))
+    return max((y[0].double() - want.real).abs().max().item(),
+               (y[1].double() - want.imag).abs().max().item())
+
+
+def fft_conjugated(ref, stage):
+    """A planted fault: the Stockham FFT with stage ``stage``'s twiddles
+    conjugated."""
+    def twiddles(s, l, device):
+        wr, wi = ref.fft_twiddles(s, l, device)
+        return (wr, -wi) if s == stage else (wr, wi)
+    return lambda xr, xi: ref.fft_stages(xr, xi, twiddles)
+
+
 def pool_cases(torch, ideality):
     """Every parity case: the entry point's two ladders (the reference's
     sizes in bf16 too) and the ragged shapes, in fp32 and bf16."""
-    ragged = (ideality.Case(f"{op}_ragged_{'x'.join(map(str, sh[0]))}", op,
-                            sh) for op, sh in POOL_RAGGED)
+    ragged = (ideality.Case(
+        f"{op}_ragged_{'x'.join(map(str, sh[0]))}"
+        + "".join(f"_{k}{v}" for k, v in kw), op, sh, kw=kw)
+        for op, sh, kw in POOL_RAGGED)
     cases = list(ideality.CARD)
     for case in (*ideality.REFERENCE, *ragged):
         cases += [case, dataclasses.replace(case, name=f"{case.name}_bf16",
@@ -1000,29 +1132,41 @@ def pool_cases(torch, ideality):
 
 
 def pool_inputs(torch, case, gen, dev):
-    """The case's seeded normal inputs; a dotproduct's have mean 1, so the
-    sum grows like n and a lost block or tail stands above the
-    tolerance."""
-    if case.op != "dotproduct":
-        return case.inputs(gen, dev)
-    return [(torch.randn(s, generator=gen, device=dev) + 1).to(case.dtype)
-            for s in case.shapes]
+    """The case's seeded inputs (``Case.inputs``), but a dotproduct's have
+    mean 1, so the sum grows like n and a lost block or tail stands above
+    the tolerance; an fft's two planes differ (the entry point times
+    ``fft(a, a)``); a dropout's bits start with DROPOUT_EDGE_BITS."""
+    if case.op == "dotproduct":
+        return [(torch.randn(s, generator=gen, device=dev) + 1).to(
+            case.dtype) for s in case.shapes]
+    if case.op == "fft":
+        return [torch.randn(case.shapes[0], generator=gen, device=dev).to(
+            case.dtype) for _ in range(2)]
+    args = case.inputs(gen, dev)
+    if case.op == "dropout":
+        edge = torch.tensor(DROPOUT_EDGE_BITS, dtype=torch.int64)
+        args[1][:len(edge)] = edge.to(torch.uint32).to(dev)
+    return args
 
 
 def _pool_check(torch, mod, case, args, out_dtype=None):
     """One counted kernel call against the plain version; returns
     (result, max_abs_err)."""
-    kw = {} if out_dtype is None else {"out_dtype": out_dtype}
-    label = case.name + (f" out {out_dtype}" if kw else "")
+    kw = dict(case.kw)
+    if out_dtype is not None:
+        kw["out_dtype"] = out_dtype
+    label = case.name + (f" out {out_dtype}" if out_dtype else "")
     n0 = mod.LAUNCHES[case.op]
     got = getattr(mod, f"{case.op}_cuda")(*args, **kw)
-    require(mod.LAUNCHES[case.op] == n0 + mod.KERNELS_PER_CALL,
+    require(mod.LAUNCHES[case.op] == n0 + case.kernels_per_call(),
             f"{label}: the count did not move by one call's kernels")
     want = getattr(mod, f"{case.op}_plain")(*args, **kw)
     torch.cuda.synchronize()
     err, close = pool_close(torch, case, args, got, want, out_dtype)
-    ok = (close and got.dtype == want.dtype and got.shape == want.shape
-          and bool(torch.isfinite(got.float()).all()))
+    pairs = tuple(zip(got, want)) if case.op == "fft" else ((got, want),)
+    ok = close and all(g.dtype == w.dtype and g.shape == w.shape
+                       and bool(torch.isfinite(g.float()).all())
+                       for g, w in pairs)
     log(f"parity {label} shapes={case.shapes}: max_abs_err={err:.3e} "
         f"{'ok' if ok else 'FAIL'}")
     require(ok, f"{label}: the kernel disagrees with its plain version")
@@ -1033,8 +1177,10 @@ def phase_pool_parity(torch, ideality, pool, dev):
     """Each pool kernel against its plain version on the card, its count
     moving by its kernels per call; matmul with the other output dtype
     too, and a TF32 product shown to fail the fp32 tolerance; dotproduct
-    called twice, bit-identical, and a lost block or tail shown to fail.
-    Returns the worst fp32 error of each kernel."""
+    called twice, bit-identical, and a lost block or tail shown to fail;
+    an FFT with one stage's twiddles conjugated shown to fail fft's
+    tolerance.  Returns the worst fp32 error of each kernel."""
+    from repro_torch.kernels import ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(10)
     worst = {}
@@ -1069,11 +1215,25 @@ def phase_pool_parity(torch, ideality, pool, dev):
                 require(abs(v - want64) > tol,
                         f"{case.name}: the tolerance passes a sum without "
                         f"the {fault}")
+        if case.op == "fft":
+            n = args[0].shape[0]
+            tol = FFT_TOL * math.sqrt(n)
+            plain = fft_distance(torch, args, mod.fft_plain(*args))
+            log(f"parity {case.name}: kernel {err:.3e}, plain {plain:.3e} "
+                f"from the fp64 transform (tolerance {tol:.3e})")
+            if n >= 4 and case.dtype == torch.float32:
+                planted = fft_distance(torch, args,
+                                       fft_conjugated(ref, 0)(*args))
+                log(f"parity {case.name}: with stage 0's twiddles "
+                    f"conjugated the transform is {planted:.3e} away")
+                require(planted > tol, f"{case.name}: the tolerance passes "
+                                       "a conjugated stage")
         if case.dtype == torch.float32:
             worst[case.op] = max(worst.get(case.op, 0.0), err)
         del args, got
     log(f"parity pool: worst fp32 max_abs_err {worst}; every dotproduct "
-        "bit-identical when repeated")
+        "bit-identical when repeated; pathfinder, jacobi2d and dropout "
+        "bit-identical to their plain versions")
     return worst
 
 
@@ -1107,13 +1267,19 @@ def phase_pool(torch, ideality, pool, others):
 
 def phase_pool_timing(torch, ideality, pool, dev, kernel_ms):
     """plain / library / bound ms of every row of the entry point's two
-    ladders, beside the kernel ms of that run.  Returns, per kernel, the
-    numbers of its card-scale fp32 case, the one the kernels line
-    reports."""
+    ladders, beside the kernel ms of that run.  The library call is one
+    PyTorch call of the same function, a yardstick the port never calls:
+    fft's is ``torch.fft.fft`` on a complex64 copy of the planes made
+    before the timer; pathfinder, jacobi2d and dropout have none.
+    Returns, per kernel, the numbers of its card-scale fp32 case, the one
+    the kernels line reports."""
+    import functools
+
     import torch.nn.functional as F
     torch.backends.cudnn.allow_tf32 = False    # F.conv2d in full fp32
     library = {"matmul": torch.matmul, "dotproduct": torch.dot,
                "softmax": lambda x: torch.softmax(x, -1),
+               "fft": torch.fft.fft,
                "conv2d": lambda x, w: F.conv2d(x[None], w[None])}
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -1121,27 +1287,67 @@ def phase_pool_timing(torch, ideality, pool, dev, kernel_ms):
     for sizes in ("reference", "card"):
         cases, iters = ideality.SIZES[sizes]
         for case in cases:
-            args = [case.inputs(gen, dev)]
+            args = case.inputs(gen, dev)
             nbytes, flops = case.work()
             peak = (FP32_FLOPS_PER_S if case.dtype == torch.float32
                     else BF16_FLOPS_PER_S)
+            plain = functools.partial(
+                getattr(pool[case.op], f"{case.op}_plain"), **dict(case.kw))
+            lib_args = ([torch.complex(args[0].float(), args[1].float())]
+                        if case.op == "fft" else args)
             t = dict(
                 ms=kernel_ms[case.name],
-                plain_ms=time_ms(torch, getattr(pool[case.op],
-                                                f"{case.op}_plain"),
-                                 args, max(iters // 5, 3)),
-                library_ms=time_ms(torch, library[case.op], args, iters),
+                plain_ms=time_ms(torch, plain, [args], max(iters // 5, 3)),
+                library_ms=(time_ms(torch, library[case.op], [lib_args],
+                                    iters) if case.op in library else None),
                 **dict(zip(("bound_ms", "bound_by"),
                            bound(nbytes, flops, peak))))
+            lib = ("none" if t["library_ms"] is None
+                   else f"{t['library_ms']:.4f}")
             log(f"timing {case.name}: kernel_ms={t['ms']:.4f} "
-                f"plain_ms={t['plain_ms']:.4f} "
-                f"library_ms={t['library_ms']:.4f} "
+                f"plain_ms={t['plain_ms']:.4f} library_ms={lib} "
                 f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}; "
                 f"{nbytes} bytes, {flops} operations)")
             if sizes == "card" and case.dtype == torch.float32:
                 out[case.op] = t
-            del args
+            del args, lib_args
     return out
+
+
+def phase_fft_launches(torch, kf, dev):
+    """Where fft's time goes at card scale: ms of each launch of its plan
+    at n = 2^24 (fp32 and bf16 planes), timed alone with CUDA events, and
+    a device-to-device copy of the same bytes as the card's rate."""
+    n = 1 << 24
+    lib = kf.build.library(kf.SOURCE)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = [torch.empty(n, device=dev) for _ in range(4)]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = [torch.randn(n, generator=gen, device=dev).to(dtype)
+             for _ in range(2)]
+        for i, step in enumerate(kf.plan(n)):
+            src = x if i == 0 else out[:2]
+            code = kf._DTYPE_CODE[src[0].dtype]
+            ptrs = (*(t.data_ptr() for t in src),
+                    *(t.data_ptr() for t in out[2:]))
+            if step[0] == "pass":
+                def launch(step=step, ptrs=ptrs, code=code):
+                    return lib.repro_fft_pass(code, step[1], *ptrs, n,
+                                              step[2], stream)
+            else:
+                def launch(step=step, ptrs=ptrs, code=code):
+                    return lib.repro_fft_local(code, *ptrs, step[1], step[2],
+                                               n >> step[1], stream)
+            ms = time_ms(torch, lambda: kf.build.check(lib, launch(), "fft"),
+                         [()], 20)
+            nbytes = 2 * n * (src[0].element_size() + 4)
+            log(f"fft launches n=2^24 {str(dtype)[6:]}: {step} ms={ms:.4f} "
+                f"({nbytes / ms / 1e9:.3f} TB/s)")
+    src, dst = torch.randn(2 * n, device=dev), torch.empty(2 * n, device=dev)
+    ms = time_ms(torch, lambda: dst.copy_(src), [()], 20)
+    log(f"fft launches: a copy of two 2^24 fp32 planes ms={ms:.4f} "
+        f"({16 * n / ms / 1e9:.3f} TB/s)")
 
 
 def _profile(torch, fn, n):
@@ -1262,12 +1468,8 @@ def main() -> int:
     from repro_torch import configs as cfgs
     from repro_torch import resolve_device, serving
     from repro_torch.kernels import build
-    from repro_torch.kernels import conv2d as k_conv2d
-    from repro_torch.kernels import dotproduct as k_dot
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import matmul as k_matmul
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import softmax as k_softmax
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch import ideality
     from repro_torch.models import build_model
@@ -1287,10 +1489,12 @@ def main() -> int:
         times = phase_timing(torch, pa, fa, ss, dev)
         phase_checks(torch, cfgs, build_model, dev)
         phase_hybrid_checks(torch, cfgs, build_model, dev)
-        launches, model, params = phase_serve(torch, cfgs, build_model,
-                                              serving, kmods, dev, name)
+        phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods, dev,
+                               name)
+        launches, model, params, paged = phase_serve(
+            torch, cfgs, build_model, serving, kmods, dev, name)
         launches["flash_attention"] = phase_dense(
-            torch, serving, kmods, model, params, dev, name)[
+            torch, serving, kmods, model, params, paged, dev, name)[
                 "flash_attention"]
         phase_profile(torch, model, params, dev)
         del params
@@ -1301,13 +1505,13 @@ def main() -> int:
         phase_hybrid_profile(torch, hmodel, hparams, dev)
         del hparams
         torch.cuda.empty_cache()
-        pool = {"matmul": k_matmul, "dotproduct": k_dot,
-                "softmax": k_softmax, "conv2d": k_conv2d}
+        pool = ideality.POOL
         errs.update(phase_pool_parity(torch, ideality, pool, dev))
         pool_launches, kernel_ms = phase_pool(torch, ideality, pool, kmods)
         launches.update(pool_launches)
         times.update(phase_pool_timing(torch, ideality, pool, dev,
                                        kernel_ms))
+        phase_fft_launches(torch, pool["fft"], dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -49,6 +49,15 @@ SIGNATURES = {
     "dotproduct.cu": {"repro_dotproduct": (_I, _P, _P, _P, _P, _L, _I, _P)},
     "softmax.cu": {"repro_softmax": (_I, _P, _P, _L, _I, _P)},
     "conv2d.cu": {"repro_conv2d": (_I, _P, _P, _P, _I, _I, _I, _I, _P)},
+    "fft.cu": {
+        "repro_fft_pass": (_I, _I, _P, _P, _P, _P, _L, _I, _P),
+        "repro_fft_local": (_I, _P, _P, _P, _P, _I, _I, _L, _P),
+    },
+    "pathfinder.cu": {
+        "repro_pathfinder": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "jacobi2d.cu": {"repro_jacobi2d": (_I, _P, _P, _I, _I, _P)},
+    "dropout.cu": {"repro_dropout": (_I, _P, _P, _P, _L, _F, _F, _P)},
     "paged_attention.cu": {
         "repro_paged_decode_attention":
             (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -37,6 +37,11 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def kernels_per_call(*_shapes, **_kw) -> int:
+    """Kernels one call launches, whatever the shapes."""
+    return KERNELS_PER_CALL
+
+
 matmul_plain = ref.matmul_ref       # the plain version is the oracle
 
 

@@ -19,13 +19,17 @@ import torch
 
 from .conv2d import conv2d_cuda, conv2d_plain
 from .dotproduct import dotproduct_cuda, dotproduct_plain
+from .dropout import dropout_cuda, dropout_plain
+from .fft import fft_cuda, fft_plain
 from .flash_attention import (NEG_INF, flash_attention_cuda,
                               flash_attention_plain)
+from .jacobi2d import jacobi2d_cuda, jacobi2d_plain
 from .matmul import matmul_cuda, matmul_plain
 from .paged_attention import (paged_decode_attention_cuda,
                               paged_decode_attention_plain,
                               paged_prefill_attention_cuda,
                               paged_prefill_attention_plain)
+from .pathfinder import pathfinder_cuda, pathfinder_plain
 from .softmax import softmax_cuda, softmax_plain
 from .ssd_scan import ssd_cuda, ssd_plain, ssd_step_plain
 
@@ -142,3 +146,30 @@ def conv2d(x, w):
     """Valid conv of x (C, H, W) with one filter w (C, k, k): (H-k+1,
     W-k+1) in x's dtype (as ``conv2d_pallas``)."""
     return _pick(x, conv2d_plain, conv2d_cuda, "conv2d")(x, w)
+
+
+def fft(x_re, x_im):
+    """The complex DFT of ``x_re + i x_im`` (two (n,) planes, n a power of
+    two >= 2; ValueError otherwise) in the reference's Stockham schedule:
+    (y_re, y_im), fp32."""
+    return _pick(x_re, fft_plain, fft_cuda, "fft")(x_re, x_im)
+
+
+def pathfinder(w):
+    """The row DP over a (rows, cols) cost grid: the last row's min-path
+    costs, (cols,) fp32, the edge filled with 3.0e38 (as
+    ``pathfinder_pallas``)."""
+    return _pick(w, pathfinder_plain, pathfinder_cuda, "pathfinder")(w)
+
+
+def jacobi2d(x, steps=1):
+    """``steps`` 5-point Jacobi sweeps of x (H, W)'s interior, the boundary
+    kept, in x's dtype."""
+    return _pick(x, jacobi2d_plain, jacobi2d_cuda, "jacobi2d")(x, steps=steps)
+
+
+def dropout(x, bits, *, rate):
+    """x (n,) kept where float32(bits) / 2^32 >= rate (``bits``
+    ``torch.uint32``) and divided by (1 - rate) in x's dtype; 0 elsewhere."""
+    return _pick(x, dropout_plain, dropout_cuda, "dropout")(x, bits,
+                                                            rate=rate)

@@ -1,8 +1,11 @@
 """Plain PyTorch oracles for the port's kernels, mirroring the pool kernels'
 oracles, the dense and paged attention oracles and the SSD recurrence of
 ``repro/kernels/ref.py``: deliberately naive, fully materialized or
-sequential, fp32 math.  Tests hold them against the reference's oracles;
-the plain paged paths share the table gather."""
+sequential, fp32 math (jacobi2d and dropout round as the reference does in
+x's dtype).  Tests hold them against the reference's oracles; the plain
+paged paths share the table gather.  fft's is the reference's Stockham
+schedule (``fft_xla``), not a library transform; pathfinder's edge fill is
+the Pallas kernel's 3.0e38, not the reference oracle's fp32 max."""
 from __future__ import annotations
 
 import math
@@ -41,6 +44,91 @@ def conv2d_ref(x, w):
                 out = out + wf[ci, ki, kj] * xf[ci, ki:h - k + 1 + ki,
                                                 kj:ww - k + 1 + kj]
     return out
+
+
+def fft_log2(n: int) -> int:
+    """log2 n for a power of two n >= 2, which the FFT needs (the
+    reference asserts it); raises ValueError on any other n."""
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"fft: n={n} must be a power of two >= 2")
+    return n.bit_length() - 1
+
+
+def fft_twiddles(stage: int, l: int, device):
+    """Stage ``stage``'s twiddles exp(-2 pi i j / 2l), j < l, as fp32
+    (re, im) planes, each computed in fp64 and rounded once (the
+    reference's table row ``stage``, without its zero padding)."""
+    ang = torch.arange(l, dtype=torch.float64, device=device) * (-math.pi / l)
+    return torch.cos(ang).float(), torch.sin(ang).float()
+
+
+def fft_stages(x_re, x_im, twiddles=fft_twiddles):
+    """The radix-2 Stockham FFT of ``fft.py:35-49`` in fp32: stage s views
+    the signal as (2, l, m), top = a + b, bot = w_l (a - b), and stacks
+    them as (l, 2, m).  ``twiddles(stage, l, device)`` gives w_l."""
+    n = x_re.shape[0]
+    xr, xi = x_re.float(), x_im.float()
+    for s in range(fft_log2(n)):
+        l, m = n >> (s + 1), 1 << s
+        ar, br = xr.reshape(2, l, m)
+        ai, bi = xi.reshape(2, l, m)
+        wr, wi = (w.reshape(l, 1) for w in twiddles(s, l, xr.device))
+        dr, di = ar - br, ai - bi
+        xr = torch.stack([ar + br, wr * dr - wi * di], dim=1).reshape(n)
+        xi = torch.stack([ai + bi, wr * di + wi * dr], dim=1).reshape(n)
+    return xr, xi
+
+
+def fft_ref(x_re, x_im):
+    """(re, im) of the DFT of x_re + i x_im, fp32, by ``fft_stages``."""
+    if x_re.dim() != 1 or x_re.shape != x_im.shape:
+        raise ValueError(f"fft: x_re {tuple(x_re.shape)} and x_im "
+                         f"{tuple(x_im.shape)} must be vectors of one length")
+    return fft_stages(x_re, x_im)
+
+
+PATHFINDER_FILL = 3.0e38     # the Pallas kernel's edge (pathfinder.py:18)
+
+
+def pathfinder_ref(w):
+    """w: (rows, cols) costs -> (cols,) fp32 min-path cost per column, row
+    by row: dst[j] = w[i, j] + min(src[j], min(src[j-1], src[j+1])), the
+    missing neighbours of the edge columns read as ``PATHFINDER_FILL``."""
+    src = w[0].float()
+    fill = torch.full((1,), PATHFINDER_FILL, dtype=torch.float32,
+                      device=w.device)
+    for i in range(1, w.shape[0]):
+        left = torch.cat([fill, src[:-1]])
+        right = torch.cat([src[1:], fill])
+        src = w[i].float() + torch.minimum(src, torch.minimum(left, right))
+    return src
+
+
+def jacobi2d_ref(x, steps=1):
+    """``steps`` 5-point Jacobi sweeps of the interior, boundary kept, in
+    x's dtype: 0.2 * ((((centre + up) + down) + left) + right), each add
+    and the product rounded to x's dtype, 0.2 itself rounded to it (as the
+    reference's weakly typed scalar)."""
+    fifth = torch.tensor(0.2, dtype=torch.float32).to(x.dtype)
+    for _ in range(steps):
+        inner = fifth * (x[1:-1, 1:-1] + x[:-2, 1:-1] + x[2:, 1:-1]
+                         + x[1:-1, :-2] + x[1:-1, 2:])
+        x = x.clone()
+        x[1:-1, 1:-1] = inner
+    return x.clone() if steps == 0 else x
+
+
+def dropout_ref(x, bits, rate):
+    """Keep x where float32(bits) / 2^32 >= float32(rate) (``bits``
+    uint32, converted to nearest), scaled by 1 / (1 - rate) as a division
+    by (1 - rate) rounded to x's dtype; 0 elsewhere; x's dtype."""
+    u = bits.to(torch.float32) / 2.0 ** 32
+    keep = u >= torch.tensor(rate, dtype=torch.float32)
+    # on x's device: PyTorch's CUDA division by a CPU scalar multiplies by
+    # its reciprocal, which is not the reference's division
+    divisor = torch.tensor(1.0 - rate, dtype=torch.float64).to(x.dtype).to(
+        x.device)
+    return torch.where(keep, x / divisor, 0.0)
 
 
 def _softmax_rows(logits: torch.Tensor) -> torch.Tensor:

@@ -12,10 +12,12 @@ row is ``name,us_per_call,derived``, the reference's format:
 * ``fig4/diag_bpl<b>`` - matmul's ideality at b bytes per lane over
   ``LANES``;
 * ``kernel/<case>`` - microseconds per call of ``ops.<op>`` on the device,
-  with GFLOP/s or GB/s.  ``--sizes reference`` (the default) times the
-  reference's sizes (matmul 512^3, dotproduct 64 k, softmax 256 x 1024,
-  conv2d 3 x 128 x 128, fp32; its fft and pathfinder rows are not ported
-  yet), ``card`` sizes that fill an H100, in fp32 and bf16;
+  with GFLOP/s or GB/s.  ``--sizes reference`` (the default) times every
+  kernel row of the reference, at its sizes and in its order (matmul
+  512^3, dotproduct 64 k, softmax 256 x 1024, fft 4096, conv2d
+  3 x 128 x 128, pathfinder 64 x 4096; fp32); ``card`` times sizes that
+  fill an H100, in fp32 and bf16, jacobi2d and dropout too (no entry point
+  of the reference times those two);
 * ``launches`` - the pool kernels' launch counts over the run (on the CPU
   the plain versions run and every count stays 0).
 
@@ -29,6 +31,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import math
 import time
 
 import torch
@@ -37,33 +41,73 @@ from .. import resolve_device
 from ..core import KERNELS, VectorEngineConfig, ideality
 from ..kernels import conv2d as k_conv2d
 from ..kernels import dotproduct as k_dot
+from ..kernels import dropout as k_dropout
+from ..kernels import fft as k_fft
+from ..kernels import jacobi2d as k_jacobi2d
 from ..kernels import matmul as k_matmul
 from ..kernels import ops
+from ..kernels import pathfinder as k_pathfinder
 from ..kernels import softmax as k_softmax
 
 VL_BYTES = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 LANES = (2, 4, 8, 16)
-POOL = (k_matmul, k_dot, k_softmax, k_conv2d)
+# each pool kernel's module, by its op's name (also its key in LAUNCHES)
+POOL = {"matmul": k_matmul, "dotproduct": k_dot, "softmax": k_softmax,
+        "fft": k_fft, "conv2d": k_conv2d, "pathfinder": k_pathfinder,
+        "jacobi2d": k_jacobi2d, "dropout": k_dropout}
 WARMUP = 2
 
 
 @dataclasses.dataclass(frozen=True)
 class Case:
     """One timed row: ``op`` of ``repro_torch.kernels.ops`` on seeded
-    normal inputs of ``shapes`` in ``dtype``."""
+    inputs of ``shapes`` in ``dtype``, with keyword arguments ``kw``
+    ((name, value) pairs)."""
     name: str
     op: str
     shapes: tuple
     dtype: torch.dtype = torch.float32
+    kw: tuple = ()
 
     def inputs(self, gen, device):
-        return [torch.randn(s, generator=gen, device=device).to(self.dtype)
-                for s in self.shapes]
+        """The op's positional arguments: normal values of each shape, as
+        the reference's bench draws them; fft's one vector is both planes
+        (``ops.fft(a, a)``), pathfinder's costs are |normal|, and
+        dropout's second operand is uint32 bits."""
+        if self.op == "dropout":
+            (n,), _ = self.shapes
+            x = torch.randn(n, generator=gen, device=device).to(self.dtype)
+            bits = torch.randint(0, 1 << 32, (n,), generator=gen,
+                                 device=device, dtype=torch.int64)
+            return [x, bits.to(torch.uint32)]
+        ts = [torch.randn(s, generator=gen, device=device)
+              for s in self.shapes]
+        if self.op == "pathfinder":
+            ts = [t.abs() for t in ts]
+        ts = [t.to(self.dtype) for t in ts]
+        return ts * 2 if self.op == "fft" else ts
+
+    def kernels_per_call(self) -> int:
+        """Kernels of the port that one call launches on the card."""
+        return POOL[self.op].kernels_per_call(*self.shapes, **dict(self.kw))
 
     def work(self) -> tuple[int, int]:
         """(bytes, operations) of one call: each input read once, the
         output written once."""
         b = torch.tensor([], dtype=self.dtype).element_size()
+        if self.op == "fft":         # two planes in, two fp32 planes out
+            n = self.shapes[0][0]
+            return 2 * b * n + 8 * n, 5 * n * int(math.log2(n))
+        if self.op == "pathfinder":  # an add and two mins a cell
+            rows, cols = self.shapes[0]
+            return b * rows * cols + 4 * cols, 3 * (rows - 1) * cols
+        if self.op == "jacobi2d":    # four adds and a multiply a point
+            h, w = self.shapes[0]
+            steps = dict(self.kw).get("steps", 1)
+            return 2 * b * h * w, 5 * steps * max(h - 2, 0) * max(w - 2, 0)
+        if self.op == "dropout":     # x and uint32 bits in, x's dtype out
+            n = self.shapes[0][0]
+            return 2 * b * n + 4 * n, 3 * n
         if self.op == "matmul":
             (m, k), (_, n) = self.shapes
             return b * (m * k + k * n + m * n), 2 * m * n * k
@@ -84,21 +128,29 @@ def _both(case: Case):
                                      dtype=torch.bfloat16)
 
 
-# the reference's sizes (bench_ideality.py:31-47), fp32 as there
+# every kernel row of the reference's bench, at its sizes and in its order
+# (bench_ideality.py:31-50), fp32 as there
 REFERENCE = (
     Case("matmul_512", "matmul", ((512, 512), (512, 512))),
     Case("dotproduct_64k", "dotproduct", ((1 << 16,), (1 << 16,))),
     Case("softmax_256x1024", "softmax", ((256, 1024),)),
+    Case("fft_4096", "fft", ((4096,),)),
     Case("conv2d_3x128x128", "conv2d", ((3, 128, 128), (3, 7, 7))),
+    Case("pathfinder_64x4096", "pathfinder", ((64, 4096),)),
 )
 # sizes at which each call does real work on an H100 (137 GFLOP, or
-# 100-540 MB moved), each in fp32 and bf16
+# 0.2-2.1 GB moved), each in fp32 and bf16
 CARD = (
     *_both(Case("matmul_4096", "matmul", ((4096, 4096), (4096, 4096)))),
     *_both(Case("dotproduct_64m", "dotproduct", ((1 << 26,), (1 << 26,)))),
     *_both(Case("softmax_16384x4096", "softmax", ((16384, 4096),))),
+    *_both(Case("fft_16m", "fft", ((1 << 24,),))),
     *_both(Case("conv2d_3x4096x4096", "conv2d",
                 ((3, 4096, 4096), (3, 7, 7)))),
+    *_both(Case("pathfinder_1024x256k", "pathfinder", ((1024, 1 << 18),))),
+    *_both(Case("jacobi2d_16384", "jacobi2d", ((16384, 16384),))),
+    *_both(Case("dropout_64m", "dropout", ((1 << 26,), (1 << 26,)),
+                kw=(("rate", 0.1),))),
 )
 # --sizes: (cases, timed calls of each after WARMUP calls)
 SIZES = {"reference": (REFERENCE, 100), "card": (CARD, 20)}
@@ -143,7 +195,8 @@ def time_us(fn, args, device, iters: int) -> float:
 
 def kernel_row(case: Case, device, gen, iters: int):
     args = case.inputs(gen, device)
-    us = time_us(getattr(ops, case.op), args, device, iters)
+    fn = functools.partial(getattr(ops, case.op), **dict(case.kw))
+    us = time_us(fn, args, device, iters)
     nbytes, flops = case.work()
     rate = (f"gflops={flops / us / 1e3:.2f}"
             if case.op in ("matmul", "conv2d")
@@ -168,17 +221,17 @@ def run(device=None, sizes="reference", out=print):
 
 
 def launches() -> dict[str, int]:
-    return {k: n for mod in POOL for k, n in mod.LAUNCHES.items()}
+    return {k: n for mod in POOL.values() for k, n in mod.LAUNCHES.items()}
 
 
 def expected_launches(sizes="reference") -> dict[str, int]:
     """What :func:`run` at ``sizes`` adds to :func:`launches` on the card:
-    each case's calls, warm-up included, times its kernels per call."""
+    each case's calls, warm-up included, times the kernels its module says
+    one call at its shapes launches."""
     cases, iters = SIZES[sizes]
-    per_call = {k: mod.KERNELS_PER_CALL for mod in POOL for k in mod.LAUNCHES}
-    want = dict.fromkeys(per_call, 0)
+    want = dict.fromkeys(POOL, 0)
     for case in cases:
-        want[case.op] += (WARMUP + iters) * per_call[case.op]
+        want[case.op] += (WARMUP + iters) * case.kernels_per_call()
     return want
 
 
@@ -196,7 +249,7 @@ def main(argv=None):
     ap.add_argument("--sizes", choices=tuple(SIZES), default="reference",
                     help="the kernel rows' sizes (default: the reference's)")
     args = ap.parse_args(argv)
-    for mod in POOL:
+    for mod in POOL.values():
         mod.reset_launches()
     run(args.device, args.sizes)
     print(fmt("launches", 0.0,

@@ -186,7 +186,22 @@ def test_entry_point_prints_the_reference_rows_on_the_cpu(capsys,
         [f"kernel/{c.name}" for c in tideality.REFERENCE]
     assert all(float(us) > 0 for _, us, _ in timed)
     assert rows[-1] == ["launches", "0.0",
-                        "matmul=0|dotproduct=0|softmax=0|conv2d=0"]
+                        "matmul=0|dotproduct=0|softmax=0|fft=0|conv2d=0|"
+                        "pathfinder=0|jacobi2d=0|dropout=0"]
+
+
+def test_entry_point_prints_every_bench_kernel_row_in_order(capsys,
+                                                            monkeypatch):
+    """``--device cpu`` prints the names of every ``kernel/`` row that
+    ``bench_ideality.run`` emits, in its order: matmul, dotproduct,
+    softmax, fft, conv2d, pathfinder."""
+    want = [n for n, _, _ in _reference_bench_rows(monkeypatch)
+            if n.startswith("kernel/")]
+    rows = _printed(capsys, ["--device", "cpu"])
+    assert [r[0] for r in rows if r[0].startswith("kernel/")] == want == [
+        "kernel/matmul_512", "kernel/dotproduct_64k",
+        "kernel/softmax_256x1024", "kernel/fft_4096",
+        "kernel/conv2d_3x128x128", "kernel/pathfinder_64x4096"]
 
 
 def test_entry_point_needs_a_gpu_unless_cpu_is_asked(monkeypatch):
@@ -214,30 +229,80 @@ def test_work_counts():
     nbytes, flops = by_name["conv2d_3x4096x4096"].work()
     assert nbytes == 4 * (3 * 4096 ** 2 + 147 + 4090 ** 2)
     assert flops == 2 * 147 * 4090 ** 2
+    # two planes in (x's dtype), two fp32 planes out; 5 n log2 n
+    assert by_name["fft_16m"].work() == (16 * 2 ** 24, 5 * 24 * 2 ** 24)
+    assert by_name["fft_16m_bf16"].work()[0] == 12 * 2 ** 24
+    assert by_name["pathfinder_1024x256k"].work() == (
+        4 * 2 ** 28 + 4 * 2 ** 18, 3 * 1023 * 2 ** 18)
+    assert by_name["pathfinder_1024x256k_bf16"].work()[0] == \
+        2 * 2 ** 28 + 4 * 2 ** 18
+    assert by_name["jacobi2d_16384"].work() == (8 * 2 ** 28,
+                                                5 * 16382 ** 2)
+    assert by_name["jacobi2d_16384_bf16"].work()[0] == 4 * 2 ** 28
+    assert by_name["dropout_64m"].work() == (12 * 2 ** 26, 3 * 2 ** 26)
+    assert by_name["dropout_64m_bf16"].work()[0] == 8 * 2 ** 26
+    # the card-scale bounds at 3.35 TB/s that ROADMAP and PERF.md quote
+    ms = {c.name: c.work()[0] / 3.35e12 * 1e3 for c in tideality.CARD}
+    assert [round(ms[n], 3) for n in (
+        "fft_16m", "fft_16m_bf16", "pathfinder_1024x256k",
+        "pathfinder_1024x256k_bf16", "jacobi2d_16384", "jacobi2d_16384_bf16",
+        "dropout_64m", "dropout_64m_bf16")] == [
+            0.080, 0.060, 0.321, 0.161, 0.641, 0.321, 0.240, 0.160]
 
 
 def test_card_ladder_is_the_four_kernels_in_both_dtypes():
     """The card-scale cases: matmul 4096^3, dotproduct 2^26, softmax
-    16384 x 4096 and conv2d 3 x 4096 x 4096, each in fp32 and bf16; the
-    reference ladder is bench_ideality's four ported sizes in fp32."""
-    assert len(tideality.CARD) == 8
+    16384 x 4096, fft 2^24, conv2d 3 x 4096 x 4096, pathfinder 1024 x
+    2^18, jacobi2d 16384^2 and dropout 2^26 at rate 0.1, each in fp32 and
+    bf16 (the pool's eight kernels); the reference ladder is
+    bench_ideality's six sizes in fp32, in its order."""
+    ops = ("matmul", "dotproduct", "softmax", "fft", "conv2d", "pathfinder",
+           "jacobi2d", "dropout")
+    assert len(tideality.CARD) == 16 and tuple(tideality.POOL) == ops
     assert {(c.op, c.dtype) for c in tideality.CARD} == {
-        (op, dt) for op in ("matmul", "dotproduct", "softmax", "conv2d")
-        for dt in (torch.float32, torch.bfloat16)}
+        (op, dt) for op in ops for dt in (torch.float32, torch.bfloat16)}
+    assert [(c.op, c.shapes, c.kw) for c in tideality.CARD[-2:]] == [
+        ("dropout", ((1 << 26,), (1 << 26,)), (("rate", 0.1),))] * 2
     assert [(c.op, c.shapes) for c in tideality.REFERENCE] == [
         ("matmul", ((512, 512), (512, 512))),
         ("dotproduct", ((1 << 16,), (1 << 16,))),
         ("softmax", ((256, 1024),)),
-        ("conv2d", ((3, 128, 128), (3, 7, 7)))]
+        ("fft", ((4096,),)),
+        ("conv2d", ((3, 128, 128), (3, 7, 7))),
+        ("pathfinder", ((64, 4096),))]
     assert {c.dtype for c in tideality.REFERENCE} == {torch.float32}
+
+
+def test_case_inputs_follow_the_bench():
+    """fft's one seeded vector is both planes (``ops.fft(a, a)``, as the
+    bench), pathfinder's costs are |normal|, dropout's bits uint32."""
+    by_name = {c.name: c for c in tideality.REFERENCE + tideality.CARD}
+    gen = torch.Generator().manual_seed(0)
+    a, b = by_name["fft_4096"].inputs(gen, torch.device("cpu"))
+    assert a is b and a.shape == (4096,) and a.dtype == torch.float32
+    (w,) = by_name["pathfinder_64x4096"].inputs(gen, torch.device("cpu"))
+    assert w.shape == (64, 4096) and bool((w >= 0).all())
+    small = dataclasses.replace(by_name["dropout_64m_bf16"],
+                                shapes=((1000,), (1000,)))
+    x, bits = small.inputs(gen, torch.device("cpu"))
+    assert x.dtype == torch.bfloat16 and bits.dtype == torch.uint32
+    assert int(bits.to(torch.int64).max()) >= 1 << 31    # the upper half too
 
 
 def test_expected_launches_count_kernels_not_calls():
     """What the entry point adds to the counts on the card: (2 warm-up +
-    timed) calls a case, two kernels a dotproduct call, one for the
-    others."""
+    timed) calls a case, times the kernels its module says one call at its
+    shapes launches: two a dotproduct, fft's passes (1 at n = 4096, 4 at
+    2^24), pathfinder's launches of 64 rows (1 at 64 rows, 16 at 1024),
+    one a jacobi2d sweep, one for the others."""
     assert tideality.expected_launches("reference") == {
-        "matmul": 102, "dotproduct": 204, "softmax": 102, "conv2d": 102}
+        "matmul": 102, "dotproduct": 204, "softmax": 102, "fft": 102,
+        "conv2d": 102, "pathfinder": 102, "jacobi2d": 0, "dropout": 0}
     assert tideality.expected_launches("card") == {
-        "matmul": 44, "dotproduct": 88, "softmax": 44, "conv2d": 44}
-    assert [m.KERNELS_PER_CALL for m in tideality.POOL] == [1, 2, 1, 1]
+        "matmul": 44, "dotproduct": 88, "softmax": 44, "fft": 44 * 4,
+        "conv2d": 44, "pathfinder": 44 * 16, "jacobi2d": 44, "dropout": 44}
+    assert [tideality.POOL[op].kernels_per_call((8, 8))
+            for op in ("matmul", "dotproduct", "softmax", "conv2d",
+                       "dropout", "jacobi2d")] == [1, 2, 1, 1, 1, 1]
+    assert tideality.POOL["jacobi2d"].kernels_per_call((8, 8),
+                                                       steps=3) == 3

@@ -16,9 +16,14 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import conv2d as k_conv2d
 from repro_torch.kernels import dotproduct as k_dot
+from repro_torch.kernels import dropout as k_dropout
+from repro_torch.kernels import fft as k_fft
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import jacobi2d as k_jacobi2d
 from repro_torch.kernels import matmul as k_matmul
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import pathfinder as k_pathfinder
+from repro_torch.kernels import ref
 from repro_torch.kernels import softmax as k_softmax
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.launch import ideality
@@ -356,7 +361,8 @@ def _counted(mod, name, fn, *args, **kw):
     """fn(*args), its count moving by the kernels one call launches."""
     n0 = mod.LAUNCHES[name]
     out = fn(*args, **kw)
-    assert mod.LAUNCHES[name] == n0 + mod.KERNELS_PER_CALL
+    shapes = [a.shape for a in args if isinstance(a, torch.Tensor)]
+    assert mod.LAUNCHES[name] == n0 + mod.kernels_per_call(*shapes, **kw)
     return out
 
 
@@ -479,13 +485,150 @@ def test_pool_kernels_reject_what_they_do_not_take(cuda):
 
 
 def test_ideality_entry_point_runs_the_kernels(cuda):
-    """``launch.ideality`` on the card at the reference's sizes: every row
-    through the kernels, each call (warm-up included) counted, two a
-    dotproduct."""
-    for mod in ideality.POOL:
-        mod.reset_launches()
-    rows = ideality.run("cuda", out=lambda _: None)
-    cases, _ = ideality.SIZES["reference"]
-    assert ideality.launches() == ideality.expected_launches("reference")
-    timed = [r for r in rows if r[0].startswith("kernel/")]
-    assert len(timed) == len(cases) and all(us > 0 for _, us, _ in timed)
+    """``launch.ideality`` on the card at both ladders: every row through
+    the kernels, each call (warm-up included) counted by the kernels it
+    launches (two a dotproduct, fft's passes, pathfinder's 64-row
+    launches)."""
+    for sizes in ("reference", "card"):
+        for mod in ideality.POOL.values():
+            mod.reset_launches()
+        rows = ideality.run("cuda", sizes, out=lambda _: None)
+        cases, _ = ideality.SIZES[sizes]
+        assert ideality.launches() == ideality.expected_launches(sizes)
+        timed = [r for r in rows if r[0].startswith("kernel/")]
+        assert [r[0] for r in timed] == [f"kernel/{c.name}" for c in cases]
+        assert all(us > 0 for _, us, _ in timed)
+
+
+FFT_TOL = 5e-6      # times sqrt(n), against an fp64 transform
+
+
+def _fft_distance(xr, xi, y):
+    want = torch.fft.fft(torch.complex(xr.double(), xi.double()))
+    return max((y[0].double() - want.real).abs().max().item(),
+               (y[1].double() - want.imag).abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_fft_matches_fp64(cuda, dtype):
+    """One block (n = 2, 64, 4096) and several passes (8192: one global
+    pass and the local one; 2^20: two and the local one), kernel and plain
+    version both within 5e-6 sqrt(n) of an fp64 transform, fp32 out."""
+    for seed, n in enumerate([2, 64, 4096, 8192, 1 << 20]):
+        xr, xi = _randn(seed, cuda, dtype, (n,), (n,))
+        got = _counted(k_fft, "fft", k_fft.fft_cuda, xr, xi)
+        assert all(g.dtype == torch.float32 and g.shape == (n,) for g in got)
+        tol = FFT_TOL * n ** 0.5
+        assert _fft_distance(xr, xi, got) <= tol
+        assert _fft_distance(xr, xi, k_fft.fft_plain(xr, xi)) <= tol
+
+
+def test_pool_fft_plant_fails_the_tolerance(cuda):
+    """A transform with stage 0's twiddles conjugated lies far outside
+    5e-6 sqrt(n): the tolerance has teeth."""
+    def conjugated(s, l, device):
+        wr, wi = ref.fft_twiddles(s, l, device)
+        return (wr, -wi) if s == 0 else (wr, wi)
+    for n in (4, 4096, 8192):
+        xr, xi = _randn(n, cuda, torch.float32, (n,), (n,))
+        planted = ref.fft_stages(xr, xi, conjugated)
+        assert _fft_distance(xr, xi, planted) > FFT_TOL * n ** 0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_exact_kernels_match_plain(cuda, dtype):
+    """pathfinder, jacobi2d and dropout equal their plain versions bit for
+    bit, on ragged shapes and at card-like ones: pathfinder one row, one
+    column, several windows and several launches; jacobi2d below 3 rows,
+    odd shapes and three sweeps; dropout with the edge bits at rates 0,
+    0.1 and 0.5."""
+    for seed, shape in enumerate([(1, 5), (2, 1), (20, 257), (3, 70000),
+                                  (200, 1000), (130, 1 << 16)]):
+        (w,) = _randn(seed, cuda, dtype, shape)
+        w = w.abs()
+        got = _counted(k_pathfinder, "pathfinder",
+                       k_pathfinder.pathfinder_cuda, w)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, k_pathfinder.pathfinder_plain(w))
+    for seed, (shape, steps) in enumerate([((35, 67), 1), ((3, 3), 1),
+                                           ((2, 5), 1), ((1, 1), 2),
+                                           ((35, 67), 3),
+                                           ((4099, 2050), 2)]):
+        (x,) = _randn(seed, cuda, dtype, shape)
+        got = _counted(k_jacobi2d, "jacobi2d", k_jacobi2d.jacobi2d_cuda, x,
+                       steps=steps)
+        assert got.dtype == dtype
+        assert torch.equal(got, k_jacobi2d.jacobi2d_plain(x, steps))
+    edge = torch.tensor([0, 1 << 31, (1 << 32) - 129, (1 << 32) - 128,
+                         (1 << 32) - 1], dtype=torch.int64)
+    for seed, n in enumerate([1, 1000, (1 << 22) + 3]):
+        (x,) = _randn(seed, cuda, dtype, (n,))
+        bits = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, 1 << 32, n, dtype=np.uint32))
+        bits[:5] = edge[:n].to(torch.uint32)
+        bits = bits.to(cuda)
+        for rate in (0.0, 0.1, 0.5):
+            got = _counted(k_dropout, "dropout", k_dropout.dropout_cuda, x,
+                           bits, rate=rate)
+            assert got.dtype == dtype
+            assert torch.equal(got, k_dropout.dropout_plain(x, bits,
+                                                            rate=rate))
+
+
+def test_pool_new_kernels_reject_what_they_do_not_take(cuda):
+    x, y = _randn(0, cuda, torch.float32, (8,), (6,))
+    bits = torch.zeros(8, dtype=torch.int64, device=cuda).to(torch.uint32)
+    before = ideality.launches()
+    with pytest.raises(ValueError, match="power of two"):
+        k_fft.fft_cuda(y, y)
+    with pytest.raises(ValueError, match="one length"):
+        k_fft.fft_cuda(x, x[:4].contiguous())
+    with pytest.raises(TypeError):
+        k_fft.fft_cuda(x.half(), x.half())
+    with pytest.raises(TypeError):
+        k_fft.fft_cuda(x, x.bfloat16())
+    with pytest.raises(ValueError, match="rows, cols"):
+        k_pathfinder.pathfinder_cuda(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        k_pathfinder.pathfinder_cuda(x.reshape(2, 4).T)
+    with pytest.raises(TypeError):
+        k_pathfinder.pathfinder_cuda(x.reshape(2, 4).double())
+    with pytest.raises(ValueError, match="H, W"):
+        k_jacobi2d.jacobi2d_cuda(x)
+    with pytest.raises(ValueError, match="steps"):
+        k_jacobi2d.jacobi2d_cuda(x.reshape(2, 4), steps=-1)
+    with pytest.raises(TypeError):
+        k_jacobi2d.jacobi2d_cuda(x.reshape(2, 4).half())
+    with pytest.raises(TypeError):
+        k_dropout.dropout_cuda(x, bits.to(torch.int32), rate=0.1)
+    with pytest.raises(ValueError, match="one length"):
+        k_dropout.dropout_cuda(x, bits[:5], rate=0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_dropout.dropout_cuda(x, bits.cpu(), rate=0.1)
+    assert ideality.launches() == before
+
+
+def test_paged_equals_dense_in_fp32_on_card(cuda):
+    """A narrow fp32 copy of qwen3-0.6b served on the card by the paged
+    layout and by dense continuous: the greedy tokens agree row for row
+    (paged == dense, byte for byte inside the port), and each layout ran
+    its own kernels."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
+                              d_model=128, d_ff=256, vocab_size=1000)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda, dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 1000, n).tolist()
+               for n in (7, 16, 17, 64, 200, 333)]
+    toks = {}
+    for layout, kw in (("paged", dict(kv_layout="paged", block_size=16)),
+                       ("dense", {})):
+        pa.reset_launches()
+        fa.reset_launches()
+        eng = ServeEngine(model, params, max_batch=4, cache_len=512, **kw)
+        toks[layout] = [r.tokens for r in eng.generate(
+            [Request(p, 16, rid=i) for i, p in enumerate(prompts)])]
+        paged_ran = pa.LAUNCHES["paged_prefill_attention"] > 0
+        assert paged_ran == (layout == "paged")
+        assert (fa.LAUNCHES["flash_attention"] > 0) == (layout == "dense")
+    assert toks["paged"] == toks["dense"]

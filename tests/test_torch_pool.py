@@ -1,5 +1,6 @@
 """The port's pool kernels (``repro_torch.kernels``: matmul, dotproduct,
-softmax, conv2d) held against the reference's (``repro.kernels``): the
+softmax, fft, conv2d, pathfinder, jacobi2d, dropout) held against the
+reference's (``repro.kernels``): the
 port's ``ops`` on the CPU (the plain versions) against the reference's
 ``ops`` with ``impl="interpret"`` (the Pallas bodies on the CPU, at shapes
 their tile asserts allow) and ``impl="xla"`` (any shape, the ragged ones
@@ -11,7 +12,10 @@ Inputs are made once from a seed with numpy and handed to both sides (bf16
 inputs are the same fp32 values rounded to nearest even on both).
 Tolerances are the reference's own (``tests/test_kernels.py``): matmul
 fp32 ``atol=2e-5 K``, bf16 ``2e-2 sqrt(K)`` with ``rtol=1e-2``; dotproduct
-``rtol=1e-4, atol=1e-3``; softmax fp32 ``atol=1e-6``; conv2d ``1e-4``."""
+``rtol=1e-4, atol=1e-3``; softmax fp32 ``atol=1e-6``; conv2d ``1e-4``.
+fft is held to ``5e-6 sqrt(n)``, about 2000 times tighter than the
+reference's ``1e-2 sqrt(n)`` and some 7 times the reference's own distance
+from an fp64 DFT; pathfinder, jacobi2d and dropout are held exactly."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,8 +25,12 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import conv2d as k_conv2d
 from repro_torch.kernels import dotproduct as k_dot
+from repro_torch.kernels import dropout as k_dropout
+from repro_torch.kernels import fft as k_fft
+from repro_torch.kernels import jacobi2d as k_jacobi2d
 from repro_torch.kernels import matmul as k_matmul
 from repro_torch.kernels import ops
+from repro_torch.kernels import pathfinder as k_pathfinder
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import softmax as k_softmax
 
@@ -191,6 +199,244 @@ def test_conv2d_bf16_follows_the_pallas_kernel():
 
 
 # ---------------------------------------------------------------------------
+# fft.
+# ---------------------------------------------------------------------------
+
+FFT_TOL = 5e-6      # times sqrt(n)
+
+
+def _dft64(xr, xi):
+    """The fp64 DFT of the inputs' values (numpy, an oracle only)."""
+    return np.fft.fft(_np(xr).astype(np.float64)
+                      + 1j * _np(xi).astype(np.float64))
+
+
+def _fft_close(got, want, n):
+    """Both planes of ``got`` (re, im) within 5e-6 sqrt(n) of ``want``, a
+    complex array or a (re, im) pair."""
+    if not isinstance(want, tuple):
+        want = (want.real, want.imag)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), np.asarray(w, np.float64),
+                                   atol=FFT_TOL * np.sqrt(n), rtol=0)
+
+
+@pytest.mark.parametrize("n", [2, 64, 512, 2048, 4096])
+@pytest.mark.parametrize("impl", ["interpret", "xla"])
+def test_fft_against_reference(n, impl):
+    """fp32 out, within 5e-6 sqrt(n) of ``fft_pallas`` (interpret) and
+    ``fft_xla``, and of an fp64 DFT."""
+    (jr, ji), (tr, ti) = _both(30 + n, (n,), (n,))
+    got = ops.fft(tr, ti)
+    assert all(g.dtype == torch.float32 and g.shape == (n,) for g in got)
+    _fft_close(got, tuple(map(_np, jops.fft(jr, ji, impl=impl))), n)
+    _fft_close(got, _dft64(tr, ti), n)
+
+
+def test_fft_bf16_planes_give_fp32():
+    """bf16 planes in, fp32 out (as both reference impls), the transform
+    of the bf16 values."""
+    n = 2048
+    (jr, ji), (tr, ti) = _both(31, (n,), (n,), dtype="bfloat16")
+    got = ops.fft(tr, ti)
+    assert all(g.dtype == torch.float32 for g in got)
+    for impl in ("interpret", "xla"):
+        want = jops.fft(jr, ji, impl=impl)
+        assert all(w.dtype == jnp.float32 for w in want)
+        _fft_close(got, tuple(map(_np, want)), n)
+    _fft_close(got, _dft64(tr, ti), n)
+
+
+def test_fft_parseval_and_the_bench_call():
+    """Energy is kept (sum |y|^2 = n sum |x|^2, rtol 1e-5), and
+    ``fft(a, a)``, the bench's call, is (1 + i) times a's transform."""
+    n = 1024
+    (_, _), (tr, ti) = _both(32, (n,), (n,))
+    yr, yi = ops.fft(tr, ti)
+    np.testing.assert_allclose(float((yr ** 2 + yi ** 2).sum()) / n,
+                               float((tr ** 2 + ti ** 2).sum()), rtol=1e-5)
+    ar, ai = ops.fft(tr, tr)
+    want = (1 + 1j) * np.fft.fft(_np(tr).astype(np.float64))
+    _fft_close((ar, ai), want, n)
+
+
+@pytest.mark.parametrize("n", [1, 6, 1000])
+def test_fft_rejects_lengths_that_are_not_powers_of_two(n):
+    x = torch.ones(n)
+    with pytest.raises(ValueError, match="power of two"):
+        ops.fft(x, x)
+    with pytest.raises(ValueError, match="power of two"):
+        k_fft.kernels_per_call((n,))
+
+
+def test_fft_plan_covers_every_stage_once():
+    """The kernel's launches for each n: one block up to 4096; beyond,
+    global passes of 1 to 5 stages, in order from stage 0, then one local
+    pass of the last 9 stages over 16 columns a block; so 2 launches at
+    8192 and 4 at 2^24."""
+    for t in range(1, 31):
+        steps = k_fft.plan(1 << t)
+        *passes, (kind, log_len, log_cols) = steps
+        assert kind == "local" and all(p[0] == "pass" for p in passes)
+        s = 0
+        for _, q, start in passes:
+            assert start == s and 1 <= q <= 5
+            s += q
+        assert s + log_len == t
+        assert (log_len, log_cols) == ((t, 0) if t <= 12 else (9, 4))
+    assert [k_fft.kernels_per_call((n,)) for n in (2, 4096, 8192, 1 << 24)] \
+        == [1, 1, 2, 4]
+
+
+# ---------------------------------------------------------------------------
+# pathfinder.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(20, 257), (64, 4096), (1, 5), (2, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["interpret", "xla"])
+def test_pathfinder_exact_against_reference(shape, dtype, impl):
+    """|normal| costs: the last row equals the reference's bit for bit,
+    fp32 out for bf16 costs too (``xla`` returns a single bf16 row as it
+    came, the same values)."""
+    (jw,), (tw,) = _both(33, shape, dtype=dtype)
+    jw, tw = jnp.abs(jw), tw.abs()
+    got = ops.pathfinder(tw)
+    assert got.dtype == torch.float32 and got.shape == (shape[1],)
+    np.testing.assert_array_equal(_np(got),
+                                  _np(jops.pathfinder(jw, impl=impl)))
+
+
+def test_pathfinder_fill_follows_the_pallas_kernel():
+    """The edge fill is the Pallas kernel's 3.0e38 (``_BIG``), not the
+    reference oracle's fp32 max: a path cost of 3.2e38 next to the edge
+    gives 3.0e38, as ``pathfinder_pallas``, where ``pathfinder_xla``
+    gives 3.2e38."""
+    w = np.array([[3.2e38], [0.0]], np.float32)
+    got = ops.pathfinder(torch.from_numpy(w))
+    pallas = np.asarray(jops.pathfinder(jnp.asarray(w), impl="interpret"))
+    xla = np.asarray(jops.pathfinder(jnp.asarray(w), impl="xla"))
+    assert got.item() == np.float32(3.0e38) == pallas[0]
+    assert xla[0] == np.float32(3.2e38)
+
+
+def test_pathfinder_launches_cover_every_row():
+    """One launch per 64 rows after the first, one for a single row."""
+    assert [k_pathfinder.kernels_per_call((r, 5)) for r in
+            (1, 2, 65, 66, 1024)] == [1, 1, 1, 2, 16]
+
+
+# ---------------------------------------------------------------------------
+# jacobi2d.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(34, 66), (10, 9)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jacobi2d_exact_against_pallas_interpret(shape, dtype):
+    """Shapes the Pallas kernel's 8-row blocks divide: bit for bit, in
+    x's dtype (bf16 rounds each add and the product, 0.2 rounded to
+    bf16)."""
+    (jx,), (tx,) = _both(34, shape, dtype=dtype)
+    got = ops.jacobi2d(tx)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == shape
+    np.testing.assert_array_equal(_np(got),
+                                  _np(jops.jacobi2d(jx, impl="interpret")))
+
+
+@pytest.mark.parametrize("shape", [(35, 67), (3, 3), (2, 5), (1, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("steps", [1, 3])
+def test_jacobi2d_exact_against_xla(shape, dtype, steps):
+    """Any shape (below 3 rows or columns a sweep is a copy) and several
+    sweeps: bit for bit against ``jacobi2d_xla``."""
+    (jx,), (tx,) = _both(35, shape, dtype=dtype)
+    got = ops.jacobi2d(tx, steps=steps)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == shape
+    np.testing.assert_array_equal(
+        _np(got), _np(jops.jacobi2d(jx, impl="xla", steps=steps)))
+
+
+def test_jacobi2d_rounds_in_bf16_as_the_reference():
+    """The bf16 schedule matters: one fp32 sum rounded once differs from
+    the reference on this input, the port does not."""
+    (jx,), (tx,) = _both(36, (34, 66), dtype="bfloat16")
+    want = _np(jops.jacobi2d(jx, impl="xla"))
+    x = tx.float()
+    once = x.clone()
+    once[1:-1, 1:-1] = 0.2 * (x[1:-1, 1:-1] + x[:-2, 1:-1] + x[2:, 1:-1]
+                              + x[1:-1, :-2] + x[1:-1, 2:])
+    assert (_np(once.bfloat16()) != want).any()
+    np.testing.assert_array_equal(_np(ops.jacobi2d(tx)), want)
+
+
+# ---------------------------------------------------------------------------
+# dropout.
+# ---------------------------------------------------------------------------
+
+EDGE_BITS = [0, 1 << 31, (1 << 32) - 129, (1 << 32) - 128, (1 << 32) - 1]
+
+
+def _bits(seed, n, edge=()):
+    """Seeded uint32 bits as (jax, torch) arrays, the first ones ``edge``."""
+    b = np.random.default_rng(seed).integers(0, 1 << 32, n, dtype=np.uint32)
+    b[:len(edge)] = np.asarray(edge, np.uint32)[:n]
+    return jnp.asarray(b), torch.from_numpy(b)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_exact_against_pallas_interpret(rate, dtype):
+    """The same mask bit for bit, and in bf16 the same values.  In fp32
+    the reference splits (ROADMAP §3): the Pallas body, like a jitted
+    ``xla``, multiplies by the reciprocal XLA folds, fl(1 / fl(1 - rate)),
+    where the oracle and eager ``xla`` divide, as the port does.  Each side
+    is held to its own formula bit for bit; they meet where the reciprocal
+    is exact (rate 0.5)."""
+    (jx,), (tx,) = _both(37, (2048,), dtype=dtype)
+    jb, tb = _bits(38, 2048)
+    got = _np(ops.dropout(tx, tb, rate=rate))
+    want = _np(jops.dropout(jx, jb, rate=rate, impl="interpret"))
+    keep = got != 0
+    np.testing.assert_array_equal(keep, want != 0)
+    assert abs(float(keep.mean()) - (1 - rate)) < 0.06
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got, want)
+        return
+    x, d = _np(tx), np.float32(1.0 - rate)
+    np.testing.assert_array_equal(got[keep], x[keep] / d)
+    np.testing.assert_array_equal(want[keep], x[keep] * (np.float32(1) / d))
+    assert (rate == 0.5) == np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1000, 1])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_exact_against_xla(n, rate, dtype):
+    """Any n, and the bits at the edges of the fp32 conversion: 2^32 - 129
+    gives u = 1 - 2^-24, 2^32 - 128 and above u = 1.0 (kept at every rate
+    here); rate 0 keeps everything, divided by 1."""
+    (jx,), (tx,) = _both(39, (n,), dtype=dtype)
+    jb, tb = _bits(40, n, EDGE_BITS)
+    got = ops.dropout(tx, tb, rate=rate)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (n,)
+    np.testing.assert_array_equal(
+        _np(got), _np(jops.dropout(jx, jb, rate=rate, impl="xla")))
+
+
+def test_dropout_divides_by_one_minus_rate_in_x_dtype():
+    """bf16 divides by bf16(0.9) = 0.8984375 at rate 0.1; an fp32 divisor
+    gives other values on this input, the port does not."""
+    (jx,), (tx,) = _both(41, (4096,), dtype="bfloat16")
+    jb, tb = _bits(42, 4096)
+    want = _np(jops.dropout(jx, jb, rate=0.1, impl="xla"))
+    got = _np(ops.dropout(tx, tb, rate=0.1))
+    keep = got != 0
+    fp32 = (tx.float() / 0.9).bfloat16().float().numpy()
+    assert (fp32[keep] != want[keep]).any()
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
 # Oracles, dispatch, and the wrappers' refusals on the CPU.
 # ---------------------------------------------------------------------------
 
@@ -209,6 +455,24 @@ def test_oracles_match_the_reference_oracles():
     assert got.dtype == torch.float32
     np.testing.assert_allclose(_np(got), _np(jref.conv2d_ref(jx, jw)),
                                atol=1e-5)
+    # fft: the port's oracle is the Stockham schedule, the reference's
+    # jnp.fft
+    (jr, ji), (tr, ti) = _both(15, (256,), (256,))
+    _fft_close(tref.fft_ref(tr, ti), tuple(map(_np, jref.fft_ref(jr, ji))),
+               256)
+    # pathfinder: equal wherever no path cost reaches the fills (3.0e38
+    # here, fp32's max there)
+    (jw,), (tw,) = _both(16, (9, 33))
+    np.testing.assert_array_equal(_np(tref.pathfinder_ref(tw.abs())),
+                                  _np(jref.pathfinder_ref(jnp.abs(jw))))
+    for dtype in ("float32", "bfloat16"):
+        (jx,), (tx,) = _both(17, (12, 10), dtype=dtype)
+        np.testing.assert_array_equal(_np(tref.jacobi2d_ref(tx, 2)),
+                                      _np(jref.jacobi2d_ref(jx, 2)))
+        jb, tb = _bits(18, 12 * 10, EDGE_BITS)
+        (jx,), (tx,) = _both(19, (120,), dtype=dtype)
+        np.testing.assert_array_equal(_np(tref.dropout_ref(tx, tb, 0.2)),
+                                      _np(jref.dropout_ref(jx, jb, 0.2)))
 
 
 def test_ops_dispatch_by_device_only():
@@ -217,7 +481,10 @@ def test_ops_dispatch_by_device_only():
     x = torch.empty((2, 2), device="meta")
     for call in (lambda: ops.matmul(x, x), lambda: ops.dotproduct(x[0], x[0]),
                  lambda: ops.softmax(x),
-                 lambda: ops.conv2d(x[None], x[None])):
+                 lambda: ops.conv2d(x[None], x[None]),
+                 lambda: ops.fft(x[0], x[0]), lambda: ops.pathfinder(x),
+                 lambda: ops.jacobi2d(x),
+                 lambda: ops.dropout(x[0], x[0], rate=0.1)):
         with pytest.raises(ValueError, match="no implementation"):
             call()
 
@@ -229,9 +496,14 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_building():
     calls = ((k_matmul.matmul_cuda, (x, x)),
              (k_dot.dotproduct_cuda, (x[0], x[0])),
              (k_softmax.softmax_cuda, (x,)),
-             (k_conv2d.conv2d_cuda, (x[None], x[None, :3, :3])))
+             (k_conv2d.conv2d_cuda, (x[None], x[None, :3, :3])),
+             (k_fft.fft_cuda, (x[0], x[0])),
+             (k_pathfinder.pathfinder_cuda, (x,)),
+             (k_jacobi2d.jacobi2d_cuda, (x,)),
+             (k_dropout.dropout_cuda, (x[0], x[0].to(torch.uint32))))
     for fn, args in calls:
         before = dict(fn.__globals__["LAUNCHES"])
+        kw = {"rate": 0.1} if fn is k_dropout.dropout_cuda else {}
         with pytest.raises(ValueError, match="CUDA device"):
-            fn(*args)
+            fn(*args, **kw)
         assert fn.__globals__["LAUNCHES"] == before
