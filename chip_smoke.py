@@ -59,11 +59,13 @@ Phases, each of which exits non-zero on failure:
               prefill (chunk) of each path, with the top kernels
               (torch.profiler);
 11. pool    - the paper's kernel pool (matmul, dotproduct, softmax, fft,
-              conv2d, pathfinder, jacobi2d, dropout): each kernel against
-              its plain version in fp32 and bf16 at the reference's
-              benchmark sizes, at sizes that fill the card and on ragged
-              shapes (pathfinder, jacobi2d and dropout bit for bit; fft,
-              kernel and plain version, within 5e-6 sqrt(n) of an fp64
+              conv2d, pathfinder, jacobi2d, dropout, exp, dwt): each kernel
+              against its plain version in fp32 and bf16 at the
+              reference's benchmark sizes, at sizes that fill the card and
+              on ragged shapes (pathfinder, jacobi2d, dropout, exp and dwt
+              bit for bit, NaN for NaN, which exp with its multiply-adds
+              rounded apart and a bf16 dwt kept in fp32 fail; fft, kernel
+              and plain version, within 5e-6 sqrt(n) of an fp64
               transform, which a conjugated stage fails), dotproduct also
               bit-identical when called again; then the pool's entry
               point, ``repro_torch.launch.ideality``, at both ladders of
@@ -118,6 +120,8 @@ REPLACES = {
     "pathfinder": "src/repro/kernels/pathfinder.py:50",
     "jacobi2d": "src/repro/kernels/jacobi2d.py:26",
     "dropout": "src/repro/kernels/dropout.py:25",
+    "exp": "src/repro/kernels/expk.py:40",
+    "dwt": "src/repro/kernels/dwt.py:43",
 }
 SOURCES = {
     "paged_decode_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -133,13 +137,17 @@ SOURCES = {
     "pathfinder": "src/repro_torch/kernels/csrc/pathfinder.cu",
     "jacobi2d": "src/repro_torch/kernels/csrc/jacobi2d.cu",
     "dropout": "src/repro_torch/kernels/csrc/dropout.cu",
+    "exp": "src/repro_torch/kernels/csrc/expk.cu",
+    "dwt": "src/repro_torch/kernels/csrc/dwt.cu",
 }
 # ragged pool shapes that no TPU tile divides, (op, shapes, keyword
 # arguments) as launch.ideality.Case; softmax: 12280 columns is the
 # kernel's longest cached row, 12281 and 20000 take its uncached path; fft:
 # the shortest signal and the first that takes two passes; pathfinder: one
 # row, one column, several windows, several launches; jacobi2d: no interior,
-# and three sweeps; dropout: the edge bits (DROPOUT_EDGE_BITS)
+# and three sweeps; dropout: the edge bits (DROPOUT_EDGE_BITS); exp: a length
+# no 16-byte load divides, EXP_EDGE at its head; dwt: n = 3 2^11 at one,
+# five and eleven levels, and 2^20 at the one-launch depth and past it
 POOL_RAGGED = (("matmul", ((127, 129), (129, 65)), ()),
                ("matmul", ((1, 1000), (1000, 3)), ()),
                ("dotproduct", ((1003,), (1003,)), ()),
@@ -157,13 +165,24 @@ POOL_RAGGED = (("matmul", ((127, 129), (129, 65)), ()),
                ("jacobi2d", ((2, 5),), ()),
                ("jacobi2d", ((35, 67),), (("steps", 3),)),
                ("dropout", ((1000,), (1000,)), (("rate", 0.1),)),
-               ("dropout", ((1000,), (1000,)), (("rate", 0.5),)))
+               ("dropout", ((1000,), (1000,)), (("rate", 0.5),)),
+               ("exp", ((1_000_003,),), ()),
+               ("dwt", ((3 << 11,),), (("levels", 1),)),
+               ("dwt", ((3 << 11,),), (("levels", 5),)),
+               ("dwt", ((3 << 11,),), (("levels", 11),)),
+               ("dwt", ((1 << 20,),), (("levels", 10),)),
+               ("dwt", ((1 << 20,),), (("levels", 11),)))
 # uint32 bits at the edges of the fp32 conversion: 2^32 - 129 becomes
 # 1 - 2^-24, 2^32 - 128 and above become 1.0
 DROPOUT_EDGE_BITS = (0, 1 << 31, (1 << 32) - 129, (1 << 32) - 128,
                      (1 << 32) - 1)
+# exp's edges: past the clip (89, 100, -88, -200), a flushed subnormal
+# (-87.5), zero, the infinities and NaN
+EXP_EDGE = (89.0, 100.0, -87.3, -87.5, -88.0, -200.0, 0.0, math.inf,
+            -math.inf, math.nan)
 FFT_TOL = 5e-6     # times sqrt(n), against an fp64 transform
-EXACT_OPS = ("pathfinder", "jacobi2d", "dropout")   # torch.equal
+# torch.equal (NaN for NaN)
+EXACT_OPS = ("pathfinder", "jacobi2d", "dropout", "exp", "dwt")
 
 
 class SmokeFailure(Exception):
@@ -1075,7 +1094,9 @@ def pool_close(torch, case, args, got, want, out_dtype=None):
     rtol 0 (fp32) or one bf16 step, 2^-7 (bf16); conv2d 1e-4 (fp32) or
     atol 1e-4, rtol 2^-7 (bf16); fft, kernel and plain version both,
     within 5e-6 sqrt(n) of an fp64 transform (the kernel's distance
-    returned); pathfinder, jacobi2d and dropout bit for bit."""
+    returned); pathfinder, jacobi2d, dropout, exp and dwt bit for bit (NaN
+    for NaN), but where exp parts from its plain version the count and the
+    ulp distance are logged, and it is held to one ulp of its dtype."""
     f32 = case.dtype == torch.float32
     if case.op == "dotproduct":
         want64, tol = dot_tolerance(*args)
@@ -1085,8 +1106,16 @@ def pool_close(torch, case, args, got, want, out_dtype=None):
         errs = [fft_distance(torch, args, y) for y in (got, want)]
         return errs[0], max(errs) <= FFT_TOL * math.sqrt(args[0].shape[0])
     if case.op in EXACT_OPS:
-        err = (got.float() - want.float()).abs().max().item()
-        return err, torch.equal(got, want)
+        err = (finite_err(torch, got, want) if case.op == "exp" else
+               (got.float() - want.float()).abs().max().item())
+        ok = same_bits(torch, got, want)
+        if case.op == "exp" and not ok:
+            parts, ulps = ulp_distance(torch, got, want)
+            log(f"parity {case.name}: exp parts from its plain version on "
+                f"{parts} of {got.numel()} elements, by up to {ulps} ulp; "
+                "held to 1 ulp")
+            ok = ulps <= 1
+        return err, ok
     g, w = got.float(), want.float()
     err = (g - w).abs().max().item() if g.numel() else 0.0
     if case.op == "matmul":
@@ -1098,6 +1127,40 @@ def pool_close(torch, case, args, got, want, out_dtype=None):
     else:
         atol, rtol = 1e-4, (1e-4 if f32 else 2.0 ** -7)
     return err, torch.allclose(g, w, atol=atol, rtol=rtol)
+
+
+def same_bits(torch, a, b) -> bool:
+    """torch.equal, NaN for NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def finite_err(torch, a, b) -> float:
+    """max |a - b| where both are finite (0.0 where none is): exp's edges
+    give inf and NaN."""
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    d = (a.float() - b.float())[fin].abs()
+    return d.max().item() if d.numel() else 0.0
+
+
+def ulp_distance(torch, a, b):
+    """(elements where a and b part, NaN against a number included; the
+    largest distance between them in units in the last place of their
+    dtype, over the elements that are not NaN in both)."""
+    both = ~(torch.isnan(a) & torch.isnan(b))
+    parts = int((both & ~(a == b)).sum())
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+
+    def ordered(t):     # the bit patterns as integers in the order of value
+        i = t.view(bits).long()
+        return torch.where(i < 0, -(i & ~(-1 << (8 * t.element_size() - 1))),
+                           i)
+    d = (ordered(a) - ordered(b)).abs()[both & ~torch.isnan(a)
+                                         & ~torch.isnan(b)]
+    nan_parts = bool((torch.isnan(a) != torch.isnan(b)).any())
+    ulps = (math.inf if nan_parts else
+            (d.max().item() if d.numel() else 0))
+    return parts, ulps
 
 
 def fft_distance(torch, args, y):
@@ -1135,7 +1198,8 @@ def pool_inputs(torch, case, gen, dev):
     """The case's seeded inputs (``Case.inputs``), but a dotproduct's have
     mean 1, so the sum grows like n and a lost block or tail stands above
     the tolerance; an fft's two planes differ (the entry point times
-    ``fft(a, a)``); a dropout's bits start with DROPOUT_EDGE_BITS."""
+    ``fft(a, a)``); a dropout's bits start with DROPOUT_EDGE_BITS; an
+    exp's x with EXP_EDGE."""
     if case.op == "dotproduct":
         return [(torch.randn(s, generator=gen, device=dev) + 1).to(
             case.dtype) for s in case.shapes]
@@ -1146,10 +1210,12 @@ def pool_inputs(torch, case, gen, dev):
     if case.op == "dropout":
         edge = torch.tensor(DROPOUT_EDGE_BITS, dtype=torch.int64)
         args[1][:len(edge)] = edge.to(torch.uint32).to(dev)
+    if case.op == "exp":
+        args[0][:len(EXP_EDGE)] = torch.tensor(EXP_EDGE).to(case.dtype)
     return args
 
 
-def _pool_check(torch, mod, case, args, out_dtype=None):
+def _pool_check(torch, ideality, mod, case, args, out_dtype=None):
     """One counted kernel call against the plain version; returns
     (result, max_abs_err)."""
     kw = dict(case.kw)
@@ -1157,15 +1223,18 @@ def _pool_check(torch, mod, case, args, out_dtype=None):
         kw["out_dtype"] = out_dtype
     label = case.name + (f" out {out_dtype}" if out_dtype else "")
     n0 = mod.LAUNCHES[case.op]
-    got = getattr(mod, f"{case.op}_cuda")(*args, **kw)
+    fn = ideality.function(case.op)
+    got = getattr(mod, f"{fn}_cuda")(*args, **kw)
     require(mod.LAUNCHES[case.op] == n0 + case.kernels_per_call(),
             f"{label}: the count did not move by one call's kernels")
-    want = getattr(mod, f"{case.op}_plain")(*args, **kw)
+    want = getattr(mod, f"{fn}_plain")(*args, **kw)
     torch.cuda.synchronize()
     err, close = pool_close(torch, case, args, got, want, out_dtype)
     pairs = tuple(zip(got, want)) if case.op == "fft" else ((got, want),)
+    # exp's edges give NaN and inf, as its plain version does
     ok = close and all(g.dtype == w.dtype and g.shape == w.shape
-                       and bool(torch.isfinite(g.float()).all())
+                       and (case.op == "exp"
+                            or bool(torch.isfinite(g.float()).all()))
                        for g, w in pairs)
     log(f"parity {label} shapes={case.shapes}: max_abs_err={err:.3e} "
         f"{'ok' if ok else 'FAIL'}")
@@ -1179,7 +1248,10 @@ def phase_pool_parity(torch, ideality, pool, dev):
     too, and a TF32 product shown to fail the fp32 tolerance; dotproduct
     called twice, bit-identical, and a lost block or tail shown to fail;
     an FFT with one stage's twiddles conjugated shown to fail fft's
-    tolerance.  Returns the worst fp32 error of each kernel."""
+    tolerance; exp with its multiply-adds rounded apart (the reference's
+    eager schedule) and a bf16 dwt kept in fp32 through its levels (the
+    oracle's schedule) shown to fail the bit-for-bit check.  Returns the
+    worst fp32 error of each kernel."""
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(10)
@@ -1187,11 +1259,11 @@ def phase_pool_parity(torch, ideality, pool, dev):
     for case in pool_cases(torch, ideality):
         mod = pool[case.op]
         args = pool_inputs(torch, case, gen, dev)
-        got, err = _pool_check(torch, mod, case, args)
+        got, err = _pool_check(torch, ideality, mod, case, args)
         if case.op == "matmul":
             other = (torch.bfloat16 if case.dtype == torch.float32
                      else torch.float32)
-            _pool_check(torch, mod, case, args, out_dtype=other)
+            _pool_check(torch, ideality, mod, case, args, out_dtype=other)
         if case.op == "matmul" and case in ideality.CARD and \
                 case.dtype == torch.float32:
             torch.backends.cuda.matmul.allow_tf32 = True
@@ -1228,12 +1300,30 @@ def phase_pool_parity(torch, ideality, pool, dev):
                     f"conjugated the transform is {planted:.3e} away")
                 require(planted > tol, f"{case.name}: the tolerance passes "
                                        "a conjugated stage")
+        if case.op == "exp" and case.dtype == torch.float32:
+            planted = ref.exp_poly(args[0], fma=lambda a, b, c: a * b + c)
+            parts, ulps = ulp_distance(torch, planted, got)
+            log(f"parity {case.name}: with its multiply-adds rounded apart "
+                f"exp parts on {parts} of {got.numel()} elements, by up to "
+                f"{ulps} ulp")
+            require(not same_bits(torch, planted, got) and ulps > 1,
+                    f"{case.name}: the check passes exp's eager schedule")
+        levels = dict(case.kw).get("levels", 1)
+        if case.op == "dwt" and case.dtype == torch.bfloat16 and levels > 1:
+            planted = ref.dwt_haar_ref(args[0].float(), levels).to(
+                torch.bfloat16)
+            log(f"parity {case.name}: kept in fp32 through its levels, dwt "
+                f"parts on {int((planted != got).sum())} of {got.numel()} "
+                f"elements, by up to "
+                f"{(planted.float() - got.float()).abs().max().item():.3e}")
+            require(not same_bits(torch, planted, got),
+                    f"{case.name}: the check passes a bf16 dwt kept in fp32")
         if case.dtype == torch.float32:
             worst[case.op] = max(worst.get(case.op, 0.0), err)
         del args, got
     log(f"parity pool: worst fp32 max_abs_err {worst}; every dotproduct "
-        "bit-identical when repeated; pathfinder, jacobi2d and dropout "
-        "bit-identical to their plain versions")
+        "bit-identical when repeated; pathfinder, jacobi2d, dropout, exp and "
+        "dwt bit-identical to their plain versions (exp: unless logged)")
     return worst
 
 
@@ -1270,7 +1360,8 @@ def phase_pool_timing(torch, ideality, pool, dev, kernel_ms):
     ladders, beside the kernel ms of that run.  The library call is one
     PyTorch call of the same function, a yardstick the port never calls:
     fft's is ``torch.fft.fft`` on a complex64 copy of the planes made
-    before the timer; pathfinder, jacobi2d and dropout have none.
+    before the timer; exp's is ``torch.exp``; pathfinder, jacobi2d,
+    dropout and dwt have none.
     Returns, per kernel, the numbers of its card-scale fp32 case, the one
     the kernels line reports."""
     import functools
@@ -1279,7 +1370,7 @@ def phase_pool_timing(torch, ideality, pool, dev, kernel_ms):
     torch.backends.cudnn.allow_tf32 = False    # F.conv2d in full fp32
     library = {"matmul": torch.matmul, "dotproduct": torch.dot,
                "softmax": lambda x: torch.softmax(x, -1),
-               "fft": torch.fft.fft,
+               "fft": torch.fft.fft, "exp": torch.exp,
                "conv2d": lambda x, w: F.conv2d(x[None], w[None])}
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -1292,7 +1383,8 @@ def phase_pool_timing(torch, ideality, pool, dev, kernel_ms):
             peak = (FP32_FLOPS_PER_S if case.dtype == torch.float32
                     else BF16_FLOPS_PER_S)
             plain = functools.partial(
-                getattr(pool[case.op], f"{case.op}_plain"), **dict(case.kw))
+                getattr(pool[case.op], f"{ideality.function(case.op)}_plain"),
+                **dict(case.kw))
             lib_args = ([torch.complex(args[0].float(), args[1].float())]
                         if case.op == "fft" else args)
             t = dict(

@@ -58,6 +58,8 @@ SIGNATURES = {
     },
     "jacobi2d.cu": {"repro_jacobi2d": (_I, _P, _P, _I, _I, _P)},
     "dropout.cu": {"repro_dropout": (_I, _P, _P, _P, _L, _F, _F, _P)},
+    "expk.cu": {"repro_exp": (_I, _P, _P, _L, _P)},
+    "dwt.cu": {"repro_dwt_haar": (_I, _P, _L, _I, _P, _P, _P)},
     "paged_attention.cu": {
         "repro_paged_decode_attention":
             (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),

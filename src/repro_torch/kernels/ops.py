@@ -20,6 +20,8 @@ import torch
 from .conv2d import conv2d_cuda, conv2d_plain
 from .dotproduct import dotproduct_cuda, dotproduct_plain
 from .dropout import dropout_cuda, dropout_plain
+from .dwt import dwt_haar_cuda, dwt_haar_plain
+from .expk import exp_cuda, exp_plain
 from .fft import fft_cuda, fft_plain
 from .flash_attention import (NEG_INF, flash_attention_cuda,
                               flash_attention_plain)
@@ -173,3 +175,17 @@ def dropout(x, bits, *, rate):
     ``torch.uint32``) and divided by (1 - rate) in x's dtype; 0 elsewhere."""
     return _pick(x, dropout_plain, dropout_cuda, "dropout")(x, bits,
                                                             rate=rate)
+
+
+def exp(x):
+    """Software exp of x (n,) (``exp_pallas``'s polynomial scheme), fp32
+    math, out in x's dtype."""
+    return _pick(x, exp_plain, exp_cuda, "exp")(x)
+
+
+def dwt_haar(x, *, levels=1):
+    """The 1-D Haar DWT of x (n,), ``levels`` >= 1 with 2^levels dividing
+    n (ValueError otherwise): [lo_L, hi_L, ..., hi_1] in x's dtype, each
+    level rounded to it."""
+    return _pick(x, dwt_haar_plain, dwt_haar_cuda, "dwt_haar")(
+        x, levels=levels)

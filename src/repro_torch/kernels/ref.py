@@ -5,9 +5,12 @@ sequential, fp32 math (jacobi2d and dropout round as the reference does in
 x's dtype).  Tests hold them against the reference's oracles; the plain
 paged paths share the table gather.  fft's is the reference's Stockham
 schedule (``fft_xla``), not a library transform; pathfinder's edge fill is
-the Pallas kernel's 3.0e38, not the reference oracle's fp32 max."""
+the Pallas kernel's 3.0e38, not the reference oracle's fp32 max; exp's is
+the Pallas body's polynomial with its fused multiply-adds (the reference's
+oracle is ``jnp.exp``); dwt's rounds each level to x's dtype."""
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -129,6 +132,99 @@ def dropout_ref(x, bits, rate):
     divisor = torch.tensor(1.0 - rate, dtype=torch.float64).to(x.dtype).to(
         x.device)
     return torch.where(keep, x / divisor, 0.0)
+
+
+# exp_pallas's constants (expk.py:16-19) as the Pallas body sees them,
+# rounded once to fp32: log2 e, ln 2 and the Taylor coefficients 1/k!,
+# k = 6 down to 0, in the order of its Horner steps
+EXP_LOG2E = 1.4426950408889634
+EXP_LN2 = 0.6931471805599453
+EXP_COEFFS = (1.0 / 720, 1.0 / 120, 1.0 / 24, 1.0 / 6, 0.5, 1.0, 1.0)
+FLT_MIN = 2.0 ** -126        # the least normal fp32
+
+
+def fma32(a, b, c):
+    """fp32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    product of two fp32 values is exact in fp64 (48 bits), the fp64 sum is
+    made round-to-odd (its rounding error, exact by TwoSum, decides the last
+    bit) and then rounded to fp32.  Round-to-odd at 53 bits and then to
+    nearest at 24 is the correctly rounded sum (53 >= 24 + 2), where a plain
+    fp64 sum rounded again can land on an fp32 tie that the exact sum is
+    not on."""
+    a, b, c = (torch.as_tensor(t, dtype=torch.float32, device=a.device)
+               for t in (a, b, c))
+    prod = a.double() * b.double()
+    c64 = c.double()
+    s = prod + c64
+    bb = s - prod
+    err = (prod - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    sticky = torch.isfinite(err) & (err != 0) & even
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where(sticky, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def exp_poly(x, fma=fma32):
+    """The Pallas body ``_exp_poly`` (expk.py:22-32) in fp32, as ``jit``
+    and the interpret path compile it: n = rint(x log2e) (half to even),
+    r = fma(-n, ln2, x), six Horner steps p = fma(p, r, c), n clipped to
+    [-126, 127] (a NaN n to -126, as fmaxf) and 2^n built from exponent
+    bits; p 2^n, whose exact value is a product by a power of two, is
+    flushed to +0 where it is below the least normal fp32 (XLA:CPU
+    flushes subnormals; PyTorch does not).  Outside about [-87.3, 88.7]
+    the result follows the clip (89 -> 2.2e38, -200 -> 1.6e-38); +-inf
+    give NaN.  ``fma`` is the multiply-add (a test plants a schedule that
+    rounds the product and the sum apart)."""
+    xf = x.float()
+    dev = xf.device
+    f32 = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    n = torch.round(xf * f32(EXP_LOG2E))
+    r = fma(-n, f32(EXP_LN2), xf)
+    p = torch.full_like(r, EXP_COEFFS[0])
+    for c in EXP_COEFFS[1:]:
+        p = fma(p, r, f32(c))
+    ni = torch.fmin(torch.fmax(n, f32(-126.0)), f32(127.0)).to(torch.int32)
+    two_n = ((ni + 127) << 23).view(torch.float32)
+    y = p.double() * two_n.double()          # exact
+    return torch.where(y.abs() < FLT_MIN, 0.0, y).float()
+
+
+def exp_ref(x):
+    """Software exp of x (any shape, fp32 or bf16) by :func:`exp_poly`,
+    rounded to x's dtype."""
+    return exp_poly(x).to(x.dtype)
+
+
+DWT_SCALE = 0.70710677      # fl32(1 / sqrt 2), dwt.py:17
+
+
+def dwt_check(n: int, levels: int) -> None:
+    """Raise ValueError unless ``levels`` >= 1 halvings of n are even."""
+    if not isinstance(levels, int) or levels < 1:
+        raise ValueError(f"dwt_haar: levels={levels!r} must be an int >= 1")
+    if n < 1 or n % (1 << levels):
+        raise ValueError(f"dwt_haar: n={n} is not divisible by "
+                         f"2^levels = {1 << levels}")
+
+
+def dwt_haar_ref(x, levels=1):
+    """The 1-D Haar DWT of x (n,), fp32 or bf16, level by level: lo, hi =
+    (even +- odd) * fl32(1/sqrt 2), each add and product rounded in fp32,
+    then lo and hi rounded to x's dtype before the next level (bf16 as
+    the Pallas kernel, which writes each level in x's dtype; fp32 as the
+    reference's oracle ``dwt_haar_xla``).  Returns [lo_L, hi_L, ..., hi_1]
+    in x's dtype."""
+    if x.dim() != 1:
+        raise ValueError(f"dwt_haar: x {tuple(x.shape)} must be a vector")
+    dwt_check(x.shape[0], levels)
+    s = torch.tensor(DWT_SCALE, dtype=torch.float32, device=x.device)
+    lo, parts = x, []
+    for _ in range(levels):
+        even, odd = lo[0::2].float(), lo[1::2].float()
+        parts.insert(0, ((even - odd) * s).to(x.dtype))
+        lo = ((even + odd) * s).to(x.dtype)
+    return torch.cat([lo, *parts])
 
 
 def _softmax_rows(logits: torch.Tensor) -> torch.Tensor:

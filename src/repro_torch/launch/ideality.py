@@ -16,8 +16,8 @@ row is ``name,us_per_call,derived``, the reference's format:
   kernel row of the reference, at its sizes and in its order (matmul
   512^3, dotproduct 64 k, softmax 256 x 1024, fft 4096, conv2d
   3 x 128 x 128, pathfinder 64 x 4096; fp32); ``card`` times sizes that
-  fill an H100, in fp32 and bf16, jacobi2d and dropout too (no entry point
-  of the reference times those two);
+  fill an H100, in fp32 and bf16, jacobi2d, dropout, exp and dwt too (no
+  entry point of the reference times those four);
 * ``launches`` - the pool kernels' launch counts over the run (on the CPU
   the plain versions run and every count stays 0).
 
@@ -42,6 +42,8 @@ from ..core import KERNELS, VectorEngineConfig, ideality
 from ..kernels import conv2d as k_conv2d
 from ..kernels import dotproduct as k_dot
 from ..kernels import dropout as k_dropout
+from ..kernels import dwt as k_dwt
+from ..kernels import expk as k_exp
 from ..kernels import fft as k_fft
 from ..kernels import jacobi2d as k_jacobi2d
 from ..kernels import matmul as k_matmul
@@ -54,7 +56,11 @@ LANES = (2, 4, 8, 16)
 # each pool kernel's module, by its op's name (also its key in LAUNCHES)
 POOL = {"matmul": k_matmul, "dotproduct": k_dot, "softmax": k_softmax,
         "fft": k_fft, "conv2d": k_conv2d, "pathfinder": k_pathfinder,
-        "jacobi2d": k_jacobi2d, "dropout": k_dropout}
+        "jacobi2d": k_jacobi2d, "dropout": k_dropout, "exp": k_exp,
+        "dwt": k_dwt}
+# the function of ``ops`` (and ``<function>_cuda`` / ``_plain`` of the
+# module) where it is not the op's name
+FUNCTION = {"dwt": "dwt_haar"}
 WARMUP = 2
 
 
@@ -72,8 +78,9 @@ class Case:
     def inputs(self, gen, device):
         """The op's positional arguments: normal values of each shape, as
         the reference's bench draws them; fft's one vector is both planes
-        (``ops.fft(a, a)``), pathfinder's costs are |normal|, and
-        dropout's second operand is uint32 bits."""
+        (``ops.fft(a, a)``), pathfinder's costs are |normal|, exp's are
+        4 normal (as ``tests/test_kernels.py:66``), and dropout's second
+        operand is uint32 bits."""
         if self.op == "dropout":
             (n,), _ = self.shapes
             x = torch.randn(n, generator=gen, device=device).to(self.dtype)
@@ -84,6 +91,8 @@ class Case:
               for s in self.shapes]
         if self.op == "pathfinder":
             ts = [t.abs() for t in ts]
+        if self.op == "exp":
+            ts = [4 * t for t in ts]
         ts = [t.to(self.dtype) for t in ts]
         return ts * 2 if self.op == "fft" else ts
 
@@ -108,6 +117,14 @@ class Case:
         if self.op == "dropout":     # x and uint32 bits in, x's dtype out
             n = self.shapes[0][0]
             return 2 * b * n + 4 * n, 3 * n
+        if self.op == "exp":         # a multiply, 7 FMAs, a multiply
+            n = self.shapes[0][0]
+            return 2 * b * n, 16 * n
+        if self.op == "dwt":         # an add, a subtract, 2 multiplies a pair
+            n = self.shapes[0][0]
+            levels = dict(self.kw).get("levels", 1)
+            return 2 * b * n, sum(2 * n >> (l - 1)
+                                  for l in range(1, levels + 1))
         if self.op == "matmul":
             (m, k), (_, n) = self.shapes
             return b * (m * k + k * n + m * n), 2 * m * n * k
@@ -151,6 +168,9 @@ CARD = (
     *_both(Case("jacobi2d_16384", "jacobi2d", ((16384, 16384),))),
     *_both(Case("dropout_64m", "dropout", ((1 << 26,), (1 << 26,)),
                 kw=(("rate", 0.1),))),
+    *_both(Case("exp_64m", "exp", ((1 << 26,),))),
+    # three levels, the reference test's deepest (tests/test_kernels.py:107)
+    *_both(Case("dwt_64m", "dwt", ((1 << 26,),), kw=(("levels", 3),))),
 )
 # --sizes: (cases, timed calls of each after WARMUP calls)
 SIZES = {"reference": (REFERENCE, 100), "card": (CARD, 20)}
@@ -195,7 +215,8 @@ def time_us(fn, args, device, iters: int) -> float:
 
 def kernel_row(case: Case, device, gen, iters: int):
     args = case.inputs(gen, device)
-    fn = functools.partial(getattr(ops, case.op), **dict(case.kw))
+    fn = functools.partial(getattr(ops, function(case.op)),
+                           **dict(case.kw))
     us = time_us(fn, args, device, iters)
     nbytes, flops = case.work()
     rate = (f"gflops={flops / us / 1e3:.2f}"
@@ -218,6 +239,11 @@ def run(device=None, sizes="reference", out=print):
         rows.append(kernel_row(case, dev, gen, iters))
         out(fmt(*rows[-1]))
     return rows
+
+
+def function(op: str) -> str:
+    """The name of ``op``'s function in ``ops`` and in its module."""
+    return FUNCTION.get(op, op)
 
 
 def launches() -> dict[str, int]:

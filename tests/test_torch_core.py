@@ -1,6 +1,9 @@
-"""The port's copy of the analytical models (``repro_torch.core``) held
-equal to the reference's (``repro.core``), and the ideality entry point
-(``repro_torch.launch.ideality``) against ``benchmarks/bench_ideality.py``.
+"""The port's copy of the analytical models and layout helpers
+(``repro_torch.core``) held equal to the reference's (``repro.core``), the
+ideality entry point (``repro_torch.launch.ideality``) against
+``benchmarks/bench_ideality.py``, and the paper-model entry point
+(``repro_torch.launch.paper_models``) against ``bench_slide.py``,
+``bench_multicore.py``, ``bench_whatif.py`` and ``bench_ppa.py``.
 
 Both packages compute the same closed forms in Python floats, so every
 comparison is exact (``==``): the port prints the paper's Fig 4/5 rows to
@@ -8,12 +11,19 @@ the last digit of the reference."""
 import dataclasses
 import pathlib
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 from repro import core as jcore
+from repro.core import lanes as jlanes
+from repro.core import ppa as jppa
 from repro_torch import core as tcore
+from repro_torch.core import lanes as tlanes
+from repro_torch.core import ppa as tppa
 from repro_torch.launch import ideality as tideality
+from repro_torch.launch import paper_models
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 LANES = (2, 4, 8, 16)
@@ -187,7 +197,7 @@ def test_entry_point_prints_the_reference_rows_on_the_cpu(capsys,
     assert all(float(us) > 0 for _, us, _ in timed)
     assert rows[-1] == ["launches", "0.0",
                         "matmul=0|dotproduct=0|softmax=0|fft=0|conv2d=0|"
-                        "pathfinder=0|jacobi2d=0|dropout=0"]
+                        "pathfinder=0|jacobi2d=0|dropout=0|exp=0|dwt=0"]
 
 
 def test_entry_point_prints_every_bench_kernel_row_in_order(capsys,
@@ -241,28 +251,40 @@ def test_work_counts():
     assert by_name["jacobi2d_16384_bf16"].work()[0] == 4 * 2 ** 28
     assert by_name["dropout_64m"].work() == (12 * 2 ** 26, 3 * 2 ** 26)
     assert by_name["dropout_64m_bf16"].work()[0] == 8 * 2 ** 26
+    # one read and one write; 16 operations an element (a multiply, 7
+    # FMAs, a multiply) and, for dwt, 2 m at each level of input m
+    assert by_name["exp_64m"].work() == (8 * 2 ** 26, 16 * 2 ** 26)
+    assert by_name["exp_64m_bf16"].work()[0] == 4 * 2 ** 26
+    assert by_name["dwt_64m"].work() == (8 * 2 ** 26,
+                                         2 * (2 ** 26 + 2 ** 25 + 2 ** 24))
+    assert by_name["dwt_64m_bf16"].work()[0] == 4 * 2 ** 26
     # the card-scale bounds at 3.35 TB/s that ROADMAP and PERF.md quote
     ms = {c.name: c.work()[0] / 3.35e12 * 1e3 for c in tideality.CARD}
     assert [round(ms[n], 3) for n in (
         "fft_16m", "fft_16m_bf16", "pathfinder_1024x256k",
         "pathfinder_1024x256k_bf16", "jacobi2d_16384", "jacobi2d_16384_bf16",
-        "dropout_64m", "dropout_64m_bf16")] == [
-            0.080, 0.060, 0.321, 0.161, 0.641, 0.321, 0.240, 0.160]
+        "dropout_64m", "dropout_64m_bf16", "exp_64m", "exp_64m_bf16",
+        "dwt_64m", "dwt_64m_bf16")] == [
+            0.080, 0.060, 0.321, 0.161, 0.641, 0.321, 0.240, 0.160, 0.160,
+            0.080, 0.160, 0.080]
 
 
 def test_card_ladder_is_the_four_kernels_in_both_dtypes():
     """The card-scale cases: matmul 4096^3, dotproduct 2^26, softmax
     16384 x 4096, fft 2^24, conv2d 3 x 4096 x 4096, pathfinder 1024 x
-    2^18, jacobi2d 16384^2 and dropout 2^26 at rate 0.1, each in fp32 and
-    bf16 (the pool's eight kernels); the reference ladder is
-    bench_ideality's six sizes in fp32, in its order."""
+    2^18, jacobi2d 16384^2, dropout 2^26 at rate 0.1, exp 2^26 and dwt
+    2^26 at 3 levels, each in fp32 and bf16 (the pool's ten kernels); the
+    reference ladder is bench_ideality's six sizes in fp32, in its
+    order."""
     ops = ("matmul", "dotproduct", "softmax", "fft", "conv2d", "pathfinder",
-           "jacobi2d", "dropout")
-    assert len(tideality.CARD) == 16 and tuple(tideality.POOL) == ops
+           "jacobi2d", "dropout", "exp", "dwt")
+    assert len(tideality.CARD) == 20 and tuple(tideality.POOL) == ops
     assert {(c.op, c.dtype) for c in tideality.CARD} == {
         (op, dt) for op in ops for dt in (torch.float32, torch.bfloat16)}
-    assert [(c.op, c.shapes, c.kw) for c in tideality.CARD[-2:]] == [
-        ("dropout", ((1 << 26,), (1 << 26,)), (("rate", 0.1),))] * 2
+    assert [(c.op, c.shapes, c.kw) for c in tideality.CARD[-6:]] == [
+        ("dropout", ((1 << 26,), (1 << 26,)), (("rate", 0.1),))] * 2 + [
+        ("exp", ((1 << 26,),), ())] * 2 + [
+        ("dwt", ((1 << 26,),), (("levels", 3),))] * 2
     assert [(c.op, c.shapes) for c in tideality.REFERENCE] == [
         ("matmul", ((512, 512), (512, 512))),
         ("dotproduct", ((1 << 16,), (1 << 16,))),
@@ -287,6 +309,10 @@ def test_case_inputs_follow_the_bench():
     x, bits = small.inputs(gen, torch.device("cpu"))
     assert x.dtype == torch.bfloat16 and bits.dtype == torch.uint32
     assert int(bits.to(torch.int64).max()) >= 1 << 31    # the upper half too
+    # exp's x is 4 normal, as tests/test_kernels.py:66 draws it
+    small = dataclasses.replace(by_name["exp_64m"], shapes=((100_000,),))
+    (x,) = small.inputs(torch.Generator().manual_seed(0), torch.device("cpu"))
+    assert 3.9 < float(x.std()) < 4.1
 
 
 def test_expected_launches_count_kernels_not_calls():
@@ -297,12 +323,194 @@ def test_expected_launches_count_kernels_not_calls():
     one a jacobi2d sweep, one for the others."""
     assert tideality.expected_launches("reference") == {
         "matmul": 102, "dotproduct": 204, "softmax": 102, "fft": 102,
-        "conv2d": 102, "pathfinder": 102, "jacobi2d": 0, "dropout": 0}
+        "conv2d": 102, "pathfinder": 102, "jacobi2d": 0, "dropout": 0,
+        "exp": 0, "dwt": 0}
     assert tideality.expected_launches("card") == {
         "matmul": 44, "dotproduct": 88, "softmax": 44, "fft": 44 * 4,
-        "conv2d": 44, "pathfinder": 44 * 16, "jacobi2d": 44, "dropout": 44}
+        "conv2d": 44, "pathfinder": 44 * 16, "jacobi2d": 44, "dropout": 44,
+        "exp": 44, "dwt": 44}
     assert [tideality.POOL[op].kernels_per_call((8, 8))
             for op in ("matmul", "dotproduct", "softmax", "conv2d",
                        "dropout", "jacobi2d")] == [1, 2, 1, 1, 1, 1]
     assert tideality.POOL["jacobi2d"].kernels_per_call((8, 8),
                                                        steps=3) == 3
+
+
+# ---------------------------------------------------------------------------
+# ppa, slide and lanes: the rest of core.
+# ---------------------------------------------------------------------------
+
+ALL_LANES = (2, 4, 8, 16, "16*")
+MULTICORE_SIZES = (8, 16, 32, 64, 128, 256)      # bench_multicore.py:13
+
+
+def test_ppa_tables_equal_reference():
+    for name in ("TT_FREQ_GHZ", "SS_FREQ_GHZ", "DIE_AREA_MM2",
+                 "CELL_MACRO_AREA_KGE", "ENERGY_EFF_TABLE3", "TABLE4",
+                 "AREA_KGE", "CLUSTER_POWER_W"):
+        assert getattr(tppa, name) == getattr(jppa, name), name
+    assert not hasattr(tppa, "TpuSpec") and not hasattr(tppa, "TPU_V5E")
+
+
+@pytest.mark.parametrize("lanes", ALL_LANES, ids=str)
+def test_ppa_area_and_power_equal_reference(lanes):
+    """Table 5's system areas (which both refuse for '16*', whose lane
+    count is not a number), the SLDU saving and the cluster power."""
+    for sldu in ("new_sldu", "old_sldu"):
+        if lanes == "16*":
+            for ppa in (tppa, jppa):
+                with pytest.raises(TypeError):
+                    ppa.system_area_kge(lanes, sldu)
+            continue
+        assert tppa.system_area_kge(lanes, sldu) == \
+            jppa.system_area_kge(lanes, sldu)
+    assert tppa.sldu_area_saving(lanes) == jppa.sldu_area_saving(lanes)
+    for activity in (0.6, 1.0, 1.3):
+        assert tppa.cluster_power_w(lanes, activity) == \
+            jppa.cluster_power_w(lanes, activity)
+
+
+@pytest.mark.parametrize("fpus", [2, 4, 8, 16])
+@pytest.mark.parametrize("whatif", [{}, {"ideal_dispatcher": True}],
+                         ids=lambda w: "|".join(w) or "base")
+def test_throughput_and_efficiency_equal_reference(fpus, whatif):
+    """Figs 14/15/17/18 at every (cores x lanes) split of a FPU budget, at
+    the multicore bench's sizes."""
+    for tc, jc in zip(tcore.fixed_fpu_sweep(fpus),
+                      jcore.fixed_fpu_sweep(fpus)):
+        assert tppa.system_power_w(tc) == jppa.system_power_w(jc)
+        tw, jw = tcore.WhatIf(**whatif), jcore.WhatIf(**whatif)
+        for n in MULTICORE_SIZES:
+            assert tcore.real_throughput_gflops(n, tc, tw) == \
+                jcore.real_throughput_gflops(n, jc, jw)
+            assert tcore.energy_efficiency_gflops_w(n, tc, tw, 0.8) == \
+                jcore.energy_efficiency_gflops_w(n, jc, jw, 0.8)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_slide_cost_model_equals_reference(lanes):
+    """Fig 3: the mux counts of the four interconnects and the saving."""
+    for mode in ("all_to_all", "slideP2_tmux", "slideP2", "slide1"):
+        assert tcore.mux_count(lanes, mode) == jcore.mux_count(lanes, mode)
+    assert tcore.sldu_saving(lanes) == jcore.sldu_saving(lanes)
+
+
+def test_decompose_pow2_equals_reference():
+    for amount in range(-300, 301):
+        assert tcore.decompose_pow2(amount) == jcore.decompose_pow2(amount)
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 33])
+def test_slide_and_rotate_equal_reference(n):
+    """vslideup / vslidedown by any amount (zero or another fill, along
+    either axis of a 2-D array) and rotations, by their power-of-two
+    micro-ops."""
+    x = np.arange(1, 3 * n + 1, dtype=np.float32).reshape(3, n)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    for amount in range(-n - 2, n + 3):
+        for axis, fill in ((1, 0), (1, -7.0), (0, 0)):
+            np.testing.assert_array_equal(
+                tcore.slide(tx, amount, axis, fill).numpy(),
+                np.asarray(jcore.slide(jx, amount, axis, fill)))
+        np.testing.assert_array_equal(tcore.rotate(tx, amount, 1).numpy(),
+                                      np.asarray(jcore.rotate(jx, amount, 1)))
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_stripe_and_reductions_equal_reference(lanes):
+    """The lane layout (element i at [i % L, i // L]) and the 3-step
+    reduction on it, on integers so both sums are exact."""
+    for n in (1, 7, 16, 100):
+        x = np.arange(n, dtype=np.int32) * 3 - 50
+        got = tlanes.stripe(torch.from_numpy(x), lanes, fill=-1)
+        want = jlanes.stripe(jnp.asarray(x), lanes, fill=-1)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(tlanes.unstripe(got, n).numpy(), x)
+        assert int(tcore.hierarchical_reduce(torch.from_numpy(x), lanes)) \
+            == int(jcore.hierarchical_reduce(jnp.asarray(x), lanes)) \
+            == int(x.sum())
+        y = np.arange(2 * n, dtype=np.int32).reshape(2, n)
+        np.testing.assert_array_equal(
+            tcore.simd_tree_reduce(torch.from_numpy(y), axis=1).numpy(),
+            np.asarray(jcore.simd_tree_reduce(jnp.asarray(y), axis=1)))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.uint16])
+@pytest.mark.parametrize("lanes", [2, 4, 8])
+def test_byte_image_roundtrip_equals_reference(dtype, lanes):
+    """The VRF byte image equals the reference's and reads back
+    (tests/test_core.py:79)."""
+    x = np.arange(16).astype(dtype)
+    img = tlanes.stripe_bytes(x, lanes)
+    np.testing.assert_array_equal(img, jlanes.stripe_bytes(x, lanes))
+    np.testing.assert_array_equal(tlanes.unstripe_bytes(img, dtype, 16), x)
+
+
+def test_reshuffle_preserves_byte_stream():
+    """EW64 -> EW32 re-encode keeps the logical byte stream
+    (tests/test_core.py:88), as the reference's reshuffle does."""
+    x = np.arange(8).astype(np.float64)
+    img = tlanes.stripe_bytes(x, 4)
+    img32 = tlanes.reshuffle(img, np.float64, np.float32, 8)
+    np.testing.assert_array_equal(
+        img32, jlanes.reshuffle(img, np.float64, np.float32, 8))
+    back = tlanes.unstripe_bytes(img32, np.float32, 16)
+    np.testing.assert_array_equal(back.view(np.float64), x)
+    img8 = tlanes.reshuffle(tlanes.stripe_bytes(x.view(np.uint8), 4),
+                            np.uint8, np.float64, 64)
+    np.testing.assert_array_equal(tlanes.unstripe_bytes(img8, np.float64, 8),
+                                  x)
+
+
+def test_core_exports_the_reference_names():
+    """Every name the reference's core exports, but its mesh collectives
+    and TPU constants."""
+    left_out = {"mesh_slide", "mesh_halo_exchange", "allreduce_hd",
+                "allreduce_rs_ag", "reduce_scatter_hd", "allgather_hd",
+                "TpuSpec", "TPU_V5E"}
+    public = {n for n in dir(jcore) if not n.startswith("_")
+              and not isinstance(getattr(jcore, n), type(jcore))}
+    missing = {n for n in public - left_out if not hasattr(tcore, n)}
+    assert missing == set()
+    assert not any(hasattr(tcore, n) for n in left_out)
+
+
+# ---------------------------------------------------------------------------
+# The paper-model entry point.
+# ---------------------------------------------------------------------------
+
+PAPER_BENCHES = {"slide": "bench_slide", "multicore": "bench_multicore",
+                 "whatif": "bench_whatif", "ppa": "bench_ppa"}
+
+
+def _bench_rows(monkeypatch, module):
+    """The rows ``benchmarks/<module>.py::run`` emits, as printed."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import importlib
+    bench = importlib.import_module(f"benchmarks.{module}")
+    rows = []
+    monkeypatch.setattr(bench, "emit", lambda name, us, derived: rows.append(
+        f"{name},{us:.1f},{derived}"))
+    bench.run()
+    return rows
+
+
+@pytest.mark.parametrize("bench", list(PAPER_BENCHES))
+def test_paper_model_rows_equal_the_bench(monkeypatch, bench):
+    """Every row of each bench, name and digits, in its order."""
+    want = _bench_rows(monkeypatch, PAPER_BENCHES[bench])
+    got = []
+    rows = paper_models.run(bench, out=got.append)
+    assert got == want and len(rows) == len(want) > 10
+
+
+def test_paper_models_entry_point_prints_every_bench(monkeypatch, capsys):
+    """``--bench all`` (the default) prints the four benches in the order
+    of benchmarks/run.py, with no device."""
+    want = [r for b in PAPER_BENCHES.values()
+            for r in _bench_rows(monkeypatch, b)]
+    paper_models.main([])
+    assert capsys.readouterr().out.splitlines() == want
+    paper_models.main(["--bench", "ppa"])
+    assert capsys.readouterr().out.splitlines() == \
+        _bench_rows(monkeypatch, "bench_ppa")

@@ -17,6 +17,8 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import conv2d as k_conv2d
 from repro_torch.kernels import dotproduct as k_dot
 from repro_torch.kernels import dropout as k_dropout
+from repro_torch.kernels import dwt as k_dwt
+from repro_torch.kernels import expk as k_exp
 from repro_torch.kernels import fft as k_fft
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import jacobi2d as k_jacobi2d
@@ -605,6 +607,81 @@ def test_pool_new_kernels_reject_what_they_do_not_take(cuda):
         k_dropout.dropout_cuda(x, bits[:5], rate=0.1)
     with pytest.raises(ValueError, match="CUDA"):
         k_dropout.dropout_cuda(x, bits.cpu(), rate=0.1)
+    assert ideality.launches() == before
+
+
+EXP_EDGE = [89.0, 100.0, -87.3, -87.5, -88.0, -200.0, 0.0, float("inf"),
+            -float("inf"), float("nan")]
+
+
+def _same_bits(a, b):
+    """torch.equal, NaN for NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_exp_matches_plain(cuda, dtype):
+    """exp equals its plain version bit for bit (NaN for NaN) at a ragged
+    length with the edge values at its head, at 2^26, and on an array
+    that is not 16-byte aligned (the element-by-element path); a schedule
+    that rounds each product and sum apart does not."""
+    for seed, n in enumerate([1, 7, 1_000_003, 1 << 26]):
+        (x,) = _randn(seed, cuda, dtype, (n,), scale=4.0)
+        x[:len(EXP_EDGE)] = torch.tensor(EXP_EDGE[:n]).to(dtype)
+        got = _counted(k_exp, "exp", k_exp.exp_cuda, x)
+        assert got.dtype == dtype and got.shape == (n,)
+        assert _same_bits(got, k_exp.exp_plain(x))
+        if dtype == torch.float32 and n > 1000:
+            eager = ref.exp_poly(x, fma=lambda a, b, c: a * b + c)
+            assert not _same_bits(eager, got)
+    (x,) = _randn(9, cuda, dtype, (1001,))
+    x = x[1:]                                   # 4 or 2 bytes past 16
+    assert _same_bits(_counted(k_exp, "exp", k_exp.exp_cuda, x),
+                      k_exp.exp_plain(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_dwt_matches_plain(cuda, dtype):
+    """dwt equals its plain version bit for bit from one level to past one
+    launch's depth (3 2^11 at 1, 2, 3, 5 and 11 levels; 2^20 at 10 and 11;
+    2^26 at 3), on an array that is not 16-byte aligned, and in x's dtype;
+    a bf16 transform kept in fp32 through its levels does not."""
+    for seed, (n, levels) in enumerate([(2, 1), (3 << 11, 1), (3 << 11, 2),
+                                        (3 << 11, 3), (3 << 11, 5),
+                                        (3 << 11, 11), (1 << 20, 10),
+                                        (1 << 20, 11), (1 << 26, 3)]):
+        (x,) = _randn(seed, cuda, dtype, (n,))
+        got = _counted(k_dwt, "dwt", k_dwt.dwt_haar_cuda, x, levels=levels)
+        assert got.dtype == dtype and got.shape == (n,)
+        assert torch.equal(got, k_dwt.dwt_haar_plain(x, levels=levels))
+        if dtype == torch.bfloat16 and levels > 1:
+            fp32 = ref.dwt_haar_ref(x.float(), levels).to(dtype)
+            assert not torch.equal(fp32, got)
+    (x,) = _randn(20, cuda, dtype, (4097,))
+    x = x[1:]
+    assert torch.equal(_counted(k_dwt, "dwt", k_dwt.dwt_haar_cuda, x,
+                                levels=4),
+                       k_dwt.dwt_haar_plain(x, levels=4))
+
+
+def test_pool_exp_dwt_reject_what_they_do_not_take(cuda):
+    x = torch.ones(12, device=cuda)
+    before = ideality.launches()
+    with pytest.raises(ValueError, match="vector"):
+        k_exp.exp_cuda(x.reshape(3, 4))
+    with pytest.raises(TypeError):
+        k_exp.exp_cuda(x.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        k_exp.exp_cuda(x.cpu())
+    with pytest.raises(ValueError, match="divisible"):
+        k_dwt.dwt_haar_cuda(x, levels=3)
+    with pytest.raises(ValueError, match="levels"):
+        k_dwt.dwt_haar_cuda(x, levels=0)
+    with pytest.raises(ValueError, match="vector"):
+        k_dwt.dwt_haar_cuda(x.reshape(3, 4))
+    with pytest.raises(TypeError):
+        k_dwt.dwt_haar_cuda(x.double(), levels=2)
     assert ideality.launches() == before
 
 

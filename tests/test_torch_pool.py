@@ -1,5 +1,5 @@
 """The port's pool kernels (``repro_torch.kernels``: matmul, dotproduct,
-softmax, fft, conv2d, pathfinder, jacobi2d, dropout) held against the
+softmax, fft, conv2d, pathfinder, jacobi2d, dropout, exp, dwt) held against the
 reference's (``repro.kernels``): the
 port's ``ops`` on the CPU (the plain versions) against the reference's
 ``ops`` with ``impl="interpret"`` (the Pallas bodies on the CPU, at shapes
@@ -15,17 +15,25 @@ fp32 ``atol=2e-5 K``, bf16 ``2e-2 sqrt(K)`` with ``rtol=1e-2``; dotproduct
 ``rtol=1e-4, atol=1e-3``; softmax fp32 ``atol=1e-6``; conv2d ``1e-4``.
 fft is held to ``5e-6 sqrt(n)``, about 2000 times tighter than the
 reference's ``1e-2 sqrt(n)`` and some 7 times the reference's own distance
-from an fp64 DFT; pathfinder, jacobi2d and dropout are held exactly."""
+from an fp64 DFT; pathfinder, jacobi2d and dropout are held exactly, and
+so are exp (against the Pallas body on the CPU) and dwt (fp32 against the
+reference's oracle, bf16 against the Pallas body); the reference's own
+tolerances for exp and dwt (``tests/test_kernels.py:63-117``) hold too."""
+import fractions
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import expk as jexpk
 from repro.kernels import ref as jref
 from repro_torch.kernels import conv2d as k_conv2d
 from repro_torch.kernels import dotproduct as k_dot
 from repro_torch.kernels import dropout as k_dropout
+from repro_torch.kernels import dwt as k_dwt
+from repro_torch.kernels import expk as k_exp
 from repro_torch.kernels import fft as k_fft
 from repro_torch.kernels import jacobi2d as k_jacobi2d
 from repro_torch.kernels import matmul as k_matmul
@@ -437,6 +445,190 @@ def test_dropout_divides_by_one_minus_rate_in_x_dtype():
 
 
 # ---------------------------------------------------------------------------
+# exp.
+# ---------------------------------------------------------------------------
+
+# past the clip (89, 100, -88, -200), a flushed subnormal (-87.5), a value
+# that bf16 rounds past the flush (-87.3), zero, the infinities, NaN, fp32's
+# extremes and subnormal inputs
+EXP_EDGE = [89.0, 100.0, -87.3, -87.5, -88.0, -200.0, 0.0, np.inf, -np.inf,
+            np.nan, 1e30, -1e30, 3e38, -3e38, 1e-40, -1e-45, 88.7, -87.33654]
+
+
+def _exp_inputs(seed, n, scale, dtype, edge=True):
+    """Seeded scale * normal values, EXP_EDGE at the head, as (jax, torch)
+    arrays of one dtype."""
+    x = (np.random.default_rng(seed).standard_normal(n) * scale).astype(
+        np.float32)
+    if edge:
+        x[:len(EXP_EDGE)] = EXP_EDGE
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x).astype(jd), torch.from_numpy(x).to(td)
+
+
+def _ulps(a, b):
+    """|a - b| in fp32 units in the last place, elementwise (finite, same
+    sign)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exp_exact_against_pallas_interpret(dtype):
+    """The Pallas body on the CPU, bit for bit, NaN for NaN, in x's dtype:
+    8192 values of 30 normal (past both ends of the clip) and the edges."""
+    jx, tx = _exp_inputs(50, 8192, 30.0, dtype)
+    got = ops.exp(tx)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (8192,)
+    want = _np(jops.exp(jx, impl="interpret"))
+    np.testing.assert_array_equal(_np(got), want)      # NaN equals NaN here
+    head = _np(got)[:10]
+    if dtype == "float32":      # 89, 100, -87.3, -87.5, -88, -200, 0, +-inf, nan
+        assert head[0] == np.float32(2.2448058e38) and head[3] == 0.0
+        assert head[5] == np.float32(1.6180544e-38) and head[6] == 1.0
+    assert np.isnan(head[7:]).all() and not np.signbit(head[3])
+
+
+def test_exp_within_the_reference_tolerances():
+    """The reference's own tolerances (tests/test_kernels.py:63-76): within
+    rtol 2e-5 / atol 1e-6 of ``jnp.exp`` on 4 normal, and within rtol 5e-5
+    of numpy on [-20, 20]."""
+    jx, tx = _exp_inputs(8, 2048, 4.0, "float32", edge=False)
+    np.testing.assert_allclose(_np(ops.exp(tx)),
+                               _np(jops.exp(jx, impl="xla")), rtol=2e-5,
+                               atol=1e-6)
+    x = np.linspace(-20.0, 20.0, 4096, dtype=np.float32)
+    np.testing.assert_allclose(_np(ops.exp(torch.from_numpy(x))), np.exp(x),
+                               rtol=5e-5)
+
+
+def test_exp_eager_schedule_is_more_than_one_ulp_away():
+    """Rounding each product and sum apart (the reference's ``_exp_poly``
+    called eagerly, and the port's polynomial with such a multiply-add)
+    parts from the Pallas body by more than one ulp on some inputs: the
+    bit-for-bit test can fail."""
+    jx, tx = _exp_inputs(51, 8192, 30.0, "float32", edge=False)
+    want = _np(jops.exp(jx, impl="interpret"))
+    eager_ref = _np(jexpk._exp_poly(jx))
+    eager_port = _np(tref.exp_poly(tx, fma=lambda a, b, c: a * b + c))
+    fin = np.isfinite(want) & (want > 0)
+    for eager in (eager_ref, eager_port):
+        assert _ulps(eager[fin], want[fin]).max() > 1
+    np.testing.assert_array_equal(eager_port, eager_ref)
+
+
+def _round_fp32(exact):
+    """The fp32 value nearest a rational ``exact``, ties to even."""
+    f = np.float32(float(exact))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    best = min(cands, key=lambda c: (abs(fractions.Fraction(float(c))
+                                         - exact),
+                                     int(np.asarray(c).view(np.int32)) & 1))
+    return np.float32(best)
+
+
+def test_fma32_rounds_once():
+    """``ref.fma32`` is the correctly rounded a * b + c: on a case where
+    an fp64 sum rounded again lands on an fp32 tie the exact sum is not
+    on (c = 1 + 2^-23, a b = 2^-24 - 2^-70), and on seeded triples whose
+    product is a few ulps of c, against exact rational arithmetic."""
+    a = torch.tensor([1 + 2 ** -23], dtype=torch.float32)
+    b = torch.tensor([2 ** -24 - 2 ** -47], dtype=torch.float32)
+    c = a.clone()
+    naive = (a.double() * b.double() + c.double()).float()
+    assert naive.item() == 1 + 2 ** -22                   # the double rounding
+    assert tref.fma32(a, b, c).item() == 1 + 2 ** -23     # the exact sum's
+    rng = np.random.default_rng(52)
+    a = rng.standard_normal(400).astype(np.float32)
+    b = (rng.standard_normal(400) * 2.0 ** -rng.integers(0, 40, 400)).astype(
+        np.float32)
+    c = rng.standard_normal(400).astype(np.float32)
+    got = tref.fma32(*(torch.from_numpy(t) for t in (a, b, c))).numpy()
+    F = fractions.Fraction
+    want = [_round_fp32(F(float(x)) * F(float(y)) + F(float(z)))
+            for x, y, z in zip(a, b, c)]
+    np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+
+
+def test_exp_flushes_subnormal_results_to_positive_zero():
+    """p 2^n below 2^-126 is +0, as XLA:CPU flushes it (PyTorch does not):
+    around -87.34 the result steps from the least normal fp32 to 0."""
+    x = np.float32(-87.33654) + np.arange(-64, 64, dtype=np.float32) * \
+        np.float32(2 ** -17)
+    got = _np(ops.exp(torch.from_numpy(x)))
+    want = _np(jops.exp(jnp.asarray(np.resize(x, 1024)),
+                        impl="interpret"))[:128]
+    np.testing.assert_array_equal(got, want)
+    assert (got == 0).any() and (got >= np.float32(2.0 ** -126)).any()
+    assert not np.signbit(got).any()
+    assert not ((got > 0) & (got < np.float32(2.0 ** -126))).any()
+
+
+# ---------------------------------------------------------------------------
+# dwt.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 5])
+def test_dwt_fp32_exact_against_the_oracle(levels):
+    """fp32: the reference's oracle (``dwt_haar_xla``, eager) bit for bit;
+    the interpret path, which contracts across its inlined levels, within
+    the reference's 1e-4."""
+    (jx,), (tx,) = _both(53, (1024,))
+    got = ops.dwt_haar(tx, levels=levels)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(_np(got), _np(jops.dwt_haar(
+        jx, levels=levels, impl="xla")))
+    np.testing.assert_array_equal(_np(got), _np(jref.dwt_haar_ref(jx,
+                                                                  levels)))
+    np.testing.assert_allclose(_np(got), _np(jops.dwt_haar(
+        jx, levels=levels, impl="interpret")), atol=1e-4)
+
+
+@pytest.mark.parametrize("n,levels", [(1024, 1), (1024, 2), (1024, 3),
+                                      (4096, 5)])
+def test_dwt_bf16_exact_against_pallas_interpret(n, levels):
+    """bf16: the Pallas kernel's bits and dtype (each level rounded to
+    bf16); the oracle's fp32 schedule rounded once at the end parts from
+    it past one level."""
+    (jx,), (tx,) = _both(54, (n,), dtype="bfloat16")
+    got = ops.dwt_haar(tx, levels=levels)
+    want = jops.dwt_haar(jx, levels=levels, impl="interpret")
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(_np(got), _np(want))
+    fp32 = _np(tref.dwt_haar_ref(tx.float(), levels).bfloat16())
+    assert np.array_equal(fp32, _np(got)) == (levels == 1)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+def test_dwt_preserves_energy(levels):
+    """Orthonormal: the energy is kept (tests/test_kernels.py:115)."""
+    (tx,) = _both(14, (1024,))[1]
+    got = ops.dwt_haar(tx, levels=levels)
+    np.testing.assert_allclose(float((got.double() ** 2).sum()),
+                               float((tx.double() ** 2).sum()), rtol=1e-4)
+
+
+def test_dwt_takes_any_n_that_2_to_the_levels_divides():
+    """Any n divisible by 2^levels (the Pallas kernel also asks its 512-pair
+    blocks to divide each level) against the oracle, and a ValueError
+    otherwise; one launch a call up to 10 levels, two up to 20."""
+    for n, levels in ((2, 1), (6, 1), (3 << 11, 11), (96, 5)):
+        (jx,), (tx,) = _both(55, (n,))
+        np.testing.assert_array_equal(
+            _np(ops.dwt_haar(tx, levels=levels)),
+            _np(jref.dwt_haar_ref(jx, levels)))
+    for n, levels in ((12, 3), (7, 1), (1, 1), (8, 0)):
+        with pytest.raises(ValueError):
+            ops.dwt_haar(torch.zeros(n), levels=levels)
+    with pytest.raises(ValueError, match="vector"):
+        ops.dwt_haar(torch.zeros(4, 4))
+    assert [k_dwt.kernels_per_call((1 << 20,), levels=lv)
+            for lv in (1, 10, 11, 20, 21)] == [1, 1, 2, 2, 3]
+    assert k_exp.kernels_per_call((5,)) == 1
+
+
+# ---------------------------------------------------------------------------
 # Oracles, dispatch, and the wrappers' refusals on the CPU.
 # ---------------------------------------------------------------------------
 
@@ -484,7 +676,8 @@ def test_ops_dispatch_by_device_only():
                  lambda: ops.conv2d(x[None], x[None]),
                  lambda: ops.fft(x[0], x[0]), lambda: ops.pathfinder(x),
                  lambda: ops.jacobi2d(x),
-                 lambda: ops.dropout(x[0], x[0], rate=0.1)):
+                 lambda: ops.dropout(x[0], x[0], rate=0.1),
+                 lambda: ops.exp(x[0]), lambda: ops.dwt_haar(x[0])):
         with pytest.raises(ValueError, match="no implementation"):
             call()
 
@@ -500,7 +693,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_building():
              (k_fft.fft_cuda, (x[0], x[0])),
              (k_pathfinder.pathfinder_cuda, (x,)),
              (k_jacobi2d.jacobi2d_cuda, (x,)),
-             (k_dropout.dropout_cuda, (x[0], x[0].to(torch.uint32))))
+             (k_dropout.dropout_cuda, (x[0], x[0].to(torch.uint32))),
+             (k_exp.exp_cuda, (x[0],)), (k_dwt.dwt_haar_cuda, (x[0],)))
     for fn, args in calls:
         before = dict(fn.__globals__["LAUNCHES"])
         kw = {"rate": 0.1} if fn is k_dropout.dropout_cuda else {}
