@@ -15,11 +15,21 @@ Phases, each of which exits non-zero on failure:
               D 128, bs 16, B 8, M 64), NaN planted wherever neither may
               read.  Flash: bf16 and fp32, g 2 and 8, causal, non-causal and
               window 64, Sq = Sk in {7, 128, 900}, Sq < Sk, and Sq > Sk
-              causal (fully masked rows: the mean of V).  SSD: bf16 and
+              causal (fully masked rows: the mean of V), and the served
+              shapes (zamba2's g 1, D 64, S 960; g 2 and 8 at D 128, S 900;
+              D 24 and 72, zero-padded), each call on its dtype's route (bf16 on
+              the tensor cores) with its error and route logged; B = 3
+              bit-identical to three B = 1 launches, and each row's last
+              64 visible keys dropped shown to fail the bf16 tolerance.
+              SSD: bf16 and
               fp32, S in {7, 64, 960}, (B, G) in {(1, 1), (2, 2)}, H 64,
               P 64, N 64, with and without h0 and d_skip; S = 200 raises;
 4. timing   - kernel, plain version, one PyTorch library call (none for
               SSD), and the least time the card could take (the bound), ms;
+              flash also at zamba2's shape (Hq = Hkv = 32, D 64, S 960),
+              and its device time per call from torch.profiler beside the
+              event timer's (a launch shorter than the host's launch cost
+              leaves the timer reading the host);
 5. checks   - the whole model on the card against the plain CPU path: a
               narrow fp32 copy of qwen3-0.6b, and the full-width model; a
               narrow fp32 copy of zamba2-1.2b with a tail layer (7 layers,
@@ -39,25 +49,26 @@ Phases, each of which exits non-zero on failure:
 8. dense    - the dense path, the engine's default: the same 8 requests
               served continuous, continuous with ``bucket="pow2"`` and
               lockstep, each twice (token-identical), 28 flash launches per
-              prefill and no paged launch; the bf16 rids whose tokens part
-              from the paged run's, with their top-2 logit gaps (bf16
-              rounds along other kernels: logged, not required); first-token
-              logits of dense vs
-              paged within 4% of their scale; then the trace with half its
+              prefill, every one on the tensor-core route, and no paged
+              launch (the fp32 phase's on the fp32 route); the bf16 rids
+              whose tokens part from the paged run's, with their top-2
+              logit gaps (bf16 rounds along other kernels: logged, not
+              required); first-token logits of dense vs paged within 4% of
+              their scale; then the trace with half its
               rows sampled at temperature 0.7 (repeat-identical, greedy rows
               unchanged);
 9. hybrid   - zamba2-1.2b at full width on seeded random bf16 weights:
               8 requests (prompts of 7 to 960 tokens) served continuous
               twice (token-identical, 38 SSD and 6 flash launches per
-              prefill), lockstep (its prefill row by row) equal to
-              continuous on a uniform trace of 8 x 128 tokens, one sampled
-              row preempted after 5 decode steps
-              and resumed by replay (its tokens unchanged, every replayed
+              prefill, flash on the tensor cores), lockstep (its prefill
+              row by row) equal to continuous on a uniform trace of 8 x 128
+              tokens, one sampled row preempted after 5 decode steps and
+              resumed by replay (its tokens unchanged, every replayed
               token counted), and every freed slot's state zero after the
               drain;
 10. profile - wall and device time of one full-width decode step and one
-              prefill (chunk) of each path, with the top kernels
-              (torch.profiler);
+              prefill (chunk) of each path, with the top kernels and the
+              port's own outside them (torch.profiler);
 11. pool    - the paper's kernel pool (matmul, dotproduct, softmax, fft,
               conv2d, pathfinder, jacobi2d, dropout, exp, dwt): each kernel
               against its plain version in fp32 and bf16 at the
@@ -67,11 +78,16 @@ Phases, each of which exits non-zero on failure:
               rounded apart and a bf16 dwt kept in fp32 fail; fft, kernel
               and plain version, within 5e-6 sqrt(n) of an fp64
               transform, which a conjugated stage fails), dotproduct also
-              bit-identical when called again; then the pool's entry
+              bit-identical when called again, each matmul on the route
+              its shapes name (bf16: wgmma where TMA can describe the
+              operands, else wmma) and a 512^3 wgmma product with B's
+              transpose bit flipped outside the bf16 tolerance; then the
+              pool's entry
               point, ``repro_torch.launch.ideality``, at both ladders of
               sizes, the counts zeroed just before each and read just
               after (each timed call launched its kernels, and no other
-              kernel ran); its Fig 4/5 model rows; and beside the kernel
+              kernel ran; matmul's calls by route, the 4096^3 bf16 rows
+              on wgmma); its Fig 4/5 model rows; and beside the kernel
               times of those runs, which are the pool's only kernel
               timer, the plain version's, the library call's and the
               bound; then each launch of fft's plan at 2^24 timed alone.
@@ -102,6 +118,16 @@ SERVE_PROMPT_LENS = [7, 16, 17, 64, 200, 333, 511, 900]
 SERVE_MAX_NEW = 32
 SAMPLED_TEMPERATURE = 0.7
 FLASH_S = 900          # timing: B = 1, Hq 16, Hkv 8, D 128, causal
+# zamba2-1.2b's shared attention block at its longest prompt: B = 1, Hq =
+# Hkv = 32, D 64, S 960, causal (timed beside FLASH_S)
+FLASH_ZAMBA2 = (32, 1, 64, 960)        # (Hq, g, D, S)
+# flash parity beyond flash_cases, causal, B 1: the served shapes (zamba2;
+# qwen3; qwen2.5-3b's g 8) and head dims between two of the tensor-core
+# kernel's templates (zero-padded: 24 to 32, 72 to 128)
+FLASH_SERVED = ((32, 1, 64, 960), (16, 2, 128, 900), (16, 8, 128, 900),
+                (4, 2, 24, 200), (4, 1, 72, 130))       # (Hq, g, D, S)
+FLASH_INVARIANT = (3, 16, 2, 128, 333)   # (B, Hq, g, D, S): B rows vs B = 1
+FLASH_DROP = 64        # planted: each row's last 64 visible keys dropped
 SSD_H, SSD_P, SSD_N = 64, 64, 64   # zamba2-1.2b's SSD heads, head dim, state
 SSD_S = 960            # timing: B = 1, G = 1, bf16: the longest hybrid prompt
 HYBRID_PROMPT_LENS = [7, 16, 33, 64, 128, 320, 512, 960]   # <= 64 or 64k
@@ -223,6 +249,14 @@ def time_ms(torch, fn, args_list, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, args_list):
+    """Device time per call of ``fn`` over ``args_list`` (torch.profiler):
+    a kernel shorter than the host's launch cost makes ``time_ms`` read the
+    host's rate, and this reads the kernel's own."""
+    ms, _ = _profile(torch, lambda: [fn(*a) for a in args_list], 1)
+    return None if ms is None else ms / len(args_list)
+
+
 def bound(bytes_moved: float, flops: float,
           flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
     """The least ms for the work: bytes over the memory rate, operations
@@ -338,30 +372,71 @@ def flash_cases():
     return cases
 
 
-def _flash_inputs(torch, gen, dev, dtype, g, sq, sk, b=2, hq=HQ):
+def _flash_inputs(torch, gen, dev, dtype, g, sq, sk, b=2, hq=HQ, d=D):
     hkv = hq // g
     return [torch.randn(shape, generator=gen, device=dev).to(dtype)
-            for shape in ((b, hq, sq, D), (b, hkv, sk, D), (b, hkv, sk, D))]
+            for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+def flash_dropping_last_keys(torch, fa, q, k, v, drop=FLASH_DROP):
+    """A planted fault: causal attention with each row's last ``drop``
+    visible keys left out (a row with none left is the mean of V, as a
+    fully masked row), in fp32, out in q's dtype."""
+    g = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) \
+        / math.sqrt(q.shape[-1])
+    qpos = torch.arange(q.shape[2], device=q.device) + k.shape[2] - q.shape[2]
+    kpos = torch.arange(k.shape[2], device=q.device)
+    logits = torch.where(kpos[None, :] <= qpos[:, None] - drop, logits,
+                         fa.NEG_INF)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, -1),
+                        vf).to(q.dtype)
+
+
+def _flash_counted(torch, fa, q, k, v, **kw):
+    """One kernel call; its count and its route's (``fa.route``) must each
+    move by one.  Returns (out, route)."""
+    kind, dp = fa.route(q.dtype, q.shape[-1])
+    n0, r0 = fa.LAUNCHES["flash_attention"], fa.ROUTES[kind]
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    require(fa.LAUNCHES["flash_attention"] == n0 + 1
+            and fa.ROUTES[kind] == r0 + 1,
+            f"flash: a {q.dtype} call did not count one {kind} launch")
+    return got, kind if dp == q.shape[-1] else f"{kind} D->{dp}"
 
 
 def phase_flash_parity(torch, fa, dev):
     """The flash kernel against its plain version on every case of
-    ``flash_cases`` in bf16 and fp32.  Returns the worst bf16 error (the
-    main path's dtype)."""
+    ``flash_cases`` (B 2, Hq 16, D 128) and ``FLASH_SERVED`` (B 1, causal)
+    in bf16 and fp32, each call on its dtype's route (bf16: the tensor
+    cores, ``mma``; fp32: ``simt``), the error and route logged per case;
+    then, in bf16, B = 3 in one launch bit-identical to three B = 1
+    launches, and each row's last 64 visible keys dropped shown to fail
+    the tolerance.  Returns the worst bf16 error (the main path's dtype)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     worst = {}
+    cases = [(g, sq, sk, causal, window, 2, HQ, D)
+             for g, sq, sk, causal, window in flash_cases()]
+    cases += [(g, s, s, True, None, 1, hq, d) for hq, g, d, s in FLASH_SERVED]
     for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, TOL_FP32)):
         name = str(dtype).split(".")[-1]
-        for g, sq, sk, causal, window in flash_cases():
-            q, k, v = _flash_inputs(torch, gen, dev, dtype, g, sq, sk)
-            got = fa.flash_attention_cuda(q, k, v, causal=causal,
-                                          window=window)
+        for g, sq, sk, causal, window, b, hq, d in cases:
+            q, k, v = _flash_inputs(torch, gen, dev, dtype, g, sq, sk, b=b,
+                                    hq=hq, d=d)
+            got, kind = _flash_counted(torch, fa, q, k, v, causal=causal,
+                                       window=window)
+            require(kind.startswith("mma" if dtype == torch.bfloat16
+                                    else "simt"),
+                    f"flash {name}: went to the {kind} route")
             want = fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
             torch.cuda.synchronize()
-            err = _compare(torch, f"flash {name} g={g} Sq={sq} Sk={sk} "
-                           f"causal={causal} window={window}", got, want, tol)
+            err = _compare(torch, f"flash {name} [{kind}] B={b} Hq={hq} "
+                           f"g={g} D={d} Sq={sq} Sk={sk} causal={causal} "
+                           f"window={window}", got, want, tol)
             worst[name] = max(worst.get(name, 0.0), err)
             if causal and sq > sk:      # rows 0 .. sq-sk-1 see no key
                 mean_v = v.float().mean(dim=2).repeat_interleave(g, dim=1)
@@ -370,6 +445,29 @@ def phase_flash_parity(torch, fa, dev):
                     empty), atol=tol, rtol=tol),
                     "flash: a fully masked row must be the mean of V")
     log(f"parity flash worst max_abs_err: {worst}")
+
+    b, hq, g, d, s = FLASH_INVARIANT
+    q, k, v = _flash_inputs(torch, gen, dev, torch.bfloat16, g, s, s, b=b,
+                            hq=hq, d=d)
+    whole = fa.flash_attention_cuda(q, k, v)
+    rows = torch.cat([fa.flash_attention_cuda(
+        *(x[i:i + 1].contiguous() for x in (q, k, v))) for i in range(b)])
+    require(torch.equal(whole, rows), "flash: B = 3 in one launch differs "
+                                      "from three B = 1 launches")
+    log(f"parity flash bf16: B={b} Hq={hq} g={g} D={d} S={s} in one launch "
+        f"bit-identical to {b} launches of B=1")
+    q, k, v = _flash_inputs(torch, gen, dev, torch.bfloat16, HQ // HKV,
+                            FLASH_S, FLASH_S, b=1)
+    got = fa.flash_attention_cuda(q, k, v)
+    planted = flash_dropping_last_keys(torch, fa, q, k, v)
+    err = (planted.float() - got.float()).abs().max().item()
+    log(f"parity flash bf16 S={FLASH_S}: with each row's last {FLASH_DROP} "
+        f"visible keys dropped the output is {err:.3e} away (atol=rtol="
+        f"{TOL})")
+    require(not torch.allclose(planted.float(), got.float(), atol=TOL,
+                               rtol=TOL),
+            "flash: the bf16 tolerance passes an output without each row's "
+            f"last {FLASH_DROP} keys")
     return worst["bfloat16"]
 
 
@@ -508,6 +606,24 @@ def phase_timing(torch, pa, fa, ss, dev):
             time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), fl, 50))),
         **dict(zip(("bound_ms", "bound_by"), bound(fbytes, fflops))))
+    # flash at zamba2's shared block, its longest prompt (logged, not in the
+    # kernels line, which keeps one row a kernel)
+    zhq, zg, zd, zs = FLASH_ZAMBA2
+    zl = [_flash_inputs(torch, fgen, dev, torch.bfloat16, zg, zs, zs, b=1,
+                        hq=zhq, d=zd) for _ in range(6)]
+    zbytes = sum(x.numel() for x in zl[0]) * 2 + zl[0][0].numel() * 2
+    zflops = 4 * zhq * zd * zs * (zs + 1) // 2
+    out["flash_attention zamba2"] = dict(
+        zip(("ms", "plain_ms", "library_ms"), (
+            time_ms(torch, fa.flash_attention_cuda, zl, 50),
+            time_ms(torch, fa.flash_attention_plain, zl, 10),
+            time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), zl, 50))),
+        **dict(zip(("bound_ms", "bound_by"), bound(zbytes, zflops))))
+    for name, args in (("flash_attention", fl),
+                       ("flash_attention zamba2", zl)):
+        out[name]["device_ms"] = device_ms(torch, fa.flash_attention_cuda,
+                                           args)
     # ssd: the hybrid path's longest prefill, as mamba_forward calls it
     # (d_skip, no h0); no single PyTorch call computes the function
     sgen = torch.Generator(device=dev)
@@ -535,12 +651,16 @@ def phase_timing(torch, pa, fa, ss, dev):
                  "paged_prefill_attention": f"B=1 Sq=16 chunk={chunk}",
                  "flash_attention": f"B=1 Hq={HQ} Hkv={HKV} D={D} "
                                     f"S={FLASH_S} causal bf16",
+                 "flash_attention zamba2": f"B=1 Hq=Hkv={zhq} D={zd} "
+                                           f"S={zs} causal bf16",
                  "ssd_scan": f"B=1 S={SSD_S} H={SSD_H} P={SSD_P} N={SSD_N} "
                              "G=1 d_skip bf16"}[name]
         lib = ("none" if t["library_ms"] is None else
                f"{t['library_ms']:.4f} (SDPA; paged: on pre-gathered dense "
                "K/V, gather excluded)")
-        log(f"timing {name} ({shape}): kernel_ms={t['ms']:.4f} "
+        dev_ms = ("" if t.get("device_ms") is None else
+                  f" device_ms={t['device_ms']:.4f} (profiler)")
+        log(f"timing {name} ({shape}): kernel_ms={t['ms']:.4f}{dev_ms} "
             f"plain_ms={t['plain_ms']:.4f} library_ms={lib} "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
     return out
@@ -628,6 +748,13 @@ def read_launches(kernel_modules):
     return {k: n for mod in kernel_modules for k, n in mod.LAUNCHES.items()}
 
 
+def read_routes(kernel_modules):
+    """The launches by route of the modules that have routes, keyed
+    "<kernel>.<route>" (e.g. "flash_attention.mma")."""
+    return {f"{next(iter(mod.LAUNCHES))}.{r}": n for mod in kernel_modules
+            for r, n in getattr(mod, "ROUTES", {}).items()}
+
+
 def phase_serve(torch, cfgs, build_model, serving, kmods, dev, name):
     cfg = cfgs.get_config("qwen3-0.6b")
     model = build_model(cfg)
@@ -696,7 +823,7 @@ def _serve_run(torch, kmods, eng, reqs, label, name):
     results = eng.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches(kmods)
+    launches = {**read_launches(kmods), **read_routes(kmods)}
     s = eng.last_stats
     toks = [r.tokens for r in results]
     log(f"{label} on {name}: wall_s={wall:.3f} "
@@ -758,6 +885,10 @@ def phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods, dev,
                   else "flash_attention")
         require(launches[kernel] > 0, f"fp32 {layout}: {kernel} never "
                                       f"launched ({launches})")
+        require(launches["flash_attention.simt"]
+                == launches["flash_attention"]
+                and launches["flash_attention.mma"] == 0,
+                f"fp32 {layout}: flash off its fp32 route ({launches})")
     diffs = first_diffs(toks["paged"], toks["dense"])
     log(f"fp32 paged vs dense: first differing token per rid {diffs}")
     log_margins(torch, model, params, prompts, toks["paged"], toks["dense"],
@@ -794,9 +925,11 @@ def phase_dense(torch, serving, kmods, model, params, paged, dev, name):
             runs.append(_serve_run(torch, kmods, eng, reqs,
                                    f"dense {label} run {run}", name))
             launches = runs[-1][1]
-            require(launches["flash_attention"] == cfg.n_layers * prefills,
+            require(launches["flash_attention"] == cfg.n_layers * prefills
+                    == launches["flash_attention.mma"],
                     f"dense {label}: flash launches {launches} != "
-                    f"{cfg.n_layers} x {prefills} prefills")
+                    f"{cfg.n_layers} x {prefills} prefills, all on the "
+                    "tensor cores")
             require(launches["paged_decode_attention"] == 0
                     and launches["paged_prefill_attention"] == 0,
                     f"dense {label} launched a paged kernel: {launches}")
@@ -994,10 +1127,12 @@ def phase_hybrid(torch, cfgs, build_model, serving, kmods, dev, name):
         ssd = cfg.n_layers * prefills
         require(launches["ssd_scan"] == ssd
                 and launches["flash_attention"] == n_attn * prefills
+                == launches["flash_attention.mma"]
                 and launches["paged_decode_attention"] == 0
                 and launches["paged_prefill_attention"] == 0,
                 f"hybrid {label}: launches {launches}, expected ssd_scan "
-                f"{ssd} and flash_attention {n_attn * prefills}")
+                f"{ssd} and flash_attention {n_attn * prefills} (all on "
+                "the tensor cores)")
 
     runs = []
     for run in range(2):
@@ -1223,10 +1358,18 @@ def _pool_check(torch, ideality, mod, case, args, out_dtype=None):
         kw["out_dtype"] = out_dtype
     label = case.name + (f" out {out_dtype}" if out_dtype else "")
     n0 = mod.LAUNCHES[case.op]
+    routes0 = dict(getattr(mod, "ROUTES", {}))
     fn = ideality.function(case.op)
     got = getattr(mod, f"{fn}_cuda")(*args, **kw)
     require(mod.LAUNCHES[case.op] == n0 + case.kernels_per_call(),
             f"{label}: the count did not move by one call's kernels")
+    if case.op == "matmul":     # the route the TMA predicate names
+        (_, k), (_, n) = case.shapes
+        kind = mod.route(case.dtype, k, n)
+        require(mod.ROUTES == {**routes0, kind: routes0[kind] + 1},
+                f"{label}: not one launch on the {kind} route "
+                f"({mod.ROUTES} after {routes0})")
+        label += f" [{kind}]"
     want = getattr(mod, f"{fn}_plain")(*args, **kw)
     torch.cuda.synchronize()
     err, close = pool_close(torch, case, args, got, want, out_dtype)
@@ -1264,6 +1407,18 @@ def phase_pool_parity(torch, ideality, pool, dev):
             other = (torch.bfloat16 if case.dtype == torch.float32
                      else torch.float32)
             _pool_check(torch, ideality, mod, case, args, out_dtype=other)
+        if case.op == "matmul" and case.dtype == torch.bfloat16 and \
+                case.shapes[0] == (512, 512):
+            planted = mod.matmul_transpose_bit_flipped(*args)
+            # held to the bf16-output tolerance (rtol 1e-2), the looser one
+            e, close = pool_close(torch, case, args, planted,
+                                  mod.matmul_plain(*args,
+                                                   out_dtype=torch.float32))
+            log(f"parity {case.name}: with B's transpose bit flipped the "
+                f"wgmma product is {e:.3e} away, "
+                f"{'within' if close else 'outside'} the bf16 tolerance")
+            require(not close, f"{case.name}: the bf16 tolerance passes a "
+                               "product with B's transpose bit flipped")
         if case.op == "matmul" and case in ideality.CARD and \
                 case.dtype == torch.float32:
             torch.backends.cuda.matmul.allow_tf32 = True
@@ -1344,6 +1499,20 @@ def phase_pool(torch, ideality, pool, others):
         want.update(ideality.expected_launches(sizes))
         require(got == want, f"pool {sizes}: launches {got}, expected "
                              f"{want}")
+        # matmul by route: each case's calls on the route its shapes name
+        # (the 4096^3 bf16 rows on wgmma)
+        cases, iters = ideality.SIZES[sizes]
+        mm = pool["matmul"]
+        want_routes = dict.fromkeys(mm.ROUTES, 0)
+        for case in cases:
+            if case.op == "matmul":
+                (_, k), (_, n) = case.shapes
+                want_routes[mm.route(case.dtype, k, n)] += \
+                    (ideality.WARMUP + iters) * case.kernels_per_call()
+        require(mm.ROUTES == want_routes, f"pool {sizes}: matmul routes "
+                                          f"{mm.ROUTES}, expected "
+                                          f"{want_routes}")
+        log(f"pool {sizes}: matmul launches by route {mm.ROUTES}")
         model = [r for r in rows if r[0].startswith("fig")]
         require(len(model) == 48, f"pool {sizes}: {len(model)} model rows")
         for name, us, _ in rows[len(model):]:
@@ -1442,9 +1611,17 @@ def phase_fft_launches(torch, kf, dev):
         f"({16 * n / ms / 1e9:.3f} TB/s)")
 
 
+# name fragments of the port's own kernels, listed by the profile phases
+# even outside the top eight
+PORT_KERNELS = ("flash_mma_kernel", "flash_attention_kernel",
+                "paged_attention_kernel", "ssd_scan_kernel")
+
+
 def _profile(torch, fn, n):
     """(device kernel ms per call, top kernels) of ``n`` calls of ``fn``
-    under torch.profiler, or (None, []) if the trace holds no device time."""
+    under torch.profiler, or (None, []) if the trace holds no device time.
+    The top kernels are the eight with the most device time, then any of
+    the port's own (``PORT_KERNELS``) not among them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1455,7 +1632,9 @@ def _profile(torch, fn, n):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    top = ranked[:8] + [e for e in ranked[8:]
+                        if any(k in e.key for k in PORT_KERNELS)]
     return ((total if kernels else None),
             [(e.key[:60], e.self_device_time_total / 1e3 / n, e.count // n)
              for e in top])

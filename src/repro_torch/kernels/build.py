@@ -39,13 +39,18 @@ SIGNATURES = {
     "flash_attention.cu": {
         "repro_flash_attention":
             (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+        "repro_flash_attention_mma":
+            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     },
     "ssd_scan.cu": {
         "repro_ssd_scan":
             (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _I, _P),
     },
-    "matmul.cu": {"repro_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _P)},
+    "matmul.cu": {
+        "repro_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _P),
+        "repro_matmul_wgmma": (_I, _I, _P, _P, _P, _I, _I, _I, _P),
+    },
     "dotproduct.cu": {"repro_dotproduct": (_I, _P, _P, _P, _P, _L, _I, _P)},
     "softmax.cu": {"repro_softmax": (_I, _P, _P, _L, _I, _P)},
     "conv2d.cu": {"repro_conv2d": (_I, _P, _P, _P, _I, _I, _I, _I, _P)},

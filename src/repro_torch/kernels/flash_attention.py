@@ -5,12 +5,14 @@ head ``h // (Hq / Hkv)``, queries right-aligned to the keys
 (``qpos = i + Sk - Sq``).  Two implementations, as in the reference
 (``repro/kernels/attention.py``):
 
-* ``flash_attention_cuda`` — the hand-written Hopper kernel in
-  ``csrc/flash_attention.cu``, launched on PyTorch's current stream.  It
-  replaces ``flash_attention_pallas``; what bounds it and how it is built is
-  in the source's header note.  The wrapper checks its inputs, allocates the
-  output with ``torch.empty`` and adds one to ``LAUNCHES["flash_attention"]``
-  per launch.
+* ``flash_attention_cuda`` — the hand-written Hopper kernels in
+  ``csrc/flash_attention.cu``, launched on PyTorch's current stream.  They
+  replace ``flash_attention_pallas``; what bounds them and how they are
+  built is in the source's header note.  The dtype picks the route
+  (:func:`route`): bf16 runs on the tensor cores (``mma.sync``), fp32 on
+  CUDA cores.  The wrapper checks its inputs, allocates the output with
+  ``torch.empty`` and adds one to ``LAUNCHES["flash_attention"]`` and one
+  to its route's count in ``ROUTES`` per launch.
 * ``flash_attention_plain`` — plain PyTorch with the math of the reference's
   ``attention_xla`` forward: q chunks, an fp32 online softmax over kv chunks,
   masked logits at the finite ``-1e30``.  The CPU runs it, and
@@ -35,11 +37,14 @@ SOURCE = "flash_attention.cu"
 # launches of the hand-written kernel since the last reset (a plain dict of
 # ints: chip_smoke zeroes it before the main path and reads it after)
 LAUNCHES = {"flash_attention": 0}
+# the same launches by route: "mma" (bf16, tensor cores), "simt" (fp32)
+ROUTES = {"mma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _scale(scale, d: int) -> float:
@@ -108,10 +113,30 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# limits of csrc/flash_attention.cu: one PV column a thread (128 threads),
-# at most 64 query rows (g * bq) a thread block, 64-key tiles
+# limits of csrc/flash_attention.cu's fp32 kernel: one PV column a thread
+# (128 threads), at most 64 query rows (g * bq) a thread block, 64-key
+# tiles (the head dim and g limits hold for both routes)
 _MAX_HEAD_DIM, _MAX_ROWS, _TILE_KEYS = 128, 64, 64
 _MAX_SMEM = 227 * 1024
+# head dims the tensor-core kernel is built for; a head dim between two is
+# zero-padded in shared memory up to the next
+HEAD_DIM_TEMPLATES = (16, 32, 64, 128)
+
+
+def route(dtype, d: int) -> tuple[str, int]:
+    """The kernel that takes ``dtype`` at head dim ``d``, and the head dim
+    it runs at: ``("mma", d rounded up to 16, 32, 64 or 128)`` for bf16,
+    ``("simt", d)`` for fp32.  Raises on any other dtype, and on a head dim
+    that is not a multiple of 8 up to 128."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention: q dtype {dtype}; the kernel takes "
+                        "bfloat16 or float32")
+    if d <= 0 or d % 8 or d > _MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {d} must be a multiple "
+                         f"of 8 up to {_MAX_HEAD_DIM}")
+    if dtype == torch.float32:
+        return "simt", d
+    return "mma", next(t for t in HEAD_DIM_TEMPLATES if t >= d)
 
 
 def _check(q, k, v, window) -> None:
@@ -142,12 +167,14 @@ def _check(q, k, v, window) -> None:
                          f"{tuple(k.shape)} (need equal B and D, Sk >= 1 and "
                          "Hq % Hkv == 0)")
     g = hq // hkv
-    if d % 8 or d > _MAX_HEAD_DIM or g > _MAX_ROWS:
-        raise ValueError(f"{what}: head_dim {d} must be a multiple of 8 up "
-                         f"to {_MAX_HEAD_DIM}, and Hq / Hkv = {g} at most "
+    kind, _ = route(q.dtype, d)
+    if g > _MAX_ROWS:
+        raise ValueError(f"{what}: Hq / Hkv = {g} must be at most "
                          f"{_MAX_ROWS}")
     if window is not None and window < 1:
         raise ValueError(f"{what}: window {window} must be >= 1 (or None)")
+    if kind == "mma":
+        return                  # 5 tiles of 64 x (128 + 8) bf16 at most
     rows = g * (_MAX_ROWS // g)
     ld = d + 16 // q.element_size()
     smem = (4 * _TILE_KEYS * ld * q.element_size()
@@ -158,23 +185,29 @@ def _check(q, k, v, window) -> None:
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=None, scale=None):
-    """The kernel, replacing ``flash_attention_pallas``
-    (``repro/kernels/attention.py:73``).  ``causal``, ``window`` (None or
-    >= 1) and ``scale`` (``1/sqrt(D)`` by default) are runtime arguments of
-    one compiled kernel."""
+    """The kernel of ``q``'s dtype (:func:`route`), replacing
+    ``flash_attention_pallas`` (``repro/kernels/attention.py:73``).
+    ``causal``, ``window`` (None or >= 1) and ``scale`` (``1/sqrt(D)`` by
+    default) are runtime arguments of one compiled kernel."""
     _check(q, k, v, window)
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
+    kind, dp = route(q.dtype, d)
     out = torch.empty_like(q)
     lib = build.library(SOURCE)
-    with torch.cuda.device(q.device):
-        err = lib.repro_flash_attention(
-            _DTYPE_CODE[q.dtype], ctypes.c_void_p(q.data_ptr()),
-            ctypes.c_void_p(k.data_ptr()), ctypes.c_void_p(v.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), b, hkv, hq // hkv, sq, sk, d,
-            _scale(scale, d), int(bool(causal)),
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)]
+    tail = (_scale(scale, d), int(bool(causal)),
             -1 if window is None else int(window),
             ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    with torch.cuda.device(q.device):
+        if kind == "mma":
+            err = lib.repro_flash_attention_mma(
+                *ptrs, b, hkv, hq // hkv, sq, sk, d, dp, *tail)
+        else:
+            err = lib.repro_flash_attention(
+                _DTYPE_CODE[q.dtype], *ptrs, b, hkv, hq // hkv, sq, sk, d,
+                *tail)
     build.check(lib, err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    ROUTES[kind] += 1
     return out

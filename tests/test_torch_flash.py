@@ -3,9 +3,10 @@ reference's (``repro.kernels.attention``): ``flash_attention_plain`` against
 ``attention_xla`` and against the Pallas ``flash_attention_pallas`` in
 interpret mode (bq = bk = 32, as ``tests/test_attention.py`` runs it), the
 dense oracle against the reference's oracle, and the plain
-``decode_attention`` against ``decode_attention_xla``.  The CUDA kernel is
-held against the plain version on the card by ``tests/test_torch_gpu.py``
-and ``chip_smoke.py``.
+``decode_attention`` against ``decode_attention_xla``; and the CUDA
+wrapper's route predicate (which kernel takes a dtype and head dim).  The
+CUDA kernels are held against the plain version on the card by
+``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 
 Inputs are made once from a seed with numpy and handed to both sides.
 Tolerance: fp32, 1e-5 (the two sides sum in different orders)."""
@@ -124,3 +125,49 @@ def test_attention_dispatch_by_device():
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_cuda(*t)
     assert fa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("d,dp", [(8, 16), (16, 16), (24, 32), (32, 32),
+                                  (40, 64), (64, 64), (72, 128), (96, 128),
+                                  (128, 128)])
+def test_route_bf16_takes_the_tensor_cores_at_the_next_template(d, dp):
+    """bf16 goes to the tensor-core kernel, built for head dims 16, 32, 64
+    and 128: a head dim between two is zero-padded up to the next; fp32
+    goes to the CUDA-core kernel at its own head dim."""
+    assert fa.route(torch.bfloat16, d) == ("mma", dp)
+    assert fa.route(torch.float32, d) == ("simt", d)
+
+
+@pytest.mark.parametrize("dtype,d,err", [(torch.float16, 64, TypeError),
+                                         (torch.float64, 64, TypeError),
+                                         (torch.bfloat16, 0, ValueError),
+                                         (torch.bfloat16, 12, ValueError),
+                                         (torch.bfloat16, 136, ValueError),
+                                         (torch.float32, 20, ValueError)])
+def test_route_raises_on_what_no_kernel_takes(dtype, d, err):
+    """No route for another dtype, nor for a head dim that is not a
+    multiple of 8 up to 128: the wrapper raises, it never falls back."""
+    with pytest.raises(err):
+        fa.route(dtype, d)
+
+
+def test_routes_count_each_route_and_reset_with_the_launches():
+    """``ROUTES`` has one count for each route :func:`fa.route` names, and
+    ``reset_launches`` zeroes it with ``LAUNCHES``; a refused CPU call
+    moves neither."""
+    assert set(fa.ROUTES) == {fa.route(torch.bfloat16, 64)[0],
+                              fa.route(torch.float32, 64)[0]}
+    saved = dict(fa.LAUNCHES), dict(fa.ROUTES)
+    try:
+        fa.LAUNCHES["flash_attention"] += 3
+        fa.ROUTES["mma"] += 2
+        fa.ROUTES["simt"] += 1
+        fa.reset_launches()
+        assert set(fa.LAUNCHES.values()) == set(fa.ROUTES.values()) == {0}
+        _, t = _qkv(13)
+        with pytest.raises(ValueError, match="CUDA"):
+            fa.flash_attention_cuda(*(x.to(torch.bfloat16) for x in t))
+        assert set(fa.LAUNCHES.values()) == set(fa.ROUTES.values()) == {0}
+    finally:
+        fa.LAUNCHES.update(saved[0])
+        fa.ROUTES.update(saved[1])

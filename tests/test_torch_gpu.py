@@ -209,6 +209,79 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol):
                                    atol=tol)
 
 
+def _flash_qkv(seed, dev, dtype, *, b, hq, g, sq, sk, d):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32))
+            .to(dev, dtype) for shape in
+            ((b, hq, sq, d), (b, hq // g, sk, d), (b, hq // g, sk, d))]
+
+
+@pytest.mark.parametrize("hq,g,s,d", [(32, 1, 960, 64), (16, 2, 900, 128),
+                                      (16, 8, 900, 128), (4, 2, 200, 24),
+                                      (4, 2, 200, 40), (4, 1, 130, 72)])
+def test_flash_tensor_cores_on_served_shapes(cuda, hq, g, s, d):
+    """bf16 goes to the tensor-core route at the served shapes: zamba2's
+    shared block (g 1, D 64, S 960), qwen3 (g 2, D 128, S 900), qwen2.5-3b
+    (g 8, D 128); and head dims between two templates, zero-padded in
+    shared memory (D 24 to 32, 40 to 64, 72 to 128); causal, at the bf16
+    tolerance 1e-2.  The worst error is printed."""
+    q, k, v = _flash_qkv(7, cuda, torch.bfloat16, b=1, hq=hq, g=g, sq=s,
+                         sk=s, d=d)
+    n0, m0 = fa.LAUNCHES["flash_attention"], fa.ROUTES["mma"]
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    assert fa.LAUNCHES["flash_attention"] == n0 + 1
+    assert fa.ROUTES["mma"] == m0 + 1
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    print(f"flash bf16 Hq={hq} g={g} S={s} D={d}: max_abs_err="
+          f"{(got.float() - want.float()).abs().max().item():.3e}")
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_flash_tensor_cores_are_batch_invariant(cuda):
+    """A row's output depends on its q and on k / v only: B = 3 in one
+    launch equals three B = 1 launches bit for bit (g 2, D 128, S 333)."""
+    q, k, v = _flash_qkv(8, cuda, torch.bfloat16, b=3, hq=16, g=2, sq=333,
+                         sk=333, d=128)
+    whole = fa.flash_attention_cuda(q, k, v, causal=True)
+    rows = torch.cat([fa.flash_attention_cuda(q[i:i + 1].contiguous(),
+                                              k[i:i + 1].contiguous(),
+                                              v[i:i + 1].contiguous(),
+                                              causal=True)
+                      for i in range(3)])
+    assert torch.equal(whole, rows)
+
+
+def flash_dropping_last_keys(q, k, v, drop=64):
+    """A planted fault: causal attention with each row's last ``drop``
+    visible keys left out (a row with none left is the mean of V, as a
+    fully masked row), fp32, in q's dtype."""
+    g = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) \
+        / q.shape[-1] ** 0.5
+    qpos = torch.arange(q.shape[2], device=q.device) + k.shape[2] - q.shape[2]
+    kpos = torch.arange(k.shape[2], device=q.device)
+    keep = kpos[None, :] <= qpos[:, None] - drop
+    logits = torch.where(keep, logits, fa.NEG_INF)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, -1),
+                        vf).to(q.dtype)
+
+
+def test_flash_tolerance_rejects_dropped_keys(cuda):
+    """The bf16 tolerance has teeth: with each row's last 64 visible keys
+    dropped (S 900) the output is outside 1e-2 of the kernel's."""
+    q, k, v = _flash_qkv(9, cuda, torch.bfloat16, b=1, hq=16, g=2, sq=900,
+                         sk=900, d=128)
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    planted = flash_dropping_last_keys(q, k, v)
+    assert not torch.allclose(got.float(), planted.float(), rtol=1e-2,
+                              atol=1e-2)
+
+
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v = [torch.zeros(shape, device=cuda) for shape in
                ((1, 4, 8, 32), (1, 2, 8, 32), (1, 2, 8, 32))]
@@ -395,6 +468,39 @@ def test_pool_matmul_matches_plain(cuda, dtype):
             with pytest.raises(AssertionError):     # the tolerance has teeth
                 torch.testing.assert_close(tf32, k_matmul.matmul_plain(x, w),
                                            atol=atol, rtol=1e-5)
+
+
+@pytest.mark.parametrize("m,k,n,kind", [(4096, 4096, 4096, "wgmma"),
+                                        (1024, 8192, 512, "wgmma"),
+                                        (32, 32, 32, "wgmma"),
+                                        (127, 129, 65, "wmma"),
+                                        (1, 1000, 3, "wmma")])
+def test_pool_matmul_bf16_routes(cuda, m, k, n, kind):
+    """bf16 products on the route the TMA predicate names, the route's
+    count moving by one: the wgmma route at 4096^3 and 1024 x 8192 x 512
+    (and 32^3, one tile mostly out of bounds), the wmma route where a row
+    of A or B is not a multiple of 16 bytes; at the pool's bf16 tolerance
+    (atol 2e-2 sqrt(K), rtol 1e-2), fp32 and bf16 out."""
+    x, w = _randn(m + n, cuda, torch.bfloat16, (m, k), (k, n))
+    assert k_matmul.route(x.dtype, k, n) == kind
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = dict(k_matmul.ROUTES)
+        got = _counted(k_matmul, "matmul", k_matmul.matmul_cuda, x, w,
+                       out_dtype=out_dtype)
+        assert k_matmul.ROUTES == {**before, kind: before[kind] + 1}
+        want = k_matmul.matmul_plain(x, w, out_dtype=out_dtype)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=2e-2 * k ** 0.5, rtol=1e-2)
+
+
+def test_pool_matmul_transpose_bit_plant_fails(cuda):
+    """The bf16 tolerance has teeth for the wgmma route: at 512^3 a product
+    with B's transpose bit flipped is outside it."""
+    x, w = _randn(3, cuda, torch.bfloat16, (512, 512), (512, 512))
+    planted = k_matmul.matmul_transpose_bit_flipped(x, w)
+    want = k_matmul.matmul_plain(x, w, out_dtype=torch.float32)
+    assert not torch.allclose(planted, want, atol=2e-2 * 512 ** 0.5,
+                              rtol=1e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -73,6 +73,59 @@ def _mm_tol(dtype, k):
 # matmul.
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("dtype,k,n,aligned,kind", [
+    (torch.float32, 4096, 4096, True, "sgemm"),
+    (torch.float32, 129, 65, False, "sgemm"),
+    (torch.bfloat16, 4096, 4096, True, "wgmma"),
+    (torch.bfloat16, 8192, 512, True, "wgmma"),
+    (torch.bfloat16, 8, 8, True, "wgmma"),
+    (torch.bfloat16, 4096, 4096, False, "wmma"),
+    (torch.bfloat16, 129, 65, True, "wmma"),
+    (torch.bfloat16, 1000, 3, True, "wmma"),
+    (torch.bfloat16, 12, 16, True, "wmma"),
+    (torch.bfloat16, 0, 16, True, "wmma")])
+def test_matmul_route_follows_what_tma_can_describe(dtype, k, n, aligned,
+                                                    kind):
+    """fp32 takes the CUDA-core kernel; bf16 the wgmma kernel wherever a
+    TMA tensor map can describe both operands (K > 0, rows of A and B whole
+    multiples of 16 bytes, 16-byte aligned bases), else the wmma kernel."""
+    assert k_matmul.route(dtype, k, n, aligned=aligned) == kind
+
+
+def test_matmul_route_raises_on_other_dtypes():
+    with pytest.raises(TypeError):
+        k_matmul.route(torch.float16, 64, 64)
+
+
+def test_matmul_routes_reset_and_refuse_cpu_tensors():
+    """``ROUTES`` has one count for each route :func:`k_matmul.route`
+    names and ``reset_launches`` zeroes it with ``LAUNCHES``; neither the
+    bf16 product nor the planted transpose-bit product runs on CPU tensors,
+    and no count moves."""
+    assert set(k_matmul.ROUTES) == {
+        k_matmul.route(torch.float32, 64, 64),
+        k_matmul.route(torch.bfloat16, 64, 64),
+        k_matmul.route(torch.bfloat16, 63, 64)}
+    saved = dict(k_matmul.LAUNCHES), dict(k_matmul.ROUTES)
+    try:
+        k_matmul.LAUNCHES["matmul"] += 3
+        for name in k_matmul.ROUTES:
+            k_matmul.ROUTES[name] += 1
+        k_matmul.reset_launches()
+        counts = (*k_matmul.LAUNCHES.values(), *k_matmul.ROUTES.values())
+        assert set(counts) == {0}
+        x = torch.ones((16, 16), dtype=torch.bfloat16)
+        for fn in (k_matmul.matmul_cuda,
+                   k_matmul.matmul_transpose_bit_flipped):
+            with pytest.raises(ValueError, match="CUDA device"):
+                fn(x, x)
+        counts = (*k_matmul.LAUNCHES.values(), *k_matmul.ROUTES.values())
+        assert set(counts) == {0}
+    finally:
+        k_matmul.LAUNCHES.update(saved[0])
+        k_matmul.ROUTES.update(saved[1])
+
+
 @pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 384, 128),
                                    (128, 256, 512)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
