@@ -13,7 +13,10 @@ Phases, each of which exits non-zero on failure:
 3. parity   - each kernel against its plain PyTorch version on the same
               inputs.  Paged: the paged path's shapes (bf16, Hq 16, Hkv 8,
               D 128, bs 16, B 8, M 64), NaN planted wherever neither may
-              read.  Flash: bf16 and fp32, g 2 and 8, causal, non-causal and
+              read; the prefill also at qwen2.5-3b's group of 8 (Hkv 2,
+              128 query rows a kv head) and at block_size 64, each on the
+              tensor cores (mma) with a repeat bit-identical, and in fp32
+              (simt).  Flash: bf16 and fp32, g 2 and 8, causal, non-causal and
               window 64, Sq = Sk in {7, 128, 900}, Sq < Sk, and Sq > Sk
               causal (fully masked rows: the mean of V), and the served
               shapes (zamba2's g 1, D 64, S 960; g 2 and 8 at D 128, S 900;
@@ -27,9 +30,13 @@ Phases, each of which exits non-zero on failure:
 4. timing   - kernel, plain version, one PyTorch library call (none for
               SSD), and the least time the card could take (the bound), ms;
               flash also at zamba2's shape (Hq = Hkv = 32, D 64, S 960),
-              and its device time per call from torch.profiler beside the
-              event timer's (a launch shorter than the host's launch cost
-              leaves the timer reading the host);
+              the paged prefill also at qwen2.5-3b's group of 8, and for
+              the attention kernels the kernel's and SDPA's device time
+              per call from torch.profiler beside the event timer's (a
+              launch shorter than the host's launch cost leaves the timer
+              reading the host), for the paged ones also SDPA with the
+              gather and mask a paged caller would pay, and fft's 2^24
+              launches and cuFFT's device time;
 5. checks   - the whole model on the card against the plain CPU path: a
               narrow fp32 copy of qwen3-0.6b, and the full-width model; a
               narrow fp32 copy of zamba2-1.2b with a tail layer (7 layers,
@@ -39,13 +46,18 @@ Phases, each of which exits non-zero on failure:
               logits than 1.5 times the CPU's own bf16 run);
 6. fp32     - paged == dense: the full-width qwen3-0.6b on seeded random
               fp32 weights (TF32 off) serving the 8-request trace greedy on
-              the paged layout and on the dense one; the tokens must agree
+              the paged layout and on the dense one (each kernel on its
+              fp32 route, simt); the tokens must agree
               row for row (where rows part, each row's first differing
               token and the logits' top-2 gap there are logged);
 7. serve    - the paged path: ``ServeEngine(kv_layout="paged")`` serving 8
               greedy requests with the full qwen3-0.6b config on seeded
               random bf16 weights, with every kernel's launch count read
-              just after, the pool drained, and a repeat run token-identical;
+              just after (every prefill launch on the tensor cores), the
+              pool drained, and a repeat run token-identical; after the
+              profile phase the same for a qwen2.5-3b copy at full width
+              cut to 4 layers (its group of 8: 128 query rows a kv head in
+              each prefill chunk);
 8. dense    - the dense path, the engine's default: the same 8 requests
               served continuous, continuous with ``bucket="pow2"`` and
               lockstep, each twice (token-identical), 28 flash launches per
@@ -114,6 +126,14 @@ B, HQ, HKV, D, BS, M = 8, 16, 8, 128, 16, 64
 DECODE_KV_LENS = [1, 15, 16, 17, 1023, 1024, 500, M * BS + 16]   # last: idle
 IDLE_ROW = 7
 PREFILL_CHUNKS = [0, 1, 63]
+# prefill parity beyond the qwen3 paged path's shape, Sq = bs, D 128, NaN
+# past the frontier: (label, Hq, Hkv, bs, M, chunks); qwen2.5-3b's group
+# of 8 (128 query rows a kv head; chunk 1's frontier inside a 64-key tile)
+# and qwen3 at block_size 64
+PREFILL_WIDE = (("qwen2.5-3b g=8", 16, 2, 16, 64, (0, 1, 63)),
+                ("bs=64", 16, 8, 64, 16, (0, 1, 15)))
+# the paged serve of a qwen2.5-3b copy at full width, cut in depth
+QWEN25_LAYERS = 4
 SERVE_PROMPT_LENS = [7, 16, 17, 64, 200, 333, 511, 900]
 SERVE_MAX_NEW = 32
 SAMPLED_TEMPERATURE = 0.7
@@ -207,6 +227,7 @@ DROPOUT_EDGE_BITS = (0, 1 << 31, (1 << 32) - 129, (1 << 32) - 128,
 EXP_EDGE = (89.0, 100.0, -87.3, -87.5, -88.0, -200.0, 0.0, math.inf,
             -math.inf, math.nan)
 FFT_TOL = 5e-6     # times sqrt(n), against an fp64 transform
+FFT_N = 1 << 24    # fft's card-scale length (the pool's card ladder)
 # torch.equal (NaN for NaN)
 EXACT_OPS = ("pathfinder", "jacobi2d", "dropout", "exp", "dwt")
 
@@ -252,9 +273,17 @@ def time_ms(torch, fn, args_list, iters: int) -> float:
 def device_ms(torch, fn, args_list):
     """Device time per call of ``fn`` over ``args_list`` (torch.profiler):
     a kernel shorter than the host's launch cost makes ``time_ms`` read the
-    host's rate, and this reads the kernel's own."""
-    ms, _ = _profile(torch, lambda: [fn(*a) for a in args_list], 1)
-    return None if ms is None else ms / len(args_list)
+    host's rate, and this reads the kernel's own.  A trace that caught no
+    device time is taken again, twice at most (None if none caught it)."""
+    for _ in range(3):
+        ms, _ = _profile(torch, lambda: [fn(*a) for a in args_list], 1)
+        if ms is not None:
+            return ms / len(args_list)
+    return None
+
+
+def _ms(x) -> str:
+    return "not captured" if x is None else f"{x:.4f}"
 
 
 def bound(bytes_moved: float, flops: float,
@@ -281,8 +310,8 @@ def phase_build(build):
                 log(f"ptxas {source}: {line.strip()}")
 
 
-def _pools(torch, gen, dev, n_blocks):
-    shape = (n_blocks, HKV, BS, D)
+def _pools(torch, gen, dev, n_blocks, hkv=HKV, bs=BS):
+    shape = (n_blocks, hkv, bs, D)
     kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     return kp, vp
@@ -313,14 +342,14 @@ def decode_case(torch, gen, dev):
     return (q, kp, vp, bt, kv), (q, kpn, vpn, bt, kv)
 
 
-def prefill_case(torch, gen, dev, chunk):
+def prefill_case(torch, gen, dev, chunk, hq=HQ, hkv=HKV, bs=BS, m=M):
     """One prefill chunk (B = 1, Sq = bs) at ``chunk`` on a shuffled table,
     NaN planted in every block past the causal frontier."""
-    kp, vp = _pools(torch, gen, dev, M + 1)
-    bt = (torch.randperm(M, generator=gen, device=dev) + 1).to(
+    kp, vp = _pools(torch, gen, dev, m + 1, hkv, bs)
+    bt = (torch.randperm(m, generator=gen, device=dev) + 1).to(
         torch.int32)[None]
-    qs = torch.tensor([chunk * BS], dtype=torch.int32, device=dev)
-    q = torch.randn((1, HQ, BS, D), generator=gen,
+    qs = torch.tensor([chunk * bs], dtype=torch.int32, device=dev)
+    q = torch.randn((1, hq, bs, D), generator=gen,
                     device=dev).to(torch.bfloat16)
     kpn, vpn = kp.clone(), vp.clone()
     past = bt[0, chunk + 1:].long()
@@ -350,13 +379,29 @@ def phase_parity(torch, pa, dev):
     errs["paged_decode_attention"] = _compare(
         torch, f"decode kv_len={DECODE_KV_LENS}", got, want)
     worst = 0.0
-    for chunk in PREFILL_CHUNKS:
-        _, dirty = prefill_case(torch, gen, dev, chunk)
-        got = pa.paged_prefill_attention_cuda(*dirty)
-        want = pa.paged_prefill_attention_plain(*dirty)
-        torch.cuda.synchronize()
-        worst = max(worst, _compare(torch, f"prefill chunk={chunk}", got,
-                                    want))
+    cases = [("qwen3", HQ, HKV, BS, M, PREFILL_CHUNKS), *PREFILL_WIDE]
+    for label, hq, hkv, bs, m, chunks in cases:
+        for chunk in chunks:
+            _, dirty = prefill_case(torch, gen, dev, chunk, hq, hkv, bs, m)
+            got = pa.paged_prefill_attention_cuda(*dirty)
+            want = pa.paged_prefill_attention_plain(*dirty)
+            torch.cuda.synchronize()
+            worst = max(worst, _compare(
+                torch, f"prefill {label} Hq={hq} Hkv={hkv} bs={bs} M={m} "
+                f"chunk={chunk} bf16 (mma)", got, want))
+            if label != "qwen3" and chunk == chunks[-1]:
+                # split over the keys, combined in split order: same bits
+                again = pa.paged_prefill_attention_cuda(*dirty)
+                require(torch.equal(again, got), f"prefill {label}: a "
+                        "repeated call changed the bits")
+                # the fp32 route (CUDA cores, 64-row tiles)
+                f32 = [x.float() if x.is_floating_point() else x
+                       for x in dirty]
+                got = pa.paged_prefill_attention_cuda(*f32)
+                want = pa.paged_prefill_attention_plain(*f32)
+                torch.cuda.synchronize()
+                _compare(torch, f"prefill {label} chunk={chunk} fp32 (simt)",
+                         got, want, TOL_FP32)
     errs["paged_prefill_attention"] = worst
     return errs
 
@@ -541,7 +586,7 @@ def phase_ssd_parity(torch, ss, dev):
 def _sdpa_inputs(torch, pa, q, kp, vp, bt, lens, causal):
     """Dense K/V gathered ahead of time (excluded from the library time)
     and the boolean mask of the same function."""
-    g = HQ // HKV
+    g = q.shape[1] // kp.shape[1]
     k = pa.gather_pool(kp, bt).repeat_interleave(g, dim=1)
     v = pa.gather_pool(vp, bt).repeat_interleave(g, dim=1)
     kpos = torch.arange(k.shape[2], device=q.device)
@@ -554,13 +599,34 @@ def _sdpa_inputs(torch, pa, q, kp, vp, bt, lens, causal):
     return q, k, v, mask
 
 
-def phase_timing(torch, pa, fa, ss, dev):
-    """kernel / plain / library / bound, in ms, for each kernel."""
+def phase_timing(torch, pa, fa, ss, kf, dev):
+    """kernel / plain / library / bound, in ms, for each kernel; for the
+    attention kernels also the profiler's device time of the kernel and of
+    SDPA (a ~0.03 ms call leaves the event timer reading the host), and for
+    the paged ones SDPA with the gather a paged caller would pay."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     copies = 4      # 4 pool sets > 50 MB L2: every launch starts cold
     out = {}
+
+    def sdpa(q, k, v, m):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+    def paged_row(name, kernel, plain, cases, causal, nbytes, flops):
+        dense = [_sdpa_inputs(torch, pa, *a, causal=causal) for a in cases]
+
+        def gathered(*a):
+            return sdpa(*_sdpa_inputs(torch, pa, *a, causal=causal))
+        out[name] = dict(
+            ms=time_ms(torch, kernel, cases, 200),
+            plain_ms=time_ms(torch, plain, cases, 20),
+            library_ms=time_ms(torch, sdpa, dense, 100),
+            device_ms=device_ms(torch, kernel, cases),
+            library_device_ms=device_ms(torch, sdpa, dense),
+            gather_ms=time_ms(torch, gathered, cases, 50),
+            gather_device_ms=device_ms(torch, gathered, cases),
+            **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))))
 
     dec = [decode_case(torch, gen, dev)[0] for _ in range(copies)]
     kv_blocks = sum(min(math.ceil(n / BS), M) for n in DECODE_KV_LENS)
@@ -569,14 +635,8 @@ def phase_timing(torch, pa, fa, ss, dev):
     dbytes = kv_blocks * BS * HKV * D * 2 * 2 + 2 * q_bytes \
         + kv_blocks * 4 + B * 4
     dflops = 4 * HQ * D * kv_pos
-    sdpa = [_sdpa_inputs(torch, pa, *a, causal=False) for a in dec]
-    out["paged_decode_attention"] = dict(
-        zip(("ms", "plain_ms", "library_ms"), (
-            time_ms(torch, pa.paged_decode_attention_cuda, dec, 200),
-            time_ms(torch, pa.paged_decode_attention_plain, dec, 20),
-            time_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=m), sdpa, 100))),
-        **dict(zip(("bound_ms", "bound_by"), bound(dbytes, dflops))))
+    paged_row("paged_decode_attention", pa.paged_decode_attention_cuda,
+              pa.paged_decode_attention_plain, dec, False, dbytes, dflops)
 
     chunk = PREFILL_CHUNKS[-1]
     pre = [prefill_case(torch, gen, dev, chunk)[0] for _ in range(copies)]
@@ -584,14 +644,18 @@ def phase_timing(torch, pa, fa, ss, dev):
     pbytes = (chunk + 1) * BS * HKV * D * 2 * 2 + 2 * HQ * BS * D * 2 \
         + (chunk + 1) * 4 + 4
     pflops = sum(4 * HQ * D * (q_start + i + 1) for i in range(BS))
-    sdpa = [_sdpa_inputs(torch, pa, *a, causal=True) for a in pre]
-    out["paged_prefill_attention"] = dict(
-        zip(("ms", "plain_ms", "library_ms"), (
-            time_ms(torch, pa.paged_prefill_attention_cuda, pre, 200),
-            time_ms(torch, pa.paged_prefill_attention_plain, pre, 20),
-            time_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=m), sdpa, 100))),
-        **dict(zip(("bound_ms", "bound_by"), bound(pbytes, pflops))))
+    paged_row("paged_prefill_attention", pa.paged_prefill_attention_cuda,
+              pa.paged_prefill_attention_plain, pre, True, pbytes, pflops)
+    # the same chunk at qwen2.5-3b's group of 8 (logged, not in the kernels
+    # line, which keeps one row a kernel)
+    _, whq, whkv, _, _, _ = PREFILL_WIDE[0]
+    pre = [prefill_case(torch, gen, dev, chunk, whq, whkv)[0]
+           for _ in range(copies)]
+    paged_row("paged_prefill_attention qwen2.5-3b",
+              pa.paged_prefill_attention_cuda,
+              pa.paged_prefill_attention_plain, pre, True,
+              (chunk + 1) * BS * whkv * D * 2 * 2 + 2 * whq * BS * D * 2
+              + (chunk + 1) * 4 + 4, pflops)
     # flash: a 900-token causal prefill, the dense path's longest prompt
     fgen = torch.Generator(device=dev)
     fgen.manual_seed(5)
@@ -620,10 +684,28 @@ def phase_timing(torch, pa, fa, ss, dev):
             time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True), zl, 50))),
         **dict(zip(("bound_ms", "bound_by"), bound(zbytes, zflops))))
-    for name, args in (("flash_attention", fl),
-                       ("flash_attention zamba2", zl)):
+    for name, args, gqa in (("flash_attention", fl, True),
+                            ("flash_attention zamba2", zl, False)):
         out[name]["device_ms"] = device_ms(torch, fa.flash_attention_cuda,
                                            args)
+        out[name]["library_device_ms"] = device_ms(
+            torch, lambda q, k, v, gqa=gqa: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=gqa), args)
+    # fft at 2^24 (the pool's card case, timed by the entry point later):
+    # the profiler's device time of its launches and of cuFFT on complex64
+    # planes, here where the traces are reliable (logged, not in the
+    # kernels line)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = [torch.randn(FFT_N, generator=gen, device=dev).to(dtype)
+             for _ in range(2)]
+        c = [torch.complex(x[0].float(), x[1].float())]
+        out[f"fft n={FFT_N} {str(dtype)[6:]}"] = dict(
+            ms=time_ms(torch, kf.fft_cuda, [x], 20), plain_ms=None,
+            library_ms=time_ms(torch, torch.fft.fft, [c], 20),
+            device_ms=device_ms(torch, kf.fft_cuda, [x]),
+            library_device_ms=device_ms(torch, torch.fft.fft, [c]),
+            bound_ms=None, bound_by=None)
+        del x, c
     # ssd: the hybrid path's longest prefill, as mamba_forward calls it
     # (d_skip, no h0); no single PyTorch call computes the function
     sgen = torch.Generator(device=dev)
@@ -646,9 +728,19 @@ def phase_timing(torch, pa, fa, ss, dev):
         library_ms=None,
         **dict(zip(("bound_ms", "bound_by"), bound(sbytes, sflops))))
     for name, t in out.items():
+        if t["plain_ms"] is None:        # fft: the pool phase times the rest
+            log(f"timing {name}: kernel_ms={t['ms']:.4f} library_ms="
+                f"{t['library_ms']:.4f} (cuFFT, complex64) device_ms="
+                f"{_ms(t['device_ms'])} library_device_ms="
+                f"{_ms(t['library_device_ms'])} (profiler)")
+            continue
         shape = {"paged_decode_attention": "B=8 kv_len="
                  + str(DECODE_KV_LENS),
-                 "paged_prefill_attention": f"B=1 Sq=16 chunk={chunk}",
+                 "paged_prefill_attention": f"B=1 Hq={HQ} Hkv={HKV} D={D} "
+                                            f"Sq=16 chunk={chunk} bf16",
+                 "paged_prefill_attention qwen2.5-3b":
+                     f"B=1 Hq={whq} Hkv={whkv} D={D} Sq=16 chunk={chunk} "
+                     "bf16",
                  "flash_attention": f"B=1 Hq={HQ} Hkv={HKV} D={D} "
                                     f"S={FLASH_S} causal bf16",
                  "flash_attention zamba2": f"B=1 Hq=Hkv={zhq} D={zd} "
@@ -658,11 +750,16 @@ def phase_timing(torch, pa, fa, ss, dev):
         lib = ("none" if t["library_ms"] is None else
                f"{t['library_ms']:.4f} (SDPA; paged: on pre-gathered dense "
                "K/V, gather excluded)")
-        dev_ms = ("" if t.get("device_ms") is None else
-                  f" device_ms={t['device_ms']:.4f} (profiler)")
-        log(f"timing {name} ({shape}): kernel_ms={t['ms']:.4f}{dev_ms} "
+        extra = "".join(
+            f" {k}={_ms(t[k])}" for k in ("device_ms", "library_device_ms",
+                                          "gather_ms", "gather_device_ms")
+            if k in t)
+        if extra:
+            extra += (" (device_*: profiler; gather_*: SDPA with the gather "
+                      "and mask included)")
+        log(f"timing {name} ({shape}): kernel_ms={t['ms']:.4f} "
             f"plain_ms={t['plain_ms']:.4f} library_ms={lib} "
-            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}){extra}")
     return out
 
 
@@ -750,13 +847,18 @@ def read_launches(kernel_modules):
 
 def read_routes(kernel_modules):
     """The launches by route of the modules that have routes, keyed
-    "<kernel>.<route>" (e.g. "flash_attention.mma")."""
-    return {f"{next(iter(mod.LAUNCHES))}.{r}": n for mod in kernel_modules
+    "<kernel>.<route>" (e.g. "flash_attention.mma"; a module names the
+    kernel its ROUTES count as ROUTED, else its first)."""
+    return {f"{getattr(mod, 'ROUTED', next(iter(mod.LAUNCHES)))}.{r}": n
+            for mod in kernel_modules
             for r, n in getattr(mod, "ROUTES", {}).items()}
 
 
-def phase_serve(torch, cfgs, build_model, serving, kmods, dev, name):
-    cfg = cfgs.get_config("qwen3-0.6b")
+def phase_serve(torch, cfg, build_model, serving, kmods, dev, name):
+    """The paged path: ``cfg`` served on seeded random bf16 weights, twice,
+    every kernel's launches counted in each run: one decode and one
+    prefill launch a layer a step or chunk, every prefill on the tensor
+    cores, no flash launch, the pool drained, the tokens repeated."""
     model = build_model(cfg)
     params = model.init(0, device=dev)
     log(f"serve: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
@@ -778,17 +880,18 @@ def phase_serve(torch, cfgs, build_model, serving, kmods, dev, name):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches(kmods)
+        routes = read_routes(kmods)
         s = eng.last_stats
         toks = [r.tokens for r in results]
         for r in results:
-            log(f"serve run {run} rid={r.rid} prompt_len="
+            log(f"serve {cfg.name} run {run} rid={r.rid} prompt_len="
                 f"{SERVE_PROMPT_LENS[r.rid]} tokens={r.tokens}")
-        log(f"serve run {run} on {name}: wall_s={wall:.3f} "
+        log(f"serve {cfg.name} run {run} on {name}: wall_s={wall:.3f} "
             f"tokens_per_s={s.tokens_per_s:.1f} "
             f"ttft_ms_mean={s.ttft_ms_mean:.1f} "
             f"tpot_ms_mean={s.tpot_ms_mean:.2f} "
             f"decode_steps={s.decode_steps} prefill_chunks={n_chunks} "
-            f"launches={launches} "
+            f"launches={launches} routes={routes} "
             f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
         require(all(len(t) == SERVE_MAX_NEW and
                     all(0 <= x < cfg.vocab_size for x in t) for t in toks),
@@ -801,15 +904,20 @@ def phase_serve(torch, cfgs, build_model, serving, kmods, dev, name):
                 == cfg.n_layers * n_chunks,
                 f"prefill kernel launches {launches} != "
                 f"{cfg.n_layers} x {n_chunks} chunks")
+        require(routes["paged_prefill_attention.mma"]
+                == launches["paged_prefill_attention"],
+                f"{cfg.name}: a bf16 prefill launch off the tensor cores "
+                f"({routes})")
         require(launches["flash_attention"] == 0,
                 f"the paged path launched the flash kernel: {launches}")
         require(eng.allocator.n_live == 0 and eng.allocator.n_reserved == 0,
                 "the block pool did not drain")
         eng.allocator.check_integrity()
-        log(f"serve run {run}: pool drained (n_live=0, integrity ok)")
+        log(f"serve {cfg.name} run {run}: pool drained (n_live=0, "
+            "integrity ok)")
         runs.append((toks, launches))
     require(runs[0][0] == runs[1][0], "a repeat run changed the tokens")
-    log("serve: repeat run token-identical")
+    log(f"serve {cfg.name}: repeat run token-identical")
     return runs[0][1], model, params, runs[0][0]
 
 
@@ -889,6 +997,11 @@ def phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods, dev,
                 == launches["flash_attention"]
                 and launches["flash_attention.mma"] == 0,
                 f"fp32 {layout}: flash off its fp32 route ({launches})")
+        require(launches["paged_prefill_attention.simt"]
+                == launches["paged_prefill_attention"]
+                and launches["paged_prefill_attention.mma"] == 0,
+                f"fp32 {layout}: the paged prefill off its fp32 route "
+                f"({launches})")
     diffs = first_diffs(toks["paged"], toks["dense"])
     log(f"fp32 paged vs dense: first differing token per rid {diffs}")
     log_margins(torch, model, params, prompts, toks["paged"], toks["dense"],
@@ -1579,7 +1692,7 @@ def phase_fft_launches(torch, kf, dev):
     """Where fft's time goes at card scale: ms of each launch of its plan
     at n = 2^24 (fp32 and bf16 planes), timed alone with CUDA events, and
     a device-to-device copy of the same bytes as the card's rate."""
-    n = 1 << 24
+    n = FFT_N
     lib = kf.build.library(kf.SOURCE)
     stream = torch.cuda.current_stream(dev).cuda_stream
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1592,14 +1705,9 @@ def phase_fft_launches(torch, kf, dev):
             code = kf._DTYPE_CODE[src[0].dtype]
             ptrs = (*(t.data_ptr() for t in src),
                     *(t.data_ptr() for t in out[2:]))
-            if step[0] == "pass":
-                def launch(step=step, ptrs=ptrs, code=code):
-                    return lib.repro_fft_pass(code, step[1], *ptrs, n,
-                                              step[2], stream)
-            else:
-                def launch(step=step, ptrs=ptrs, code=code):
-                    return lib.repro_fft_local(code, *ptrs, step[1], step[2],
-                                               n >> step[1], stream)
+            def launch(step=step, ptrs=ptrs, code=code):
+                return lib.repro_fft_pass(code, step[1], *ptrs, n, step[2],
+                                          stream)
             ms = time_ms(torch, lambda: kf.build.check(lib, launch(), "fft"),
                          [()], 20)
             nbytes = 2 * n * (src[0].element_size() + 4)
@@ -1614,7 +1722,8 @@ def phase_fft_launches(torch, kf, dev):
 # name fragments of the port's own kernels, listed by the profile phases
 # even outside the top eight
 PORT_KERNELS = ("flash_mma_kernel", "flash_attention_kernel",
-                "paged_attention_kernel", "ssd_scan_kernel")
+                "paged_attention_kernel", "paged_prefill_mma_kernel",
+                "ssd_scan_kernel")
 
 
 def _profile(torch, fn, n):
@@ -1757,18 +1866,25 @@ def main() -> int:
         errs = phase_parity(torch, pa, dev)
         errs["flash_attention"] = phase_flash_parity(torch, fa, dev)
         errs["ssd_scan"] = phase_ssd_parity(torch, ss, dev)
-        times = phase_timing(torch, pa, fa, ss, dev)
+        times = phase_timing(torch, pa, fa, ss, ideality.POOL["fft"], dev)
         phase_checks(torch, cfgs, build_model, dev)
         phase_hybrid_checks(torch, cfgs, build_model, dev)
         phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods, dev,
                                name)
         launches, model, params, paged = phase_serve(
-            torch, cfgs, build_model, serving, kmods, dev, name)
+            torch, cfgs.get_config("qwen3-0.6b"), build_model, serving,
+            kmods, dev, name)
         launches["flash_attention"] = phase_dense(
             torch, serving, kmods, model, params, paged, dev, name)[
                 "flash_attention"]
         phase_profile(torch, model, params, dev)
         del params
+        torch.cuda.empty_cache()
+        # qwen2.5-3b at full width, cut to QWEN25_LAYERS layers: its group
+        # of 8 puts 128 query rows a kv head in every paged prefill
+        cfg25 = dataclasses.replace(cfgs.get_config("qwen2.5-3b"),
+                                    n_layers=QWEN25_LAYERS)
+        phase_serve(torch, cfg25, build_model, serving, kmods, dev, name)
         torch.cuda.empty_cache()
         hybrid_launches, hmodel, hparams = phase_hybrid(
             torch, cfgs, build_model, serving, kmods, dev, name)

@@ -3,8 +3,9 @@
 The sources under ``csrc/`` have a plain C interface (no PyTorch headers),
 so one ``nvcc`` call per source takes seconds.  Each source compiles into
 its own shared library under ``build/repro_torch/`` at the repository root
-(listed in ``.gitignore``), named by a hash of the source and the flags, so
-an edited source never loads a stale library.  ``nvcc``'s ``-Xptxas -v``
+(listed in ``.gitignore``), named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header never
+loads a stale library.  ``nvcc``'s ``-Xptxas -v``
 report (registers, shared memory, spills per kernel) is kept beside each
 library and returned by :func:`ptxas_report`.
 
@@ -56,7 +57,7 @@ SIGNATURES = {
     "conv2d.cu": {"repro_conv2d": (_I, _P, _P, _P, _I, _I, _I, _I, _P)},
     "fft.cu": {
         "repro_fft_pass": (_I, _I, _P, _P, _P, _P, _L, _I, _P),
-        "repro_fft_local": (_I, _P, _P, _P, _P, _I, _I, _L, _P),
+        "repro_fft_local": (_I, _P, _P, _P, _P, _I, _P),
     },
     "pathfinder.cu": {
         "repro_pathfinder": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -70,6 +71,9 @@ SIGNATURES = {
             (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         "repro_paged_prefill_attention":
             (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        "repro_paged_prefill_attention_mma":
+            (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+             _I, _F, _P),
     },
 }
 
@@ -85,6 +89,8 @@ def _nvcc() -> str:
 
 def _target(source: str) -> pathlib.Path:
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{pathlib.Path(source).stem}-{h.hexdigest()[:16]}.so"
 

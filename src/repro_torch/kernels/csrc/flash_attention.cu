@@ -105,6 +105,8 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "mma_sync.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -401,8 +403,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kThreads = 128;     // four warps
 constexpr int kRows = 64;         // query rows a block, 16 a warp
 constexpr int kKeys = 64;         // keys a tile
@@ -421,43 +421,6 @@ template <int DP> struct Layout {
   static constexpr size_t kBytes = 5 * kTile * sizeof(bf16);  // Q, K[2], V[2]
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; valid == false writes 16 zero bytes and reads
-// nothing
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d += a (16 x 16, row) b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // The key range [begin, end) that query positions [qpos_first, qpos_last]
 // can see (see the header: a range holding a row with no valid key walks
 // every key).
@@ -469,14 +432,6 @@ __device__ __forceinline__ void key_band(int qpos_first, int qpos_last, int sk,
   if (causal && qpos_first < 0) return;
   if (window > 0) begin = max(0, qpos_first - window + 1);
   if (causal) end = min(sk, qpos_last + 1);
-}
-
-// 2^x on the special-function unit, a subnormal result flushed to +0 (a p
-// below 2^-126 of the row's largest is far below a bf16 output's step)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Grid: (B * Hq, q tiles), the last q tile first (under the causal mask it

@@ -8,11 +8,12 @@ implementations, as in the reference (``repro/kernels/fft.py``):
 
 * ``fft_cuda`` - the hand-written Hopper kernels in ``csrc/fft.cu``,
   replacing ``fft_pallas``: for n <= 4096 one block runs every stage in
-  shared memory; beyond, :func:`plan` splits the stages into global passes
-  of up to 5 stages (radix 32 in registers) and one local pass over 512-long
-  columns, 16 a block.  The wrapper launches each pass and adds one to
-  ``LAUNCHES["fft"]`` per launch: :func:`kernels_per_call` of them a call
-  (1 up to n = 4096, 4 at n = 2^24).
+  shared memory; beyond, :func:`plan` splits the stages into passes of 12
+  through device memory (the last one the rest), each a DFT of length 4096
+  per group in shared memory (radix-16 steps in registers).  The wrapper
+  launches each pass and adds one to ``LAUNCHES["fft"]`` per launch:
+  :func:`kernels_per_call` of them a call (1 up to n = 4096, 2 up to
+  2^24).
 * ``fft_plain`` - the same Stockham schedule in PyTorch fp32
   (``ref.fft_ref``), the counterpart of ``fft_xla``.
 
@@ -29,10 +30,9 @@ from . import build, ref
 SOURCE = "fft.cu"
 LAUNCHES = {"fft": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# csrc/fft.cu: one block holds 2^12 elements; beyond, the local pass takes
-# columns of 2^9 elements, 2^4 columns a block, after global passes of at
-# most 5 stages each
-_LOCAL_MAX_LOG, _LOCAL_LEN_LOG, _LOCAL_COLS_LOG, _MAX_Q = 12, 9, 4, 5
+# csrc/fft.cu: one block holds 2^12 elements; beyond, passes of at most 12
+# stages through device memory
+_LOCAL_MAX_LOG, _PASS_MAX_LOG = 12, 12
 
 
 def reset_launches() -> None:
@@ -41,19 +41,15 @@ def reset_launches() -> None:
 
 
 def plan(n: int) -> list[tuple]:
-    """The kernel launches of one length-n transform, in order:
-    ``("pass", q, s)`` runs stages s .. s+q-1 through device memory,
-    ``("local", log_len, log_cols)`` the last ``log_len`` stages in shared
-    memory, 2^log_cols columns a block."""
+    """The kernel launches of one length-n transform, in order: up to n =
+    4096 one ``("local", t)``, every stage in one block; beyond,
+    ``("pass", q, s)`` for stages s .. s+q-1 through device memory, 12 a
+    pass and the rest in the last: ceil(t / 12) launches."""
     t = ref.fft_log2(n)
     if t <= _LOCAL_MAX_LOG:
-        return [("local", t, 0)]
-    steps, s, g = [], 0, t - _LOCAL_LEN_LOG
-    while s < g:
-        q = min(_MAX_Q, g - s)
-        steps.append(("pass", q, s))
-        s += q
-    return steps + [("local", _LOCAL_LEN_LOG, _LOCAL_COLS_LOG)]
+        return [("local", t)]
+    return [("pass", min(_PASS_MAX_LOG, t - s), s)
+            for s in range(0, t, _PASS_MAX_LOG)]
 
 
 def kernels_per_call(shape, *_shapes, **_kw) -> int:
@@ -93,9 +89,7 @@ def fft_cuda(x_re, x_im):
                 _, q, s = step
                 err = lib.repro_fft_pass(code, q, *ptrs, n, s, stream)
             else:
-                _, log_len, log_cols = step
-                err = lib.repro_fft_local(code, *ptrs, log_len, log_cols,
-                                          n >> log_len, stream)
+                err = lib.repro_fft_local(code, *ptrs, step[1], stream)
             build.check(lib, err, what)
             LAUNCHES["fft"] += 1
             src, code = dst, _DTYPE_CODE[torch.float32]

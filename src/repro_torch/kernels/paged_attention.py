@@ -9,13 +9,17 @@ PagedAttention, Kwon et al. SOSP 2023).
 Two implementations of each function, as in the reference
 (``repro/kernels/paged_attention.py``):
 
-* ``*_cuda`` — the hand-written Hopper kernel in ``csrc/paged_attention.cu``
-  (one templated kernel for both), launched on PyTorch's current stream.
-  It replaces ``paged_decode_attention_pallas`` and
-  ``paged_prefill_attention_pallas``; what bounds it and how it is built is
-  in the source's header note.  Each wrapper checks its inputs, allocates
-  the output with ``torch.empty`` and adds one to ``LAUNCHES[name]`` per
-  launch, so a run can show that its path went through the kernel.
+* ``*_cuda`` — the hand-written Hopper kernels in
+  ``csrc/paged_attention.cu``, launched on PyTorch's current stream.  They
+  replace ``paged_decode_attention_pallas`` and
+  ``paged_prefill_attention_pallas``; what bounds them and how they are
+  built is in the source's header note.  The prefill has two routes, picked
+  by dtype (:func:`prefill_route`): bf16 on the tensor cores (``mma``,
+  split over the keys by :func:`prefill_plan`), fp32 on CUDA cores
+  (``simt``).  Each wrapper checks its inputs, allocates the output with
+  ``torch.empty`` and adds one to ``LAUNCHES[name]`` per launch (and the
+  prefill to ``ROUTES[route]``), so a run can show that its path went
+  through the kernel.
 * ``*_plain`` — plain PyTorch with the math of the reference's ``xla``
   functions: a gather of the table's blocks and a masked fp32 softmax.  The
   CPU runs it, and ``chip_smoke.py`` holds the kernel against it.
@@ -25,6 +29,7 @@ Two implementations of each function, as in the reference
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -38,11 +43,15 @@ SOURCE = "paged_attention.cu"
 # launches of each hand-written kernel since the last reset (a plain dict
 # of ints: chip_smoke zeroes it before the main path and reads it after)
 LAUNCHES = {"paged_decode_attention": 0, "paged_prefill_attention": 0}
+# the prefill's launches by route: "mma" (bf16, tensor cores), "simt" (fp32)
+ROUTES = {"mma": 0, "simt": 0}
+ROUTED = "paged_prefill_attention"      # the kernel ROUTES counts
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _scale(scale, d: int) -> float:
@@ -108,9 +117,49 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, block_table, q_start, *,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # limits of csrc/paged_attention.cu: 64-key tiles, one PV column a thread
-# (128 threads), at most 64 query rows (g * Sq) a thread block
+# (128 threads), at most 64 query rows a thread block: decode serves its g
+# rows in one block, the prefill cuts its g * Sq rows into 64-row tiles
 _TILE_KEYS, _MAX_HEAD_DIM, _MAX_ROWS = 64, 128, 64
 _MAX_SMEM = 227 * 1024
+# head dims the tensor-core prefill is built for; a head dim between two is
+# zero-padded in shared memory up to the next
+HEAD_DIM_TEMPLATES = (16, 32, 64, 128)
+# the most key splits of one row tile (the combining block reads them all)
+MAX_SPLITS = 64
+
+
+def prefill_route(dtype, d: int) -> tuple[str, int]:
+    """The prefill kernel that takes ``dtype`` at head dim ``d`` and the
+    head dim it runs at: ``("mma", d rounded up to 16, 32, 64 or 128)`` for
+    bf16, ``("simt", d)`` for fp32."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged_prefill_attention: q dtype {dtype}; the "
+                        "kernel takes bfloat16 or float32")
+    if dtype == torch.float32:
+        return "simt", d
+    return "mma", next(t for t in HEAD_DIM_TEMPLATES if t >= d)
+
+
+def prefill_plan(hkv: int, rows: int, bs: int, max_blocks: int,
+                 n_sm: int) -> tuple[int, int]:
+    """(row tiles, key splits) of the tensor-core prefill for ``rows`` =
+    g * Sq query rows a kv head.  The splits follow the table's width
+    (at most one per 64-key tile of its ``max_blocks * bs`` keys) and the
+    card's SM count (enough blocks to fill it at B = 1), never the batch or
+    ``q_start``: the host reads no device tensor, and a row's output does
+    not depend on the rows batched with it."""
+    row_tiles = -(-rows // _MAX_ROWS)
+    tiles = -(-max_blocks * bs // _TILE_KEYS)
+    want = -(-n_sm // (row_tiles * hkv))
+    return row_tiles, max(1, min(tiles, want, MAX_SPLITS))
+
+
+def split_tiles(n_tiles: int, splits: int) -> list[range]:
+    """The key tiles each split walks when a chunk's frontier covers
+    ``n_tiles`` tiles (the kernel's ``first_tile``): contiguous, in order,
+    every tile exactly once; a split with none writes an empty partial."""
+    return [range(s * n_tiles // splits, (s + 1) * n_tiles // splits)
+            for s in range(splits)]
 
 
 def _check(q, k_pool, v_pool, block_table, lens, what: str) -> None:
@@ -151,10 +200,13 @@ def _check(q, k_pool, v_pool, block_table, lens, what: str) -> None:
         raise ValueError(f"{what}: head_dim {d} must be a multiple of 8 up "
                          f"to {_MAX_HEAD_DIM}, with 16-byte aligned pools")
     rows = (hq // hkv) * sq
-    if _TILE_KEYS % bs or rows > _MAX_ROWS:
+    if _TILE_KEYS % bs:
         raise ValueError(f"{what}: block_size {bs} must divide "
-                         f"{_TILE_KEYS}, and g * Sq = {rows} be at most "
-                         f"{_MAX_ROWS}")
+                         f"{_TILE_KEYS}")
+    if rows > _MAX_ROWS and what == "paged_decode_attention":
+        raise ValueError(f"{what}: g = {rows} query rows a kv head, at "
+                         f"most {_MAX_ROWS}")
+    rows = min(rows, _MAX_ROWS)
     ld = d + 16 // q.element_size()
     smem = (4 * _TILE_KEYS * ld * q.element_size()
             + (rows * d + rows * _TILE_KEYS + 3 * rows) * 4)
@@ -196,24 +248,64 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, kv_len, *,
     return out
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# per CUDA device, the arrival counters of the split prefill's combine:
+# zeroed once, and every launch leaves them zero again
+_COUNTERS: dict[int, torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    have = _COUNTERS.get(dev.index)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[dev.index] = have
+    return have
+
+
 def paged_prefill_attention_cuda(q, k_pool, v_pool, block_table, q_start, *,
                                  scale=None):
-    """The chunked-prefill kernel, replacing
-    ``paged_prefill_attention_pallas``
-    (``repro/kernels/paged_attention.py:224``).  Bound by bytes on the H100,
-    as the decode kernel (same source).  The chunk's own K/V must already
-    sit in its block, written on the same stream before this call."""
+    """The chunked-prefill kernel of ``q``'s dtype (:func:`prefill_route`),
+    replacing ``paged_prefill_attention_pallas``
+    (``repro/kernels/paged_attention.py:224``); any g * Sq.  bf16 runs on the
+    tensor cores, split over the keys (:func:`prefill_plan`) and combined in
+    the same launch; fp32 on CUDA cores, one block a 64-row tile.  The
+    chunk's own K/V must already sit in its block, written on the same
+    stream before this call."""
     what = "paged_prefill_attention"
     _check(q, k_pool, v_pool, block_table, q_start, what)
     b, hq, sq, d = q.shape
     _, hkv, bs, _ = k_pool.shape
+    g, m = hq // hkv, block_table.shape[1]
+    kind, dp = prefill_route(q.dtype, d)
+    if kind == "mma" and q.data_ptr() % 16:
+        raise ValueError(f"{what}: q must be 16-byte aligned")
     out = torch.empty_like(q)
     lib = build.library(SOURCE)
     with torch.cuda.device(q.device):
-        err = lib.repro_paged_prefill_attention(
-            _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k_pool), _ptr(v_pool),
-            _ptr(block_table), _ptr(q_start), _ptr(out), b, hkv, hq // hkv,
-            sq, d, bs, block_table.shape[1], _scale(scale, d), _stream(q))
+        if kind == "mma":
+            row_tiles, splits = prefill_plan(hkv, g * sq, bs, m,
+                                             _sm_count(q.device.index))
+            units = b * hkv * row_tiles
+            part = (torch.empty(units * splits * _MAX_ROWS * (dp + 2),
+                                dtype=torch.float32, device=q.device)
+                    if splits > 1 else None)
+            counters = _counters(q.device, units) if splits > 1 else None
+            err = lib.repro_paged_prefill_attention_mma(
+                _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(block_table),
+                _ptr(q_start), _ptr(out),
+                None if part is None else _ptr(part),
+                None if counters is None else _ptr(counters), b, hkv, g, sq,
+                d, dp, bs, m, splits, _scale(scale, d), _stream(q))
+        else:
+            err = lib.repro_paged_prefill_attention(
+                _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k_pool), _ptr(v_pool),
+                _ptr(block_table), _ptr(q_start), _ptr(out), b, hkv, g, sq,
+                d, bs, m, _scale(scale, d), _stream(q))
     build.check(lib, err, what)
     LAUNCHES[what] += 1
+    ROUTES[kind] += 1
     return out

@@ -318,7 +318,7 @@ def test_case_inputs_follow_the_bench():
 def test_expected_launches_count_kernels_not_calls():
     """What the entry point adds to the counts on the card: (2 warm-up +
     timed) calls a case, times the kernels its module says one call at its
-    shapes launches: two a dotproduct, fft's passes (1 at n = 4096, 4 at
+    shapes launches: two a dotproduct, fft's passes (1 at n = 4096, 2 at
     2^24), pathfinder's launches of 64 rows (1 at 64 rows, 16 at 1024),
     one a jacobi2d sweep, one for the others."""
     assert tideality.expected_launches("reference") == {
@@ -326,7 +326,7 @@ def test_expected_launches_count_kernels_not_calls():
         "conv2d": 102, "pathfinder": 102, "jacobi2d": 0, "dropout": 0,
         "exp": 0, "dwt": 0}
     assert tideality.expected_launches("card") == {
-        "matmul": 44, "dotproduct": 88, "softmax": 44, "fft": 44 * 4,
+        "matmul": 44, "dotproduct": 88, "softmax": 44, "fft": 44 * 2,
         "conv2d": 44, "pathfinder": 44 * 16, "jacobi2d": 44, "dropout": 44,
         "exp": 44, "dwt": 44}
     assert [tideality.POOL[op].kernels_per_call((8, 8))

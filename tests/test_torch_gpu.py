@@ -122,6 +122,78 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     assert pa.LAUNCHES == before
 
 
+def _prefill_nan_case(seed, starts, *, hq, hkv, d, bs, m, dtype, dev):
+    """A prefill batch of Sq = bs on a shuffled table (each row its own
+    blocks), NaN at every pool position at or past each row's frontier
+    q_start + Sq and in the null block, which no table here holds."""
+    b = len(starts)
+    rng = np.random.default_rng(seed)
+    n_blocks = b * m + 1
+    kp = rng.standard_normal((n_blocks, hkv, bs, d), np.float32)
+    vp = rng.standard_normal((n_blocks, hkv, bs, d), np.float32)
+    bt = (rng.permutation(n_blocks - 1) + 1).reshape(b, m).astype(np.int32)
+    q = rng.standard_normal((b, hq, bs, d), np.float32)
+    for row, start in enumerate(starts):
+        for col in range(m):
+            lo = max(start + bs - col * bs, 0)
+            if lo < bs:
+                kp[bt[row, col], :, lo:] = np.nan
+                vp[bt[row, col], :, lo:] = np.nan
+    kp[0] = vp[0] = np.nan
+    t = [torch.from_numpy(x).to(dev)
+         for x in (q, kp, vp, bt, np.asarray(starts, np.int32))]
+    return [x.to(dtype) if x.is_floating_point() else x for x in t]
+
+
+# (Hq, Hkv, D, bs, M, q_starts), Sq = bs: qwen2.5-3b's shape (g 8, 128
+# rows a kv head) at chunks 0, 1 (its frontier inside a 64-key tile) and
+# 63; qwen3 at block_size 64 (chunks 0, 1, 15); B = 3 with different
+# starts, one off a block boundary
+PREFILL_WIDE = ((16, 2, 128, 16, 64, [0]), (16, 2, 128, 16, 64, [16]),
+                (16, 2, 128, 16, 64, [1008]), (16, 8, 128, 64, 16, [0]),
+                (16, 8, 128, 64, 16, [64]), (16, 8, 128, 64, 16, [960]),
+                (16, 2, 128, 16, 64, [5, 500, 1000]),
+                (16, 8, 64, 16, 64, [0, 333, 1008]))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_prefill_kernel_any_rows_with_nan_planted(cuda, dtype, tol):
+    """The prefill kernel beyond 64 query rows a kv head and at bs 64
+    against its plain version, NaN at every pool position at or past the
+    frontier (a tensor-core p v multiplies the whole tile, and p = 0 times
+    NaN is NaN, so those keys must be zeroed, not masked); each call on its
+    dtype's route.  fp32 at 1e-4; bf16 at 1e-2 (outputs rounded from fp32,
+    p rounded to bf16 before p v)."""
+    kind = "simt" if dtype == torch.float32 else "mma"
+    for i, (hq, hkv, d, bs, m, starts) in enumerate(PREFILL_WIDE):
+        args = _prefill_nan_case(i, starts, hq=hq, hkv=hkv, d=d, bs=bs,
+                                 m=m, dtype=dtype, dev=cuda)
+        n0 = pa.LAUNCHES["paged_prefill_attention"]
+        r0 = pa.ROUTES[kind]
+        got = pa.paged_prefill_attention_cuda(*args)
+        assert pa.LAUNCHES["paged_prefill_attention"] == n0 + 1
+        assert pa.ROUTES[kind] == r0 + 1
+        want = pa.paged_prefill_attention_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_prefill_tensor_cores_repeat_bit_identical(cuda):
+    """The split prefill combines its partials in split order, whichever
+    block arrives last: repeated calls give the same bits, and the arrival
+    counters stay usable from one launch to the next."""
+    args = _prefill_nan_case(9, [1008], hq=16, hkv=2, d=128, bs=16, m=64,
+                             dtype=torch.bfloat16, dev=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pa.prefill_plan(2, 128, 16, 64, sms)[1] > 1
+    first = pa.paged_prefill_attention_cuda(*args)
+    for _ in range(5):
+        assert torch.equal(pa.paged_prefill_attention_cuda(*args), first)
+
+
 def _params_on(params, dev):
     return {k: _params_on(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in params.items()}
@@ -619,10 +691,12 @@ def _fft_distance(xr, xi, y):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pool_fft_matches_fp64(cuda, dtype):
-    """One block (n = 2, 64, 4096) and several passes (8192: one global
-    pass and the local one; 2^20: two and the local one), kernel and plain
-    version both within 5e-6 sqrt(n) of an fp64 transform, fp32 out."""
-    for seed, n in enumerate([2, 64, 4096, 8192, 1 << 20]):
+    """One block (n = 2, 64, 4096) and passes of up to 12 stages (8192:
+    12 and 1; 2^18: 12 and 6; 2^20; 2^24: 12 and 12; 2^25: 12, 12 and 1,
+    the middle one twiddled), kernel and plain version both within 5e-6
+    sqrt(n) of an fp64 transform, fp32 out."""
+    for seed, n in enumerate([2, 64, 4096, 8192, 1 << 18, 1 << 20,
+                              1 << 24, 1 << 25]):
         xr, xi = _randn(seed, cuda, dtype, (n,), (n,))
         got = _counted(k_fft, "fft", k_fft.fft_cuda, xr, xi)
         assert all(g.dtype == torch.float32 and g.shape == (n,) for g in got)

@@ -141,6 +141,60 @@ def test_plain_prefill_ignores_blocks_past_frontier():
         _close(pa.paged_prefill_attention_plain(q, kp2, vp2, bt, qs), want)
 
 
+@pytest.mark.parametrize("g,bs,starts", [
+    (8, 16, [48, 16, 0]),     # qwen2.5-3b's group (16 / 2): 128 rows a kv head
+    (2, 64, [192, 64, 0]),    # 64-token blocks (qwen3 at block_size 64)
+])
+def test_plain_prefill_beyond_64_rows_matches_reference(g, bs, starts):
+    """g * Sq = 128 query rows a kv head, two of the tensor-core kernel's
+    64-row tiles: the plain version against the reference's oracle, its
+    ``xla`` path and its Pallas kernel (interpret), on a narrow D."""
+    q, kp, vp = _case(11, bs=bs, g=g, sq=bs)
+    j, t = _both(q, kp, vp, BT, np.asarray(starts, np.int32))
+    got = pa.paged_prefill_attention_plain(*t)
+    assert got.shape == (3, 2 * g, bs, 16)
+    _close(got, jref.paged_prefill_attention_ref(*j))
+    _close(got, paged_prefill_attention_xla(*j))
+    _close(got, paged_prefill_attention_pallas(*j, interpret=True))
+
+
+@pytest.mark.parametrize("hkv,rows,bs,m,want", [
+    (8, 32, 16, 64, (1, 16)),     # qwen3-0.6b, block_size 16, 1024 tokens
+    (2, 128, 16, 64, (2, 16)),    # qwen2.5-3b: two row tiles
+    (8, 32, 64, 16, (1, 16)),     # qwen3 at block_size 64
+    (8, 32, 16, 4096, (1, 17)),   # a wide table: enough blocks for the card
+    (2, 128, 16, 1, (2, 1)),      # one block: one tile, one split
+    (1, 1, 1, 1, (1, 1)),
+])
+def test_prefill_plan_covers_every_key_tile_once(hkv, rows, bs, m, want):
+    """The tensor-core prefill's (row tiles, splits) for an H100's 132
+    SMs, and the tiles of each split at every frontier the table allows:
+    contiguous, in order, each tile exactly once, no split past the
+    table's last tile; the plan reads neither the batch nor q_start."""
+    row_tiles, splits = pa.prefill_plan(hkv, rows, bs, m, 132)
+    assert (row_tiles, splits) == want
+    assert (row_tiles - 1) * 64 < rows <= row_tiles * 64
+    max_tiles = -(-m * bs // 64)
+    assert 1 <= splits <= min(max_tiles, pa.MAX_SPLITS)
+    for n_tiles in range(max_tiles + 1):
+        ranges = pa.split_tiles(n_tiles, splits)
+        assert len(ranges) == splits
+        assert [t for r in ranges for t in r] == list(range(n_tiles))
+        assert all(r.start <= n_tiles <= max_tiles for r in ranges)
+
+
+def test_prefill_route_by_dtype():
+    """bf16 on the tensor cores at d rounded up to a template, fp32 on CUDA
+    cores; any other dtype raises."""
+    assert pa.prefill_route(torch.bfloat16, 128) == ("mma", 128)
+    assert pa.prefill_route(torch.bfloat16, 72) == ("mma", 128)
+    assert pa.prefill_route(torch.bfloat16, 24) == ("mma", 32)
+    assert pa.prefill_route(torch.bfloat16, 16) == ("mma", 16)
+    assert pa.prefill_route(torch.float32, 24) == ("simt", 24)
+    with pytest.raises(TypeError):
+        pa.prefill_route(torch.float16, 64)
+
+
 # ---------------------------------------------------------------------------
 # Oracles and dispatch.
 # ---------------------------------------------------------------------------
@@ -169,9 +223,9 @@ def test_ops_dispatch_by_device():
         ops.paged_prefill_attention(*tp, window=8)
     with pytest.raises(ValueError, match="meta"):
         ops.paged_decode_attention(*[x.to("meta") for x in t])
-    before = dict(pa.LAUNCHES)
+    before, routes = dict(pa.LAUNCHES), dict(pa.ROUTES)
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_decode_attention_cuda(*t)
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_prefill_attention_cuda(*tp)
-    assert pa.LAUNCHES == before
+    assert pa.LAUNCHES == before and pa.ROUTES == routes

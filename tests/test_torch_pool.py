@@ -332,21 +332,24 @@ def test_fft_rejects_lengths_that_are_not_powers_of_two(n):
 
 def test_fft_plan_covers_every_stage_once():
     """The kernel's launches for each n: one block up to 4096; beyond,
-    global passes of 1 to 5 stages, in order from stage 0, then one local
-    pass of the last 9 stages over 16 columns a block; so 2 launches at
-    8192 and 4 at 2^24."""
+    passes through device memory of 12 stages each, in order from stage 0,
+    the last one the rest: ceil(t / 12) launches, so 2 from 8192 up to
+    2^24 and 3 beyond."""
     for t in range(1, 31):
         steps = k_fft.plan(1 << t)
-        *passes, (kind, log_len, log_cols) = steps
-        assert kind == "local" and all(p[0] == "pass" for p in passes)
+        if t <= 12:
+            assert steps == [("local", t)]
+            continue
         s = 0
-        for _, q, start in passes:
-            assert start == s and 1 <= q <= 5
+        for kind, q, start in steps:
+            assert kind == "pass" and start == s and 1 <= q <= 12
             s += q
-        assert s + log_len == t
-        assert (log_len, log_cols) == ((t, 0) if t <= 12 else (9, 4))
-    assert [k_fft.kernels_per_call((n,)) for n in (2, 4096, 8192, 1 << 24)] \
-        == [1, 1, 2, 4]
+        assert s == t
+        assert all(q == 12 for _, q, _ in steps[:-1])
+        assert len(steps) == -(-(t - 12) // 12) + 1
+    assert [k_fft.kernels_per_call((n,)) for n in (2, 4096, 8192, 1 << 24,
+                                                   1 << 25)] \
+        == [1, 1, 2, 2, 3]
 
 
 # ---------------------------------------------------------------------------
