@@ -13,10 +13,12 @@ Phases, each of which exits non-zero on failure:
 3. parity   - each kernel against its plain PyTorch version on the same
               inputs.  Paged: the paged path's shapes (bf16, Hq 16, Hkv 8,
               D 128, bs 16, B 8, M 64), NaN planted wherever neither may
-              read; the prefill also at qwen2.5-3b's group of 8 (Hkv 2,
-              128 query rows a kv head) and at block_size 64, each on the
-              tensor cores (mma) with a repeat bit-identical, and in fp32
-              (simt).  Flash: bf16 and fp32, g 2 and 8, causal, non-causal and
+              read; decode also at qwen2.5-3b's group of 8, g 16, a
+              synthetic g 72 and block sizes 48 and 128, one request, and
+              kv_len 0 (returns 0); the prefill also at qwen2.5-3b's group
+              of 8 (Hkv 2, 128 query rows a kv head) and at block sizes 64,
+              48 and 128; each on the tensor cores (mma, every call's route
+              checked) with a repeat bit-identical, and in fp32 (simt).  Flash: bf16 and fp32, g 2 and 8, causal, non-causal and
               window 64, Sq = Sk in {7, 128, 900}, Sq < Sk, and Sq > Sk
               causal (fully masked rows: the mean of V), and the served
               shapes (zamba2's g 1, D 64, S 960; g 2 and 8 at D 128, S 900;
@@ -30,7 +32,8 @@ Phases, each of which exits non-zero on failure:
 4. timing   - kernel, plain version, one PyTorch library call (none for
               SSD), and the least time the card could take (the bound), ms;
               flash also at zamba2's shape (Hq = Hkv = 32, D 64, S 960),
-              the paged prefill also at qwen2.5-3b's group of 8, and for
+              the paged prefill also at qwen2.5-3b's group of 8, paged
+              decode also at B = 1 (kv_len 1024), and for
               the attention kernels the kernel's and SDPA's device time
               per call from torch.profiler beside the event timer's (a
               launch shorter than the host's launch cost leaves the timer
@@ -53,11 +56,11 @@ Phases, each of which exits non-zero on failure:
 7. serve    - the paged path: ``ServeEngine(kv_layout="paged")`` serving 8
               greedy requests with the full qwen3-0.6b config on seeded
               random bf16 weights, with every kernel's launch count read
-              just after (every prefill launch on the tensor cores), the
-              pool drained, and a repeat run token-identical; after the
-              profile phase the same for a qwen2.5-3b copy at full width
-              cut to 4 layers (its group of 8: 128 query rows a kv head in
-              each prefill chunk);
+              just after (every decode and prefill launch on the tensor
+              cores), the pool drained, and a repeat run token-identical;
+              after the profile phase the same for a qwen2.5-3b copy at
+              full width cut to 4 layers (its group of 8: 128 query rows a
+              kv head in each prefill chunk), at block size 16 and at 48;
 8. dense    - the dense path, the engine's default: the same 8 requests
               served continuous, continuous with ``bucket="pow2"`` and
               lockstep, each twice (token-identical), 28 flash launches per
@@ -131,9 +134,25 @@ PREFILL_CHUNKS = [0, 1, 63]
 # of 8 (128 query rows a kv head; chunk 1's frontier inside a 64-key tile)
 # and qwen3 at block_size 64
 PREFILL_WIDE = (("qwen2.5-3b g=8", 16, 2, 16, 64, (0, 1, 63)),
-                ("bs=64", 16, 8, 64, 16, (0, 1, 15)))
-# the paged serve of a qwen2.5-3b copy at full width, cut in depth
+                ("bs=64", 16, 8, 64, 16, (0, 1, 15)),
+                ("bs=48", 16, 8, 48, 22, (0, 1, 21)),
+                ("bs=128", 16, 8, 128, 8, (0, 1, 7)))
+# decode parity beyond the qwen3 paged path's shape, NaN past kv_len, the
+# kv lengths of DECODE_KV_LENS (the idle row's past the table's M * bs):
+# (label, Hq, Hkv, D, bs, M); qwen2.5-3b's group of 8, g 16, a synthetic g
+# 72 (two 64-row tiles), and block sizes 48 and 128 (neither divides the
+# 64-key tile nor is divided by it evenly)
+DECODE_WIDE = (("qwen2.5-3b g=8", 16, 2, 128, 16, 64),
+               ("g=16", 16, 1, 128, 16, 64),
+               ("g=72", 72, 1, 64, 16, 64),
+               ("bs=48", 16, 8, 128, 48, 22),
+               ("bs=128", 16, 8, 128, 128, 8))
+DECODE_B1_LEN = 1024      # timing: one request, its whole table live
+# the paged serve of a qwen2.5-3b copy at full width, cut in depth, at
+# block size 16 and again at 48 (a block size that does not divide the
+# kernels' 64-key tiles)
 QWEN25_LAYERS = 4
+QWEN25_BLOCK_SIZES = (BS, 48)
 SERVE_PROMPT_LENS = [7, 16, 17, 64, 200, 333, 511, 900]
 SERVE_MAX_NEW = 32
 SAMPLED_TEMPERATURE = 0.7
@@ -310,35 +329,38 @@ def phase_build(build):
                 log(f"ptxas {source}: {line.strip()}")
 
 
-def _pools(torch, gen, dev, n_blocks, hkv=HKV, bs=BS):
-    shape = (n_blocks, hkv, bs, D)
+def _pools(torch, gen, dev, n_blocks, hkv=HKV, bs=BS, d=D):
+    shape = (n_blocks, hkv, bs, d)
     kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     return kp, vp
 
 
-def decode_case(torch, gen, dev):
-    """The decode parity batch: kv_len in {1, 15, 16, 17, 1023, 1024, 500}
-    on shuffled tables, plus an idle row (null table, kv_len > M * bs).
-    Returns (clean inputs, inputs with NaN wherever the kernel must not
-    read)."""
-    n_blocks = B * M + 1
-    kp, vp = _pools(torch, gen, dev, n_blocks)
+def decode_case(torch, gen, dev, hq=HQ, hkv=HKV, d=D, bs=BS, m=M,
+                lens=DECODE_KV_LENS, idle=IDLE_ROW):
+    """A bf16 decode batch, one row a kv length of ``lens``, on shuffled
+    tables; row ``idle`` (None: none) has a null table and a kv_len past
+    M * bs.  Returns (clean inputs, inputs with NaN at every pool position
+    at or past a row's kv_len)."""
+    b = len(lens)
+    n_blocks = b * m + 1
+    kp, vp = _pools(torch, gen, dev, n_blocks, hkv, bs, d)
     perm = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
-    bt = perm.reshape(B, M).to(torch.int32)
-    bt[IDLE_ROW] = 0
-    kv = torch.tensor(DECODE_KV_LENS, dtype=torch.int32, device=dev)
-    q = torch.randn((B, HQ, 1, D), generator=gen,
+    bt = perm.reshape(b, m).to(torch.int32)
+    if idle is not None:
+        bt[idle] = 0
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((b, hq, 1, d), generator=gen,
                     device=dev).to(torch.bfloat16)
     kpn, vpn = kp.clone(), vp.clone()
-    for b, n in enumerate(DECODE_KV_LENS):
-        if b == IDLE_ROW:
+    pos = torch.arange(m * bs, device=dev).reshape(m, bs)
+    for row, n in enumerate(lens):
+        if row == idle:
             continue            # reads its whole (null) table: all valid
-        for j in range(M):
-            lo = max(n - j * BS, 0)
-            if lo < BS:
-                kpn[bt[b, j], :, lo:] = float("nan")
-                vpn[bt[b, j], :, lo:] = float("nan")
+        cols, offs = (pos >= n).nonzero(as_tuple=True)
+        blks = bt[row, cols].long()
+        kpn[blks, :, offs] = float("nan")
+        vpn[blks, :, offs] = float("nan")
     return (q, kp, vp, bt, kv), (q, kpn, vpn, bt, kv)
 
 
@@ -368,22 +390,69 @@ def _compare(torch, name, got, want, tol=TOL):
     return err
 
 
+def _routed(pa, kernel, kind, fn, args):
+    """``fn(*args)``, required to launch once on route ``kind``."""
+    n0, r0 = pa.LAUNCHES[kernel], pa.ROUTE_COUNTS[kernel][kind]
+    out = fn(*args)
+    require(pa.LAUNCHES[kernel] == n0 + 1
+            and pa.ROUTE_COUNTS[kernel][kind] == r0 + 1,
+            f"{kernel}: a call off its {kind} route")
+    return out
+
+
 def phase_parity(torch, pa, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     errs = {}
-    _, dirty = decode_case(torch, gen, dev)
-    got = pa.paged_decode_attention_cuda(*dirty)
-    want = pa.paged_decode_attention_plain(*dirty)
-    torch.cuda.synchronize()
-    errs["paged_decode_attention"] = _compare(
-        torch, f"decode kv_len={DECODE_KV_LENS}", got, want)
+    worst = 0.0
+    cases = [("qwen3", HQ, HKV, D, BS, M), *DECODE_WIDE]
+    for label, hq, hkv, d, bs, m in cases:
+        lens = DECODE_KV_LENS[:-1] + [m * bs + 16]      # the idle row's
+        _, dirty = decode_case(torch, gen, dev, hq, hkv, d, bs, m, lens)
+        name = (f"decode {label} Hq={hq} Hkv={hkv} D={d} bs={bs} M={m} "
+                f"kv_len={lens}")
+        got = _routed(pa, "paged_decode_attention", "mma",
+                      pa.paged_decode_attention_cuda, dirty)
+        want = pa.paged_decode_attention_plain(*dirty)
+        torch.cuda.synchronize()
+        worst = max(worst, _compare(torch, f"{name} bf16 (mma)", got, want))
+        # split over the keys, combined in split order: same bits
+        again = pa.paged_decode_attention_cuda(*dirty)
+        require(torch.equal(again, got), f"decode {label}: a repeated call "
+                "changed the bits")
+        f32 = [x.float() if x.is_floating_point() else x for x in dirty]
+        got = _routed(pa, "paged_decode_attention", "simt",
+                      pa.paged_decode_attention_cuda, f32)
+        want = pa.paged_decode_attention_plain(*f32)
+        torch.cuda.synchronize()
+        _compare(torch, f"{name} fp32 (simt)", got, want, TOL_FP32)
+    # one request, and kv_len 0 (returns 0) beside lengths that end inside
+    # a tile, at bs 48
+    for lens, bs, m in (([DECODE_KV_LENS[4]], BS, M), ([0, 1, 47, 49, 700],
+                                                         48, 22)):
+        _, dirty = decode_case(torch, gen, dev, bs=bs, m=m, lens=lens,
+                               idle=None)
+        for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, TOL_FP32)):
+            args = [x.to(dtype) if x.is_floating_point() else x
+                    for x in dirty]
+            got = pa.paged_decode_attention_cuda(*args)
+            want = pa.paged_decode_attention_plain(*args)
+            torch.cuda.synchronize()
+            err = _compare(torch, f"decode B={len(lens)} bs={bs} kv_len="
+                           f"{lens} {str(dtype)[6:]}", got, want, tol)
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            if 0 in lens:
+                require(not got[lens.index(0)].any(), "decode: kv_len 0 "
+                        "must return 0")
+    errs["paged_decode_attention"] = worst
     worst = 0.0
     cases = [("qwen3", HQ, HKV, BS, M, PREFILL_CHUNKS), *PREFILL_WIDE]
     for label, hq, hkv, bs, m, chunks in cases:
         for chunk in chunks:
             _, dirty = prefill_case(torch, gen, dev, chunk, hq, hkv, bs, m)
-            got = pa.paged_prefill_attention_cuda(*dirty)
+            got = _routed(pa, "paged_prefill_attention", "mma",
+                          pa.paged_prefill_attention_cuda, dirty)
             want = pa.paged_prefill_attention_plain(*dirty)
             torch.cuda.synchronize()
             worst = max(worst, _compare(
@@ -397,7 +466,8 @@ def phase_parity(torch, pa, dev):
                 # the fp32 route (CUDA cores, 64-row tiles)
                 f32 = [x.float() if x.is_floating_point() else x
                        for x in dirty]
-                got = pa.paged_prefill_attention_cuda(*f32)
+                got = _routed(pa, "paged_prefill_attention", "simt",
+                              pa.paged_prefill_attention_cuda, f32)
                 want = pa.paged_prefill_attention_plain(*f32)
                 torch.cuda.synchronize()
                 _compare(torch, f"prefill {label} chunk={chunk} fp32 (simt)",
@@ -637,6 +707,15 @@ def phase_timing(torch, pa, fa, ss, kf, dev):
     dflops = 4 * HQ * D * kv_pos
     paged_row("paged_decode_attention", pa.paged_decode_attention_cuda,
               pa.paged_decode_attention_plain, dec, False, dbytes, dflops)
+    # one request with its whole table live (logged, not in the kernels
+    # line); 24 pool sets > 50 MB L2
+    n1 = DECODE_B1_LEN
+    dec = [decode_case(torch, gen, dev, lens=[n1], idle=None)[0]
+           for _ in range(24)]
+    paged_row("paged_decode_attention B=1", pa.paged_decode_attention_cuda,
+              pa.paged_decode_attention_plain, dec, False,
+              math.ceil(n1 / BS) * (BS * HKV * D * 2 * 2 + 4) + 4
+              + 2 * HQ * D * 2, 4 * HQ * D * n1)
 
     chunk = PREFILL_CHUNKS[-1]
     pre = [prefill_case(torch, gen, dev, chunk)[0] for _ in range(copies)]
@@ -736,6 +815,7 @@ def phase_timing(torch, pa, fa, ss, kf, dev):
             continue
         shape = {"paged_decode_attention": "B=8 kv_len="
                  + str(DECODE_KV_LENS),
+                 "paged_decode_attention B=1": f"B=1 kv_len={DECODE_B1_LEN}",
                  "paged_prefill_attention": f"B=1 Hq={HQ} Hkv={HKV} D={D} "
                                             f"Sq=16 chunk={chunk} bf16",
                  "paged_prefill_attention qwen2.5-3b":
@@ -847,27 +927,35 @@ def read_launches(kernel_modules):
 
 def read_routes(kernel_modules):
     """The launches by route of the modules that have routes, keyed
-    "<kernel>.<route>" (e.g. "flash_attention.mma"; a module names the
-    kernel its ROUTES count as ROUTED, else its first)."""
-    return {f"{getattr(mod, 'ROUTED', next(iter(mod.LAUNCHES)))}.{r}": n
-            for mod in kernel_modules
-            for r, n in getattr(mod, "ROUTES", {}).items()}
+    "<kernel>.<route>" (e.g. "flash_attention.mma"): a module with several
+    routed kernels maps each to its counts in ROUTE_COUNTS; else its ROUTES
+    count its one kernel."""
+    def counts(mod):
+        if hasattr(mod, "ROUTE_COUNTS"):
+            return mod.ROUTE_COUNTS
+        if hasattr(mod, "ROUTES"):
+            return {next(iter(mod.LAUNCHES)): mod.ROUTES}
+        return {}
+    return {f"{kernel}.{r}": n for mod in kernel_modules
+            for kernel, routes in counts(mod).items()
+            for r, n in routes.items()}
 
 
-def phase_serve(torch, cfg, build_model, serving, kmods, dev, name):
-    """The paged path: ``cfg`` served on seeded random bf16 weights, twice,
-    every kernel's launches counted in each run: one decode and one
-    prefill launch a layer a step or chunk, every prefill on the tensor
-    cores, no flash launch, the pool drained, the tokens repeated."""
+def phase_serve(torch, cfg, build_model, serving, kmods, dev, name, bs=BS):
+    """The paged path: ``cfg`` served on seeded random bf16 weights at
+    block size ``bs``, twice, every kernel's launches counted in each run:
+    one decode and one prefill launch a layer a step or chunk, every decode
+    and prefill on the tensor cores, no flash launch, the pool drained, the
+    tokens repeated."""
     model = build_model(cfg)
     params = model.init(0, device=dev)
     log(f"serve: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} vocab={cfg.vocab_size} "
-        f"params={model.n_params} bf16 on {name}")
+        f"params={model.n_params} block_size={bs} bf16 on {name}")
     prompts = serve_prompts(cfg.vocab_size)
-    n_chunks = sum(math.ceil(n / BS) for n in SERVE_PROMPT_LENS)
+    n_chunks = sum(math.ceil(n / bs) for n in SERVE_PROMPT_LENS)
     eng = serving.ServeEngine(model, params, kv_layout="paged", max_batch=8,
-                              cache_len=1024, block_size=BS)
+                              cache_len=1024, block_size=bs)
     runs = []
     for run in range(2):
         reqs = [serving.Request(p, SERVE_MAX_NEW, rid=i)
@@ -884,9 +972,9 @@ def phase_serve(torch, cfg, build_model, serving, kmods, dev, name):
         s = eng.last_stats
         toks = [r.tokens for r in results]
         for r in results:
-            log(f"serve {cfg.name} run {run} rid={r.rid} prompt_len="
+            log(f"serve {cfg.name} bs={bs} run {run} rid={r.rid} prompt_len="
                 f"{SERVE_PROMPT_LENS[r.rid]} tokens={r.tokens}")
-        log(f"serve {cfg.name} run {run} on {name}: wall_s={wall:.3f} "
+        log(f"serve {cfg.name} bs={bs} run {run} on {name}: wall_s={wall:.3f} "
             f"tokens_per_s={s.tokens_per_s:.1f} "
             f"ttft_ms_mean={s.ttft_ms_mean:.1f} "
             f"tpot_ms_mean={s.tpot_ms_mean:.2f} "
@@ -908,16 +996,20 @@ def phase_serve(torch, cfg, build_model, serving, kmods, dev, name):
                 == launches["paged_prefill_attention"],
                 f"{cfg.name}: a bf16 prefill launch off the tensor cores "
                 f"({routes})")
+        require(routes["paged_decode_attention.mma"]
+                == launches["paged_decode_attention"],
+                f"{cfg.name}: a bf16 decode launch off the tensor cores "
+                f"({routes})")
         require(launches["flash_attention"] == 0,
                 f"the paged path launched the flash kernel: {launches}")
         require(eng.allocator.n_live == 0 and eng.allocator.n_reserved == 0,
                 "the block pool did not drain")
         eng.allocator.check_integrity()
-        log(f"serve {cfg.name} run {run}: pool drained (n_live=0, "
+        log(f"serve {cfg.name} bs={bs} run {run}: pool drained (n_live=0, "
             "integrity ok)")
         runs.append((toks, launches))
     require(runs[0][0] == runs[1][0], "a repeat run changed the tokens")
-    log(f"serve {cfg.name}: repeat run token-identical")
+    log(f"serve {cfg.name} bs={bs}: repeat run token-identical")
     return runs[0][1], model, params, runs[0][0]
 
 
@@ -1001,6 +1093,11 @@ def phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods, dev,
                 == launches["paged_prefill_attention"]
                 and launches["paged_prefill_attention.mma"] == 0,
                 f"fp32 {layout}: the paged prefill off its fp32 route "
+                f"({launches})")
+        require(launches["paged_decode_attention.simt"]
+                == launches["paged_decode_attention"]
+                and launches["paged_decode_attention.mma"] == 0,
+                f"fp32 {layout}: paged decode off its fp32 route "
                 f"({launches})")
     diffs = first_diffs(toks["paged"], toks["dense"])
     log(f"fp32 paged vs dense: first differing token per rid {diffs}")
@@ -1722,7 +1819,7 @@ def phase_fft_launches(torch, kf, dev):
 # name fragments of the port's own kernels, listed by the profile phases
 # even outside the top eight
 PORT_KERNELS = ("flash_mma_kernel", "flash_attention_kernel",
-                "paged_attention_kernel", "paged_prefill_mma_kernel",
+                "paged_attention_kernel", "paged_mma_kernel",
                 "ssd_scan_kernel")
 
 
@@ -1884,8 +1981,10 @@ def main() -> int:
         # of 8 puts 128 query rows a kv head in every paged prefill
         cfg25 = dataclasses.replace(cfgs.get_config("qwen2.5-3b"),
                                     n_layers=QWEN25_LAYERS)
-        phase_serve(torch, cfg25, build_model, serving, kmods, dev, name)
-        torch.cuda.empty_cache()
+        for bs in QWEN25_BLOCK_SIZES:
+            phase_serve(torch, cfg25, build_model, serving, kmods, dev, name,
+                        bs)
+            torch.cuda.empty_cache()
         hybrid_launches, hmodel, hparams = phase_hybrid(
             torch, cfgs, build_model, serving, kmods, dev, name)
         launches["ssd_scan"] = hybrid_launches["ssd_scan"]

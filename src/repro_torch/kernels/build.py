@@ -67,13 +67,11 @@ SIGNATURES = {
     "expk.cu": {"repro_exp": (_I, _P, _P, _L, _P)},
     "dwt.cu": {"repro_dwt_haar": (_I, _P, _L, _I, _P, _P, _P)},
     "paged_attention.cu": {
-        "repro_paged_decode_attention":
-            (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-        "repro_paged_prefill_attention":
-            (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-        "repro_paged_prefill_attention_mma":
+        "repro_paged_attention_simt":
+            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        "repro_paged_attention_mma":
             (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-             _I, _F, _P),
+             _I, _I, _F, _P),
     },
 }
 

@@ -13,12 +13,20 @@
 // CPU path is full fp32), 0.139 ms at the bf16 tensor-core peak (989
 // TFLOP/s), against 0.03-0.06 ms to move its 100-201 MB once.  Three
 // routes (matmul.route picks by dtype and shape):
-//   * sgemm, fp32: CUDA-core FMAs, a 128 x 128 output tile per 256-thread
-//     block, K steps of 8 staged in shared memory (A transposed), each
-//     thread holding an 8 x 8 register tile (two 4-row and two 4-column
-//     halves 64 apart, so the float4 reads of shared memory are
-//     conflict-free): 64 FMAs per 4 shared-memory vector loads.  It runs
-//     at 1.8x its bound, held by the FMA issue rate around the loads;
+//   * sgemm, fp32: CUDA-core FMAs, a 128 x 256 output tile per 256-thread
+//     block (128 x 128, two blocks an SM, where the wide tiles would not
+//     fill the card), warp-tiled, each thread holding a 16 x 8 register
+//     tile (8 x 8) read from shared memory by conflict-free float4 loads:
+//     128 FMAs per 6 vector loads.  Pipelined: K steps of 32 through a
+//     ring of two shared stages filled by cp.async (A transposed by 4-byte
+//     copies, B by 16-byte ones, zeros past the edges), the next step's
+//     copies in flight while this step's FMAs run, one barrier a step, and
+//     each kk's fragments read while the previous kk's FMAs run; blocks
+//     inside M and N copy their full K steps from fixed bases with no bound
+//     checks, which keeps address arithmetic out of the FMA stream.  The
+//     first version (one stage, the loads and two barriers between every
+//     K step of 8's FMAs) ran at 1.8x its bound; this one's times are in
+//     PERF.md section 6.  It is held by the FMA issue rate;
 //   * wgmma, bf16 where a TMA tensor map can describe both operands (K % 8
 //     == 0, N % 8 == 0, 16-byte aligned bases): only wgmma reaches the
 //     tensor cores' full rate.  A persistent block per SM walks 128 x 256
@@ -69,94 +77,224 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // fp32 on CUDA cores.
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 128, kBN = 128, kBK = 8;
-constexpr int kThreads = 256;      // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kBM = 128, kBN = 128;   // the wmma route's tile (and sgemm's rows)
+constexpr int kThreads = 256;      // 16 x 16 threads
 constexpr int kPad = 4;            // keeps shared rows 16-byte aligned
 
-// Row (or column) of the tile held by register i of thread t: two groups of
-// four, 64 apart.
-__device__ __forceinline__ int micro(int t, int i) {
-  return (i < 4 ? 0 : 64) + t * 4 + (i & 3);
+namespace sg {
+
+constexpr int kBK = 32;           // K step
+constexpr int kStages = 2;        // shared stages in the ring
+constexpr int kWM = 2, kWN = 4;   // warps along M and N: 256 threads
+
+// Shared memory of one sgemm block: kStages stages of A^T (kBK x 128) and
+// B (kBK x BN), rows padded by kPad floats.
+template <int BN> constexpr size_t smem_bytes() {
+  return static_cast<size_t>(kStages) * kBK * ((kBM + kPad) + (BN + kPad)) * sizeof(float);
 }
 
-template <typename TO>
-__global__ void __launch_bounds__(kThreads)
-sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-             TO* __restrict__ c, int m, int n, int k, bool vec_a, bool vec_b) {
-  __shared__ __align__(16) float as[kBK][kBM + kPad];   // as[kk][row]
-  __shared__ __align__(16) float bs[kBK][kBN + kPad];   // bs[kk][col]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  // loaders: A row tid / 2, k columns (tid % 2) * 4 .. +3; B k row tid / 32,
-  // columns (tid % 32) * 4 .. +3
-  const int ar = tid >> 1, ac = (tid & 1) * 4;
-  const int br = tid >> 5, bc = (tid & 31) * 4;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    {
-      const int gm = m0 + ar, gk = k0 + ac;
-      float v[4];
-      if (vec_a && gm < m && gk + 3 < k) {
-        const float4 t = *reinterpret_cast<const float4*>(
-            a + static_cast<size_t>(gm) * k + gk);
-        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+// 4 or 16 bytes global -> shared, asynchronously; valid == false writes
+// zeros and reads nothing
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// Grid: one block per 128 x BN output tile, kWM x kWN warps, each warp a
+// (128 / kWM) x (BN / kWN) tile of it, its lanes LM x LN (LN = 32 / LM);
+// lane (lm, ln) holds TM rows (groups of four, 4 * LM apart: lm * 4 +
+// 4 * LM * {0, 1, ..}) by TN columns (groups of four, 4 * LN apart), so a
+// warp's float4 fragment read touches LM (A) or LN (B) distinct 16-byte
+// pieces: one shared-memory wavefront each, no bank conflict.
+// A ring of kStages shared stages filled by cp.async, kStages - 1 K steps
+// ahead of the FMAs: A transposed by 4-byte copies (as[kk][row], so a
+// thread's rows are one float4), B row by row in 16-byte copies (4-byte
+// where a row of B is not 16-byte aligned); copies past M, N or K write
+// zeros.  One
+// barrier a step: the stage refilled in step t was last read in step t - 1.
+// Inside a step each kk's fragments are read from shared memory while
+// kk - 1's FMAs run.  Every output sums its K products in order, one fmaf
+// each, whatever the tile.
+template <typename TO, int BN, int LM, int MINB>
+__global__ void __launch_bounds__(kWM * kWN * 32, MINB)
+sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
+             TO* __restrict__ c, int m, int n, int k, bool vec_b) {
+  constexpr int kT = kWM * kWN * 32;           // threads
+  constexpr int LN = 32 / LM;
+  constexpr int kTM = kBM / kWM / LM;          // rows a thread
+  constexpr int kTN = BN / kWN / LN;           // columns a thread
+  constexpr int kAEl = kBM * kBK / kT;         // A elements a thread a step
+  constexpr int kBVec = kBK * BN / 4 / kT;     // B 16-byte pieces
+  constexpr int kBRowStep = kT / (BN / 4);     // B k rows a pass
+  constexpr int kALd = kBM + kPad, kBLd = BN + kPad;
+  constexpr int kStage = kBK * (kALd + kBLd);  // floats of a stage
+  static_assert(kAEl >= 1 && kBVec >= 1 && kTM % 4 == 0 && kTN % 4 == 0 &&
+                kT % kBK == 0, "tile shape");
+  extern __shared__ __align__(16) float smem[];   // [kStages][A^T | B]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // this thread's first row and column in the block's tile
+  const int row0 = (warp / kWN) * (kBM / kWM) + (lane / LN) * 4;
+  const int col0 = (warp % kWN) * (BN / kWN) + (lane % LN) * 4;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  // copiers: A element (row tid / kBK + i * (kT / kBK), k tid % kBK), so a
+  // warp reads whole 4-byte columns of consecutive rows' K runs; B k rows
+  // tid / (BN / 4) + i * kBRowStep, columns (tid % (BN / 4)) * 4 .. +3
+  const int ar = tid / kBK, ak = tid % kBK;
+  const int br = tid / (BN / 4), bc = (tid % (BN / 4)) * 4;
+  const uint32_t smem0 = smem_u32(smem);
+  // A block inside M and N whose B rows take 16-byte copies copies every
+  // full K step from fixed bases at fixed strides, with no bound checks (the
+  // edge blocks and the last, partial step take the checked path below)
+  const bool interior = vec_b && m0 + kBM <= m && n0 + BN <= n;
+  const size_t a_stride = static_cast<size_t>(kT / kBK) * k;     // A pass
+  const size_t b_stride = static_cast<size_t>(kBRowStep) * n;    // B pass
+  const float* a_base = interior ? a + static_cast<size_t>(m0 + ar) * k + ak : a;
+  const float* b_base = interior ? b + static_cast<size_t>(br) * n + n0 + bc : b;
+  const uint32_t a_dst = smem0 + (ak * kALd + ar) * 4;
+  const uint32_t b_dst = smem0 + (kBK * kALd + br * kBLd + bc) * 4;
+
+  auto issue = [&](int t, int st) {
+    const int k0 = t * kBK;
+    if (interior && k0 + kBK <= k) {
+      const float* pa = a_base + k0;
+      const float* pb = b_base + static_cast<size_t>(k0) * n;
+      const uint32_t so = st * kStage * 4;
+#pragma unroll
+      for (int i = 0; i < kAEl; ++i)
+        cp_async4(a_dst + so + i * (kT / kBK) * 4, pa + i * a_stride, true);
+#pragma unroll
+      for (int i = 0; i < kBVec; ++i)
+        cp_async16(b_dst + so + i * kBRowStep * kBLd * 4, pb + i * b_stride, true);
+      return;
+    }
+    const uint32_t sa = smem0 + st * kStage * 4, sb = sa + kBK * kALd * 4;
+    const int gk = k0 + ak;
+#pragma unroll
+    for (int i = 0; i < kAEl; ++i) {
+      const int r = ar + i * (kT / kBK), gm = m0 + r;
+      const bool ok = gm < m && gk < k;
+      cp_async4(sa + (ak * kALd + r) * 4, ok ? a + static_cast<size_t>(gm) * k + gk : a, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < kBVec; ++i) {
+      const int rk = br + i * kBRowStep, gkb = k0 + rk, gn = n0 + bc;
+      const uint32_t dst = sb + (rk * kBLd + bc) * 4;
+      const float* src = b + static_cast<size_t>(gkb) * n + gn;
+      if (vec_b) {
+        const bool ok = gkb < k && gn < n;      // n % 4 == 0: all four or none
+        cp_async16(dst, ok ? src : b, ok);
       } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = (gm < m && gk + j < k) ? a[static_cast<size_t>(gm) * k + gk + j]
-                                        : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) as[ac + j][ar] = v[j];
-    }
-    {
-      const int gk = k0 + br, gn = n0 + bc;
-      if (vec_b && gk < k && gn + 3 < n) {
-        *reinterpret_cast<float4*>(&bs[br][bc]) = *reinterpret_cast<const float4*>(
-            b + static_cast<size_t>(gk) * n + gn);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          bs[br][bc + j] = (gk < k && gn + j < n)
-                               ? b[static_cast<size_t>(gk) * n + gn + j] : 0.f;
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = gkb < k && gn + j < n;
+          cp_async4(dst + 4 * j, ok ? src + j : b, ok);
+        }
       }
     }
-    __syncthreads();
+  };
+  // the fragments of step kk of a stage: rows row0 + 4 * LM * {0, 1, ..}
+  // of A, columns col0 + 4 * LN * {0, 1, ..} of B
+  auto frag = [&](const float* st, int kk, float (&ra)[kTM], float (&rb)[kTN]) {
+    const float* at = st + kk * kALd + row0;
+    const float* bt = st + kBK * kALd + kk * kBLd + col0;
+#pragma unroll
+    for (int h = 0; h < kTM / 4; ++h) {
+      const float4 v = *reinterpret_cast<const float4*>(at + 4 * LM * h);
+      ra[4 * h] = v.x; ra[4 * h + 1] = v.y; ra[4 * h + 2] = v.z; ra[4 * h + 3] = v.w;
+    }
+#pragma unroll
+    for (int h = 0; h < kTN / 4; ++h) {
+      const float4 v = *reinterpret_cast<const float4*>(bt + 4 * LN * h);
+      rb[4 * h] = v.x; rb[4 * h + 1] = v.y; rb[4 * h + 2] = v.z; rb[4 * h + 3] = v.w;
+    }
+  };
+
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+
+  const int steps = (k + kBK - 1) / kBK;
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {   // the ring's first steps
+    if (t < steps) issue(t, t);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  int st = 0;                                  // the stage of step t
+  for (int t = 0; t < steps; ++t) {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 2) : "memory");
+    __syncthreads();           // step t's stage is in; step t - 1's is free
+    if (t + kStages - 1 < steps) issue(t + kStages - 1, st == 0 ? kStages - 1 : st - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const float* cur = smem + st * kStage;
+    float ra[2][kTM], rb[2][kTN];
+    frag(cur, 0, ra[0], rb[0]);
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
-      float ra[8], rb[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
-      ra[0] = a0.x; ra[1] = a0.y; ra[2] = a0.z; ra[3] = a0.w;
-      ra[4] = a1.x; ra[5] = a1.y; ra[6] = a1.z; ra[7] = a1.w;
-      rb[0] = b0.x; rb[1] = b0.y; rb[2] = b0.z; rb[3] = b0.w;
-      rb[4] = b1.x; rb[5] = b1.y; rb[6] = b1.z; rb[7] = b1.w;
+      if (kk + 1 < kBK) frag(cur, kk + 1, ra[(kk + 1) & 1], rb[(kk + 1) & 1]);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < kTM; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
+        for (int j = 0; j < kTN; ++j)
+          acc[i][j] = fmaf(ra[kk & 1][i], rb[kk & 1][j], acc[i][j]);
     }
-    __syncthreads();
+    st = st == kStages - 1 ? 0 : st + 1;
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + micro(ty, i);
+  for (int i = 0; i < kTM; ++i) {
+    const int gm = m0 + row0 + (i / 4) * 4 * LM + (i & 3);
     if (gm >= m) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + micro(tx, j);
+    for (int j = 0; j < kTN; ++j) {
+      const int gn = n0 + col0 + (j / 4) * 4 * LN + (j & 3);
       if (gn < n) c[static_cast<size_t>(gm) * n + gn] = from_f32<TO>(acc[i][j]);
     }
   }
 }
+
+template <typename TO, int BN, int LM, int MINB>
+cudaError_t launch_tile(const float* a, const float* b, TO* c, int m, int n, int k,
+                        bool vec_b, cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<BN>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      sgemm_kernel<TO, BN, LM, MINB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n + BN - 1) / BN, (m + kBM - 1) / kBM);
+  sgemm_kernel<TO, BN, LM, MINB><<<grid, kWM * kWN * 32, smem, s>>>(a, b, c, m, n, k, vec_b);
+  return cudaGetLastError();
+}
+
+// 128 x 256 tiles (8 warps of 64 x 64, 16 x 8 outputs a thread, one block
+// an SM) where they fill the card and B's rows take 16-byte copies; else
+// 128 x 128 tiles (8 warps of 64 x 32, 8 x 8 outputs a thread, two blocks
+// an SM), which spread a small product over twice the blocks.  K steps of
+// 32, two stages (at 4096^3 on an H100, steps of 8 or 16 ran slower, a
+// third or fourth stage no faster).  The sums are the same fmaf chains in
+// both tilings.
+template <typename TO>
+cudaError_t launch(const float* a, const float* b, TO* c, int m, int n, int k,
+                   bool vec_b, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long wide = static_cast<long long>((m + kBM - 1) / kBM) * ((n + 255) / 256);
+  if (vec_b && wide >= sms)
+    return launch_tile<TO, 256, 4, 1>(a, b, c, m, n, k, vec_b, s);
+  return launch_tile<TO, 128, 8, 2>(a, b, c, m, n, k, vec_b, s);
+}
+
+}  // namespace sg
 
 // ---------------------------------------------------------------------------
 // bf16 on tensor cores (wmma, fp32 accumulators).
@@ -582,9 +720,8 @@ cudaError_t launch(const void* a, const void* b, void* c, int m, int n, int k,
   const bool vec_a = k % vec == 0 && aligned16(a);
   const bool vec_b = n % vec == 0 && aligned16(b);
   if constexpr (sizeof(TI) == 4) {
-    sgemm_kernel<TO><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<TO*>(c), m, n, k, vec_a, vec_b);
+    return sg::launch<TO>(static_cast<const float*>(a), static_cast<const float*>(b),
+                          static_cast<TO*>(c), m, n, k, vec_b, s);
   } else {
     hgemm_kernel<TO><<<grid, kThreads, 0, s>>>(
         static_cast<const bf16*>(a), static_cast<const bf16*>(b),

@@ -2,51 +2,38 @@
 //
 // Replaces the two TPU kernels of src/repro/kernels/paged_attention.py:
 //   * paged_decode_attention_pallas  (_paged_kernel, lines 59-146): one new
-//     token per request against every block below kv_len;
+//     token per request against every position below kv_len;
 //   * paged_prefill_attention_pallas (_paged_prefill_kernel, lines 176-270):
 //     one block_size prompt chunk at absolute positions q_start + [0, Sq),
 //     causal (kpos <= qpos) over every block up to the chunk's frontier.
 // Row r of the g * Sq query rows of a (request, kv head) may attend the
 // positions kpos < limit(r), where
-//   decode:  limit(r) = kv_len[b]
+//   decode:  limit(r) = kv_len[b]                  (Sq = 1)
 //   prefill: limit(r) = q_start[b] + (r % Sq) + 1
+// so decode is the prefill's rule with q_start = kv_len - 1 and Sq = 1.
+// Position kpos lives in block table[b][kpos / bs] at row kpos % bs, for any
+// block size bs: the kernels walk 64-key tiles and fetch each key's 16-byte
+// pieces from its own block.
 //
 // What bounds it on the H100: bytes.  Per (request, kv head) a kernel reads
-// each live K/V block once (bs * D * 2 bytes each, bf16) and does 4 * g * Sq
+// each live K/V position once (D * 2 bytes each, bf16) and does 4 * g * Sq
 // flops per K/V element, far below the ~295 flops per byte the tensor cores
-// need before they, not HBM, are the limit.  Two kernels:
+// need before they, not HBM, are the limit.  Two kernels, picked by dtype
+// (paged_attention.route):
 //
-// paged_attention_kernel, CUDA cores: decode in every dtype, and the fp32
-// prefill (route simt; the fp32 paged == dense identity on the card rests on
-// its sums):
-//   * one thread block per (b, kv head) serves all g = Hq / Hkv q-heads that
-//     share the kv head (the grouping at paged_attention.py:113), so a K/V
-//     block is read from HBM once per kv head, not once per q-head; the
-//     prefill takes its g * Sq rows in tiles of 64, a block each (grid y);
-//   * the walk stops at the last live block (kv_len for decode, the causal
-//     frontier for prefill) and never passes the table's width M: blocks
-//     past the frontier are never read;
-//   * the walk goes by tiles of 64 keys (64 / bs table entries), and the
-//     next tile's K and V are copied to shared memory (cp.async, 16 bytes a
-//     thread) while the current tile is computed;
-//   * scores: one thread per (key, row group), 8 head-dim elements per
-//     16-byte shared load of K, q broadcast from shared memory; PV: one
-//     thread per head-dim column holds the accumulators of every row in
-//     registers; an fp32 online softmax runs between the two (a warp per
-//     row); the output is written once, in q's dtype.
-// Not done yet (PERF.md): split-KV and tensor cores for decode (at B = 8 it
-// fills 64 of 132 SMs; 1.9x SDPA's device time on gathered K/V).
-//
-// paged_prefill_mma_kernel, tensor cores: the bf16 prefill (route mma):
+// paged_mma_kernel, tensor cores: bf16 decode and prefill (route mma):
 //   * a block takes 64 of the g * Sq rows (four warps of 16, q in registers
 //     as mma.sync m16n8k16 A fragments), any g * Sq (grid x: b, kv head,
-//     row tile); K / V tiles of 64 keys come through shared memory by
-//     cp.async, the next tile's copy overlapping this one's math;
-//   * split-KV: grid y splits the chunk's key tiles, a contiguous share each
-//     (none past the frontier: an empty partial), so a B = 1 chunk fills the
-//     card; the split count follows the table's width and the SM count
-//     (paged_attention.prefill_plan), never q_start (no host sync) or B (a
-//     row's output does not depend on its batch);
+//     row tile); a warp with no real row does no math (decode's g = 2 keeps
+//     one warp busy: the kernel is bound by bytes, and the other three
+//     copy); K / V tiles of 64 keys come through shared memory by cp.async,
+//     the next tile's copy overlapping this one's math;
+//   * split-KV: grid y splits the row's key tiles, a contiguous share each
+//     (none past kv_len or the frontier: an empty partial), so a few
+//     requests fill the card; the split count follows the table's width and
+//     the SM count (paged_attention.decode_plan / prefill_plan), never
+//     kv_len or q_start (no host sync) or B (a row's output does not
+//     depend on its batch);
 //   * each split writes an fp32 partial (o, m, l) of its rows; the last
 //     block of the row tile to arrive (an atomic counter, reset by that
 //     block) combines them in split order, in the same launch, so reruns
@@ -54,9 +41,26 @@
 //   * s = q k^T and o += p v on the tensor cores, p rounded to bf16, the
 //     online softmax on the fragments in fp32 (log2 units, ex2.approx);
 //     masked keys get -inf, so a row with no key seen yet keeps p = 0.
+//
+// paged_attention_kernel, CUDA cores: fp32 decode and prefill (route simt;
+// the fp32 paged == dense identity on the card rests on its sums, so it
+// keeps one block per row tile, every key in order, no split):
+//   * one thread block per (b, kv head, 64-row tile) serves the g = Hq / Hkv
+//     q-heads that share the kv head (the grouping at paged_attention.py:113),
+//     so a K/V block is read from HBM once per kv head, not once per q-head;
+//   * the walk stops at the last live key (kv_len for decode, the causal
+//     frontier for prefill) and never passes the table's width M;
+//   * the walk goes by tiles of 64 keys, and the next tile's K and V are
+//     copied to shared memory (cp.async, 16 bytes a thread) while the
+//     current tile is computed;
+//   * scores: one thread per (key, row group), 8 head-dim elements per
+//     16-byte shared load of K, q broadcast from shared memory; PV: one
+//     thread per head-dim column holds the accumulators of every row in
+//     registers; an fp32 online softmax runs between the two (a warp per
+//     row); the output is written once.
 // Semantics kept from the reference:
-//   * a row with nothing to attend to returns 0 (l == 0 -> divide by 1,
-//     paged_attention.py:97-99);
+//   * a row with nothing to attend to (kv_len == 0) returns 0 (l == 0 ->
+//     divide by 1, paged_attention.py:97-99);
 //   * a masked position gets p = 0, and positions at or past the last valid
 //     key of the tile (kv_len, or the chunk's frontier) are never read, for
 //     the scores or for V: they may hold stale bytes, and 0 * NaN is NaN
@@ -66,7 +70,8 @@
 //     later one is the chunk's own freshly written K/V, so its p = 0 times a
 //     finite V adds exactly 0;
 //   * block-table columns j >= M are never read, whatever kv_len says (an
-//     idle slot's position keeps advancing past M * bs).
+//     idle slot's position keeps advancing past M * bs);
+//   * the output is in q's dtype.
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -82,38 +87,16 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kTileKeys = 64;                      // keys per tile
 constexpr int kRowGroups = kThreads / kTileKeys;   // score rows split 2 ways
+constexpr int kRows = kRowGroups * 32;             // rows a block (a row tile)
 constexpr int kMaxHeadDim = kThreads;              // one PV column a thread
 constexpr float kNegInf = -1e30f;
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// eight consecutive elements from 16-byte-aligned shared memory, as floats
+// eight consecutive floats from 16-byte-aligned shared memory
 __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -128,46 +111,42 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // K/V rows in shared memory are padded by 16 bytes, so the 16-byte loads
 // of a warp's consecutive keys fall in distinct banks.
-template <typename T> __host__ __device__ constexpr int row_stride(int d) {
-  return d + 16 / static_cast<int>(sizeof(T));
-}
+__host__ __device__ constexpr int row_stride(int d) { return d + 4; }
 
-template <typename T>
 __host__ __device__ size_t smem_bytes(int rows, int d) {
-  return 2 * 2 * static_cast<size_t>(kTileKeys) * row_stride<T>(d) * sizeof(T) +
+  return 2 * 2 * static_cast<size_t>(kTileKeys) * row_stride(d) * sizeof(float) +
          (static_cast<size_t>(rows) * d + static_cast<size_t>(rows) * kTileKeys +
           3 * static_cast<size_t>(rows)) * sizeof(float);
 }
 
-// Grid: one block per (b, kv head), blockIdx.x = b * hkv + h, and with
-// kRowTiles one per 64-row tile of its g * sq rows, blockIdx.y (the fp32
-// prefill; decode, kRowTiles = false, serves all rows in one block).
+// Grid: one block per (b, kv head, 64-row tile of its g * sq rows),
+// blockIdx.x = b * hkv + h, blockIdx.y = the row tile.
 // q / out: (B, hkv * g, sq, d) contiguous, so the g * sq rows of (b, h) are
 // one contiguous (rows, d) tile.  Pools: (n_blocks, hkv, bs, d) contiguous.
 // RPT: score rows per thread; a block's rows <= kRowGroups * RPT.
-template <typename T, int RPT, bool kRowTiles>
+template <int RPT>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
+paged_attention_kernel(const float* __restrict__ q, const float* __restrict__ k_pool,
+                       const float* __restrict__ v_pool,
                        const int32_t* __restrict__ block_table,
-                       const int32_t* __restrict__ lens, T* __restrict__ out,
+                       const int32_t* __restrict__ lens, float* __restrict__ out,
                        int hkv, int g, int sq, int d, int bs, int max_blocks,
                        float scale, int causal) {
   constexpr int kRowsMax = kRowGroups * RPT;
   const int b = blockIdx.x / hkv;
   const int h = blockIdx.x % hkv;
   const int rows_all = g * sq;
-  const int r0 = kRowTiles ? blockIdx.y * kRowGroups * 32 : 0;
-  const int rows = kRowTiles ? min(kRowGroups * 32, rows_all - r0) : rows_all;
+  const int r0 = blockIdx.y * kRows;
+  const int rows = min(kRows, rows_all - r0);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int ld = row_stride<T>(d);
+  const int ld = row_stride(d);
   const int stage_elems = 2 * kTileKeys * ld;       // K then V of one tile
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* kv_s = reinterpret_cast<T*>(smem_raw);               // [2][K|V][64][ld]
-  float* q_s = reinterpret_cast<float*>(kv_s + 2 * stage_elems);  // (rows, d)
+  float* kv_s = reinterpret_cast<float*>(smem_raw);       // [2][K|V][64][ld]
+  float* q_s = kv_s + 2 * stage_elems;                    // (rows, d)
   float* p_s = q_s + rows * d;                            // (rows, 64)
   float* m_s = p_s + rows * kTileKeys;                    // (rows,)
   float* l_s = m_s + rows;                                // (rows,)
@@ -175,7 +154,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   const int64_t q_off = (static_cast<int64_t>(b) * hkv + h) * rows_all * d +
                         static_cast<int64_t>(r0) * d;
-  for (int i = tid; i < rows * d; i += kThreads) q_s[i] = to_f32(q[q_off + i]) * scale;
+  for (int i = tid; i < rows * d; i += kThreads) q_s[i] = q[q_off + i] * scale;
   for (int r = tid; r < rows; r += kThreads) {
     m_s[r] = kNegInf;
     l_s[r] = 0.f;
@@ -183,29 +162,28 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   const int base = lens[b];
   const int reach = causal ? base + sq : base;  // the largest row limit
-  int n_blk = reach > 0 ? (reach + bs - 1) / bs : 0;
-  if (n_blk > max_blocks) n_blk = max_blocks;
-  const int kv_end = max(0, min(reach, n_blk * bs));  // keys read: [0, kv_end)
-  const int blocks_per_tile = kTileKeys / bs;
-  const int n_tiles = (n_blk + blocks_per_tile - 1) / blocks_per_tile;
+  // keys read: [0, kv_end), never past the table's M blocks
+  const int kv_end = max(0, min(reach, max_blocks * bs));
+  const int n_tiles = (kv_end + kTileKeys - 1) / kTileKeys;
   const int32_t* bt_row = block_table + static_cast<int64_t>(b) * max_blocks;
-  const int vec_per_row = d * static_cast<int>(sizeof(T)) / 16;
-  const int vec_per_block = bs * vec_per_row;
+  const int vec_per_row = d / 4;                // 16-byte pieces of a key
 
-  // copy the K/V blocks of one tile into a shared-memory stage, 16 bytes a
-  // copy; entries past n_blk are not copied (and never read)
+  // copy the keys of one tile below kv_end into a shared-memory stage, 16
+  // bytes a copy, each key from its own block (any bs); keys at or past
+  // kv_end are not copied (and never read)
   auto issue = [&](int tile, int stage) {
-    T* k_dst = kv_s + stage * stage_elems;
-    T* v_dst = k_dst + kTileKeys * ld;
-    for (int c = tid; c < blocks_per_tile * vec_per_block; c += kThreads) {
-      const int kb = c / vec_per_block;
-      const int j = tile * blocks_per_tile + kb;
-      if (j >= n_blk) break;
-      const int rem = c - kb * vec_per_block;
-      const int key = rem / vec_per_row;
-      const int col = (rem - key * vec_per_row) * (16 / static_cast<int>(sizeof(T)));
-      const int64_t src = ((static_cast<int64_t>(bt_row[j]) * hkv + h) * bs + key) * d + col;
-      const int dst = (kb * bs + key) * ld + col;
+    float* k_dst = kv_s + stage * stage_elems;
+    float* v_dst = k_dst + kTileKeys * ld;
+    const int k0 = tile * kTileKeys;
+    const int n_keys = min(kTileKeys, kv_end - k0);
+    for (int c = tid; c < n_keys * vec_per_row; c += kThreads) {
+      const int key = c / vec_per_row;
+      const int col = (c - key * vec_per_row) * 4;
+      const int kpos = k0 + key;
+      const int j = kpos / bs;
+      const int64_t src =
+          ((static_cast<int64_t>(bt_row[j]) * hkv + h) * bs + (kpos - j * bs)) * d + col;
+      const int dst = key * ld + col;
       __pipeline_memcpy_async(k_dst + dst, k_pool + src, 16);
       __pipeline_memcpy_async(v_dst + dst, v_pool + src, 16);
     }
@@ -228,8 +206,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       __pipeline_wait_prior(0);
     }
     __syncthreads();
-    const T* k_t = kv_s + stage * stage_elems;
-    const T* v_t = k_t + kTileKeys * ld;
+    const float* k_t = kv_s + stage * stage_elems;
+    const float* v_t = k_t + kTileKeys * ld;
     const int k0 = tile * kTileKeys;
 
     // scores: thread (key t, row group rg) for rows rg, rg + 2, ...
@@ -296,10 +274,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         if (r < rows) o[r] *= alpha_s[r];
       int t = 0;
       for (; t + 4 <= nv_max; t += 4) {
-        const float v0 = to_f32(v_t[t * ld + tid]);
-        const float v1 = to_f32(v_t[(t + 1) * ld + tid]);
-        const float v2 = to_f32(v_t[(t + 2) * ld + tid]);
-        const float v3 = to_f32(v_t[(t + 3) * ld + tid]);
+        const float v0 = v_t[t * ld + tid];
+        const float v1 = v_t[(t + 1) * ld + tid];
+        const float v2 = v_t[(t + 2) * ld + tid];
+        const float v3 = v_t[(t + 3) * ld + tid];
 #pragma unroll
         for (int r = 0; r < kRowsMax; ++r) {
           if (r < rows) {
@@ -309,7 +287,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         }
       }
       for (; t < nv_max; ++t) {
-        const float v = to_f32(v_t[t * ld + tid]);
+        const float v = v_t[t * ld + tid];
 #pragma unroll
         for (int r = 0; r < kRowsMax; ++r)
           if (r < rows) o[r] += p_s[r * kTileKeys + t] * v;
@@ -323,52 +301,46 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     for (int r = 0; r < kRowsMax; ++r) {
       if (r < rows) {
         const float l = l_s[r];
-        out[q_off + static_cast<int64_t>(r) * d + tid] = from_f32<T>(o[r] / (l == 0.f ? 1.f : l));
+        out[q_off + static_cast<int64_t>(r) * d + tid] = o[r] / (l == 0.f ? 1.f : l);
       }
     }
   }
 }
 
-template <typename T, int RPT, bool kRowTiles>
+template <int RPT>
 cudaError_t launch_rpt(const void* q, const void* k_pool, const void* v_pool,
                        const void* block_table, const void* lens, void* out,
                        int batch, int hkv, int g, int sq, int d, int bs,
                        int max_blocks, float scale, int causal, void* stream) {
   const int rows_all = g * sq;
-  const size_t smem = smem_bytes<T>(std::min(rows_all, kRowGroups * 32), d);
+  const size_t smem = smem_bytes(std::min(rows_all, kRows), d);
   const cudaError_t e = cudaFuncSetAttribute(
-      paged_attention_kernel<T, RPT, kRowTiles>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      paged_attention_kernel<RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const dim3 grid(batch * hkv,
-                  kRowTiles ? (rows_all + kRowGroups * 32 - 1) / (kRowGroups * 32) : 1);
-  paged_attention_kernel<T, RPT, kRowTiles><<<grid, kThreads, smem,
-                                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int32_t*>(block_table),
-      static_cast<const int32_t*>(lens), static_cast<T*>(out), hkv, g, sq, d,
+  const dim3 grid(batch * hkv, (rows_all + kRows - 1) / kRows);
+  paged_attention_kernel<RPT><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k_pool),
+      static_cast<const float*>(v_pool), static_cast<const int32_t*>(block_table),
+      static_cast<const int32_t*>(lens), static_cast<float*>(out), hkv, g, sq, d,
       bs, max_blocks, scale, causal);
   return cudaGetLastError();
 }
 
-// decode (kRowTiles = false): all g rows in one block; the fp32 prefill
-// (kRowTiles = true): 64-row tiles, any g * sq
-template <typename T, bool kRowTiles>
+// any g * sq, in 64-row tiles (grid y); RPT from a block's rows
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* block_table, const void* lens, void* out,
                    int batch, int hkv, int g, int sq, int d, int bs,
                    int max_blocks, float scale, int causal, void* stream) {
   if (batch == 0 || hkv == 0) return cudaSuccess;
   const int rows_all = g * sq;
-  if (d % 8 || d > kMaxHeadDim || bs <= 0 || kTileKeys % bs || rows_all <= 0 ||
-      (!kRowTiles && rows_all > kRowGroups * 32) ||
-      (rows_all + kRowGroups * 32 - 1) / (kRowGroups * 32) > 65535)
+  if (d <= 0 || d % 8 || d > kMaxHeadDim || bs <= 0 || max_blocks < 0 ||
+      rows_all <= 0 || (rows_all + kRows - 1) / kRows > 65535)
     return cudaErrorInvalidValue;
-  const int rows = std::min(rows_all, kRowGroups * 32);   // a block's rows at most
+  const int rows = std::min(rows_all, kRows);   // a block's rows at most
 #define REPRO_LAUNCH(RPT)                                                      \
-  return launch_rpt<T, RPT, kRowTiles>(q, k_pool, v_pool, block_table, lens,   \
-                                       out, batch, hkv, g, sq, d, bs,          \
-                                       max_blocks, scale, causal, stream)
+  return launch_rpt<RPT>(q, k_pool, v_pool, block_table, lens, out, batch,     \
+                         hkv, g, sq, d, bs, max_blocks, scale, causal, stream)
   if (rows <= kRowGroups * 1) REPRO_LAUNCH(1);
   if (rows <= kRowGroups * 2) REPRO_LAUNCH(2);
   if (rows <= kRowGroups * 4) REPRO_LAUNCH(4);
@@ -381,8 +353,8 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The bf16 prefill on tensor cores (mma.sync m16n8k16, fp32 accumulators),
-// split over the keys.
+// bf16 decode and prefill on tensor cores (mma.sync m16n8k16, fp32
+// accumulators), split over the keys.
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -412,27 +384,28 @@ __device__ __forceinline__ int first_tile(int s, int n_tiles, int splits) {
 // Grid: (B * hkv * row tiles, splits); unit = blockIdx.x = (b * hkv + h) *
 // row_tiles + rt serves the rows rt * 64 .. + 63 of the g * sq query rows
 // of (b, kv head h) (row r: q-head h * g + r / sq, query r % sq at position
-// q_start[b] + r % sq).  q / out: (B, hkv * g, sq, d) contiguous; pools:
-// (n_blocks, hkv, 2^bs_log, d) contiguous.  DP: the head dim the tensor
+// base + r % sq, base = lens[b] - decode: q_start for the prefill, kv_len - 1
+// for decode, whose sq is 1).  q / out: (B, hkv * g, sq, d) contiguous;
+// pools: (n_blocks, hkv, bs, d) contiguous, any bs (bs_log = log2 bs for a
+// power of two, a shift, else -1, a division).  DP: the head dim the tensor
 // cores see (d rounded up to 16, 32, 64 or 128; zero columns in shared
 // memory, never stored).
 //
-// The chunk's frontier is kv_end = min(q_start + sq, max_blocks * bs); its
-// keys are cut into n_tiles tiles of 64, and split blockIdx.y walks its
-// share of them (none, past the frontier: its partial is empty).  With one
+// The rows' frontier is kv_end = min(base + sq, max_blocks * bs); its keys
+// are cut into n_tiles tiles of 64, and split blockIdx.y walks its share of
+// them (none, past the frontier: its partial is empty).  With one
 // split a block writes its rows' output; with more, each block writes an
 // fp32 partial (o unnormalized, m in log2 units, l), and the last block of
 // the unit to arrive (a counter in `counters`, reset by that block)
 // combines the partials in split order.
 template <int DP>
 __global__ void __launch_bounds__(kThreads, 2)
-paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
-                         const bf16* __restrict__ v_pool,
-                         const int32_t* __restrict__ block_table,
-                         const int32_t* __restrict__ q_start, bf16* __restrict__ out,
-                         float* __restrict__ part, int* __restrict__ counters,
-                         int hkv, int g, int sq, int d, int bs_log, int max_blocks,
-                         float scale_log2) {
+paged_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
+                 const bf16* __restrict__ v_pool, const int32_t* __restrict__ block_table,
+                 const int32_t* __restrict__ lens, bf16* __restrict__ out,
+                 float* __restrict__ part, int* __restrict__ counters, int hkv, int g,
+                 int sq, int d, int bs, int bs_log, int max_blocks, int decode,
+                 float scale_log2) {
   using L = Layout<DP>;
   constexpr int kLd = L::kLd;
   constexpr int kKSteps = DP / 16;     // k16 steps of q k^T
@@ -447,9 +420,8 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_
   const int split = blockIdx.y, splits = gridDim.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, quad = lane & 3;   // fragment row, column pair
-  const int bs = 1 << bs_log;
 
-  const int base = q_start[b];
+  const int base = lens[b] - decode;
   const int kv_end = max(0, min(base + sq, max_blocks * bs));   // keys read
   const int n_tiles = (kv_end + kKeys - 1) / kKeys;
   const int t_begin = first_tile(split, n_tiles, splits);
@@ -489,9 +461,9 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_
     for (int i = 0; i < kCopies; ++i) {
       const int key = tile * kKeys + my_row + i * kRowStep;
       const bool ok = key < kv_end;
-      const int64_t src = ok ? bt_row[key >> bs_log] * blk_stride + my_off +
-                                   static_cast<int64_t>(key & (bs - 1)) * d
-                             : 0;
+      const int j = bs_log >= 0 ? key >> bs_log : key / bs;   // its block
+      const int64_t src =
+          ok ? bt_row[j] * blk_stride + my_off + static_cast<int64_t>(key - j * bs) * d : 0;
       const uint32_t dst = so + i * kRowStep * kLd * sizeof(bf16);
       cp_async16(smem_u32(k_s) + dst, k_pool + src, ok);
       cp_async16(smem_u32(v_s) + dst, v_pool + src, ok);
@@ -728,93 +700,77 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_
 
 template <int DP>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const void* block_table, const void* q_start, void* out,
+                   const void* block_table, const void* lens, void* out,
                    void* part, void* counters, int batch, int hkv, int g,
-                   int sq, int d, int bs_log, int max_blocks, int splits,
-                   float scale, void* stream) {
+                   int sq, int d, int bs, int bs_log, int max_blocks, int splits,
+                   int decode, float scale, void* stream) {
   // the tiles, or the combine's weights, whichever is larger
   const size_t smem = std::max(Layout<DP>::kBytes, kRows * (splits + 1) * sizeof(float));
   const cudaError_t e = cudaFuncSetAttribute(
-      paged_prefill_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid(batch * hkv * ((g * sq + kRows - 1) / kRows), splits);
-  paged_prefill_mma_kernel<DP><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  paged_mma_kernel<DP><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
       static_cast<const bf16*>(v_pool), static_cast<const int32_t*>(block_table),
-      static_cast<const int32_t*>(q_start), static_cast<bf16*>(out),
-      static_cast<float*>(part), static_cast<int*>(counters), hkv, g, sq, d, bs_log,
-      max_blocks, scale * kLog2e);
+      static_cast<const int32_t*>(lens), static_cast<bf16*>(out),
+      static_cast<float*>(part), static_cast<int*>(counters), hkv, g, sq, d, bs, bs_log,
+      max_blocks, decode, scale * kLog2e);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
-// dtype: 0 = float32, 1 = bfloat16.  Every entry returns the CUDA error of
-// its launch (cudaGetLastError(), 0 on success); the Python wrapper raises
-// on anything else.
-extern "C" int repro_paged_decode_attention(
-    int dtype, const void* q, const void* k_pool, const void* v_pool,
-    const void* block_table, const void* kv_len, void* out, int batch, int hkv,
-    int g, int d, int bs, int max_blocks, float scale, void* stream) {
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(launch<float, false>(
-          q, k_pool, v_pool, block_table, kv_len, out, batch, hkv, g, 1, d, bs,
-          max_blocks, scale, 0, stream));
-    case 1:
-      return static_cast<int>(launch<__nv_bfloat16, false>(
-          q, k_pool, v_pool, block_table, kv_len, out, batch, hkv, g, 1, d, bs,
-          max_blocks, scale, 0, stream));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+// Every entry returns the CUDA error of its launch (cudaGetLastError(), 0
+// on success); the Python wrapper raises on anything else.  decode: 1 for
+// decode (lens = kv_len, sq = 1), 0 for the prefill (lens = q_start).
 
-// The fp32 prefill on CUDA cores (route simt): one block per (b, kv head,
-// 64-row tile), every key tile in one block.  dtype: 0 = float32, the only
-// type this route takes (bf16: repro_paged_prefill_attention_mma).
-extern "C" int repro_paged_prefill_attention(
-    int dtype, const void* q, const void* k_pool, const void* v_pool,
-    const void* block_table, const void* q_start, void* out, int batch,
-    int hkv, int g, int sq, int d, int bs, int max_blocks, float scale,
+// fp32 decode and prefill on CUDA cores (route simt): one block per (b, kv
+// head, 64-row tile), every key tile in one block.
+extern "C" int repro_paged_attention_simt(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* block_table, const void* lens, void* out, int batch, int hkv,
+    int g, int sq, int d, int bs, int max_blocks, int decode, float scale,
     void* stream) {
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<float, true>(q, k_pool, v_pool, block_table,
-                                              q_start, out, batch, hkv, g, sq,
-                                              d, bs, max_blocks, scale, 1,
-                                              stream));
+  if (decode && sq != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch(q, k_pool, v_pool, block_table, lens, out,
+                                 batch, hkv, g, sq, d, bs, max_blocks, scale,
+                                 decode ? 0 : 1, stream));
 }
 
-// The bf16 prefill on tensor cores (route mma).  dp: the head dim the
-// kernel is built for, 16, 32, 64 or 128, at least d.  splits: key splits
-// a row tile (1 .. 64).  With splits > 1, part holds batch * hkv * row_tiles *
-// splits * 64 * (dp + 2) floats (row_tiles = ceil(g * sq / 64)) and
-// counters batch * hkv * row_tiles ints, all 0 before the first launch
+// bf16 decode and prefill on tensor cores (route mma).  dp: the head dim
+// the kernel is built for, 16, 32, 64 or 128, at least d.  splits: key
+// splits a row tile (1 .. 64).  With splits > 1, part holds batch * hkv *
+// row_tiles * splits * 64 * (dp + 2) floats (row_tiles = ceil(g * sq / 64))
+// and counters batch * hkv * row_tiles ints, all 0 before the first launch
 // (each launch leaves them 0); launches that share them must run in order
 // (one stream).
-extern "C" int repro_paged_prefill_attention_mma(
+extern "C" int repro_paged_attention_mma(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* block_table, const void* q_start, void* out, void* part,
+    const void* block_table, const void* lens, void* out, void* part,
     void* counters, int batch, int hkv, int g, int sq, int d, int dp, int bs,
-    int max_blocks, int splits, float scale, void* stream) {
+    int max_blocks, int splits, int decode, float scale, void* stream) {
   if (batch == 0 || hkv == 0) return 0;
   int bs_log = 0;
-  while (bs_log < 7 && (1 << bs_log) < bs) ++bs_log;
+  while (bs_log < 30 && (1 << bs_log) < bs) ++bs_log;
+  if ((1 << bs_log) != bs) bs_log = -1;       // not a power of two: divide
   const long long units = static_cast<long long>(batch) * hkv *
                           ((static_cast<long long>(g) * sq + tc::kRows - 1) / tc::kRows);
   if (d <= 0 || d % 8 || d > dp || g <= 0 || sq <= 0 || bs <= 0 ||
-      (1 << bs_log) != bs || tc::kKeys % bs || max_blocks < 0 || splits < 1 ||
-      splits > tc::kMaxSplits || units > 0x7fffffff ||
+      max_blocks < 0 || splits < 1 || splits > tc::kMaxSplits ||
+      units > 0x7fffffff || (decode && sq != 1) ||
+      static_cast<long long>(max_blocks) * bs > 0x7fffffff ||
       (splits > 1 && (part == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dp) {
 #define REPRO_LAUNCH(DP)                                                        \
   case DP:                                                                      \
     return static_cast<int>(tc::launch<DP>(q, k_pool, v_pool, block_table,      \
-                                           q_start, out, part, counters, batch, \
-                                           hkv, g, sq, d, bs_log, max_blocks,   \
-                                           splits, scale, stream))
+                                           lens, out, part, counters, batch,    \
+                                           hkv, g, sq, d, bs, bs_log,           \
+                                           max_blocks, splits, decode, scale,   \
+                                           stream))
     REPRO_LAUNCH(16);
     REPRO_LAUNCH(32);
     REPRO_LAUNCH(64);

@@ -13,13 +13,14 @@ Two implementations of each function, as in the reference
   ``csrc/paged_attention.cu``, launched on PyTorch's current stream.  They
   replace ``paged_decode_attention_pallas`` and
   ``paged_prefill_attention_pallas``; what bounds them and how they are
-  built is in the source's header note.  The prefill has two routes, picked
-  by dtype (:func:`prefill_route`): bf16 on the tensor cores (``mma``,
-  split over the keys by :func:`prefill_plan`), fp32 on CUDA cores
-  (``simt``).  Each wrapper checks its inputs, allocates the output with
-  ``torch.empty`` and adds one to ``LAUNCHES[name]`` per launch (and the
-  prefill to ``ROUTES[route]``), so a run can show that its path went
-  through the kernel.
+  built is in the source's header note.  Both take any block size and any
+  group, on two routes picked by dtype (:func:`route`): bf16 on the tensor
+  cores (``mma``, split over the keys by :func:`decode_plan` /
+  :func:`prefill_plan`), fp32 on CUDA cores (``simt``).  Each wrapper checks
+  its inputs, allocates the output with ``torch.empty`` and adds one to
+  ``LAUNCHES[name]`` per launch and one to its route's count
+  (``ROUTE_COUNTS[name]``), so a run can show that its path went through
+  the kernel.
 * ``*_plain`` — plain PyTorch with the math of the reference's ``xla``
   functions: a gather of the table's blocks and a masked fp32 softmax.  The
   CPU runs it, and ``chip_smoke.py`` holds the kernel against it.
@@ -43,13 +44,15 @@ SOURCE = "paged_attention.cu"
 # launches of each hand-written kernel since the last reset (a plain dict
 # of ints: chip_smoke zeroes it before the main path and reads it after)
 LAUNCHES = {"paged_decode_attention": 0, "paged_prefill_attention": 0}
-# the prefill's launches by route: "mma" (bf16, tensor cores), "simt" (fp32)
-ROUTES = {"mma": 0, "simt": 0}
-ROUTED = "paged_prefill_attention"      # the kernel ROUTES counts
+# each kernel's launches by route: "mma" (bf16, tensor cores), "simt" (fp32)
+ROUTES = {"mma": 0, "simt": 0}           # the prefill's
+DECODE_ROUTES = {"mma": 0, "simt": 0}    # decode's
+ROUTE_COUNTS = {"paged_decode_attention": DECODE_ROUTES,
+                "paged_prefill_attention": ROUTES}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, ROUTES, DECODE_ROUTES):
         for name in counts:
             counts[name] = 0
 
@@ -116,33 +119,35 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, block_table, q_start, *,
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# limits of csrc/paged_attention.cu: 64-key tiles, one PV column a thread
-# (128 threads), at most 64 query rows a thread block: decode serves its g
-# rows in one block, the prefill cuts its g * Sq rows into 64-row tiles
+# limits of csrc/paged_attention.cu: 64-key tiles and 64-row tiles (any
+# block size, any g * Sq), one PV column a thread on the CUDA cores
 _TILE_KEYS, _MAX_HEAD_DIM, _MAX_ROWS = 64, 128, 64
 _MAX_SMEM = 227 * 1024
-# head dims the tensor-core prefill is built for; a head dim between two is
+# head dims the tensor-core kernel is built for; a head dim between two is
 # zero-padded in shared memory up to the next
 HEAD_DIM_TEMPLATES = (16, 32, 64, 128)
 # the most key splits of one row tile (the combining block reads them all)
 MAX_SPLITS = 64
 
 
-def prefill_route(dtype, d: int) -> tuple[str, int]:
-    """The prefill kernel that takes ``dtype`` at head dim ``d`` and the
-    head dim it runs at: ``("mma", d rounded up to 16, 32, 64 or 128)`` for
-    bf16, ``("simt", d)`` for fp32."""
+def route(dtype, d: int) -> tuple[str, int]:
+    """The kernel that takes ``dtype`` at head dim ``d`` (decode and
+    prefill alike) and the head dim it runs at: ``("mma", d rounded up to
+    16, 32, 64 or 128)`` for bf16, ``("simt", d)`` for fp32."""
     if dtype not in _DTYPE_CODE:
-        raise TypeError(f"paged_prefill_attention: q dtype {dtype}; the "
-                        "kernel takes bfloat16 or float32")
+        raise TypeError(f"paged attention: q dtype {dtype}; the kernels "
+                        "take bfloat16 or float32")
     if dtype == torch.float32:
         return "simt", d
     return "mma", next(t for t in HEAD_DIM_TEMPLATES if t >= d)
 
 
+prefill_route = route       # the name the prefill's callers know
+
+
 def prefill_plan(hkv: int, rows: int, bs: int, max_blocks: int,
                  n_sm: int) -> tuple[int, int]:
-    """(row tiles, key splits) of the tensor-core prefill for ``rows`` =
+    """(row tiles, key splits) of the tensor-core kernel for ``rows`` =
     g * Sq query rows a kv head.  The splits follow the table's width
     (at most one per 64-key tile of its ``max_blocks * bs`` keys) and the
     card's SM count (enough blocks to fill it at B = 1), never the batch or
@@ -154,16 +159,38 @@ def prefill_plan(hkv: int, rows: int, bs: int, max_blocks: int,
     return row_tiles, max(1, min(tiles, want, MAX_SPLITS))
 
 
+def decode_plan(hkv: int, g: int, bs: int, max_blocks: int,
+                n_sm: int) -> tuple[int, int]:
+    """(row tiles, key splits) of the tensor-core decode: its g query rows a
+    kv head cut as the prefill's (:func:`prefill_plan` with Sq = 1), from
+    the table's width, the block size and the SM count, never ``kv_len``
+    (a device tensor: reading it would sync the host every step) or B."""
+    return prefill_plan(hkv, g, bs, max_blocks, n_sm)
+
+
 def split_tiles(n_tiles: int, splits: int) -> list[range]:
-    """The key tiles each split walks when a chunk's frontier covers
+    """The key tiles each split walks when a row's frontier covers
     ``n_tiles`` tiles (the kernel's ``first_tile``): contiguous, in order,
     every tile exactly once; a split with none writes an empty partial."""
     return [range(s * n_tiles // splits, (s + 1) * n_tiles // splits)
             for s in range(splits)]
 
 
+def smem_bytes(kind: str, dp: int, rows: int, splits: int = 1) -> int:
+    """Shared memory of a block of route ``kind`` (csrc's layouts): ``mma``
+    Q, two K and two V tiles of 64 rows of ``dp`` + 8 bf16 (or the
+    combine's weights, if larger); ``simt`` two K/V stages of 64 keys of
+    ``dp`` + 4 floats, then q, p and the softmax state of its ``rows``
+    (at most 64)."""
+    if kind == "mma":
+        return max(5 * _MAX_ROWS * (dp + 8) * 2, _MAX_ROWS * (splits + 1) * 4)
+    rows = min(rows, _MAX_ROWS)
+    return (4 * _TILE_KEYS * (dp + 4) + rows * dp + rows * _TILE_KEYS
+            + 3 * rows) * 4
+
+
 def _check(q, k_pool, v_pool, block_table, lens, what: str) -> None:
-    """Raise on anything the kernel does not take."""
+    """Raise on anything the kernels do not take."""
     tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                "block_table": block_table, "lens": lens}
     for name, t in tensors.items():
@@ -199,17 +226,13 @@ def _check(q, k_pool, v_pool, block_table, lens, what: str) -> None:
             or v_pool.data_ptr() % 16:
         raise ValueError(f"{what}: head_dim {d} must be a multiple of 8 up "
                          f"to {_MAX_HEAD_DIM}, with 16-byte aligned pools")
-    rows = (hq // hkv) * sq
-    if _TILE_KEYS % bs:
-        raise ValueError(f"{what}: block_size {bs} must divide "
-                         f"{_TILE_KEYS}")
-    if rows > _MAX_ROWS and what == "paged_decode_attention":
-        raise ValueError(f"{what}: g = {rows} query rows a kv head, at "
-                         f"most {_MAX_ROWS}")
-    rows = min(rows, _MAX_ROWS)
-    ld = d + 16 // q.element_size()
-    smem = (4 * _TILE_KEYS * ld * q.element_size()
-            + (rows * d + rows * _TILE_KEYS + 3 * rows) * 4)
+    if block_table.shape[1] * bs >= 2 ** 31:
+        raise ValueError(f"{what}: a table of {block_table.shape[1]} blocks "
+                         f"of {bs} positions exceeds 2^31 - 1 keys")
+    kind, dp = route(q.dtype, d)
+    if kind == "mma" and q.data_ptr() % 16:
+        raise ValueError(f"{what}: q must be 16-byte aligned")
+    smem = smem_bytes(kind, dp, (hq // hkv) * sq, MAX_SPLITS)
     if smem > _MAX_SMEM:
         raise ValueError(f"{what}: needs {smem} bytes of shared memory, "
                          f"the card offers {_MAX_SMEM}")
@@ -223,38 +246,13 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, kv_len, *,
-                                scale=None):
-    """The decode kernel, replacing ``paged_decode_attention_pallas``
-    (``repro/kernels/paged_attention.py:103``).  Bound by bytes on the
-    H100; the header note of ``csrc/paged_attention.cu`` says what its
-    design does about that."""
-    what = "paged_decode_attention"
-    _check(q, k_pool, v_pool, block_table, kv_len, what)
-    b, hq, sq, d = q.shape
-    if sq != 1:
-        raise ValueError(f"{what}: q must carry one token per row, got "
-                         f"Sq = {sq}")
-    _, hkv, bs, _ = k_pool.shape
-    out = torch.empty_like(q)
-    lib = build.library(SOURCE)
-    with torch.cuda.device(q.device):
-        err = lib.repro_paged_decode_attention(
-            _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k_pool), _ptr(v_pool),
-            _ptr(block_table), _ptr(kv_len), _ptr(out), b, hkv, hq // hkv,
-            d, bs, block_table.shape[1], _scale(scale, d), _stream(q))
-    build.check(lib, err, what)
-    LAUNCHES[what] += 1
-    return out
-
-
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# per CUDA device, the arrival counters of the split prefill's combine:
-# zeroed once, and every launch leaves them zero again
+# per CUDA device, the arrival counters of the split kernels' combine:
+# zeroed once, and every launch leaves them zero
 _COUNTERS: dict[int, torch.Tensor] = {}
 
 
@@ -266,46 +264,68 @@ def _counters(dev: torch.device, n: int) -> torch.Tensor:
     return have
 
 
-def paged_prefill_attention_cuda(q, k_pool, v_pool, block_table, q_start, *,
-                                 scale=None):
-    """The chunked-prefill kernel of ``q``'s dtype (:func:`prefill_route`),
-    replacing ``paged_prefill_attention_pallas``
-    (``repro/kernels/paged_attention.py:224``); any g * Sq.  bf16 runs on the
-    tensor cores, split over the keys (:func:`prefill_plan`) and combined in
-    the same launch; fp32 on CUDA cores, one block a 64-row tile.  The
-    chunk's own K/V must already sit in its block, written on the same
-    stream before this call."""
-    what = "paged_prefill_attention"
-    _check(q, k_pool, v_pool, block_table, q_start, what)
+def _launch(what, q, k_pool, v_pool, block_table, lens, scale, decode):
+    """One launch of the kernel of q's route into a new output; counts it."""
+    _check(q, k_pool, v_pool, block_table, lens, what)
     b, hq, sq, d = q.shape
     _, hkv, bs, _ = k_pool.shape
     g, m = hq // hkv, block_table.shape[1]
-    kind, dp = prefill_route(q.dtype, d)
-    if kind == "mma" and q.data_ptr() % 16:
-        raise ValueError(f"{what}: q must be 16-byte aligned")
+    kind, dp = route(q.dtype, d)
     out = torch.empty_like(q)
     lib = build.library(SOURCE)
     with torch.cuda.device(q.device):
         if kind == "mma":
-            row_tiles, splits = prefill_plan(hkv, g * sq, bs, m,
-                                             _sm_count(q.device.index))
+            plan = decode_plan(hkv, g, bs, m, _sm_count(q.device.index)) \
+                if decode else \
+                prefill_plan(hkv, g * sq, bs, m, _sm_count(q.device.index))
+            row_tiles, splits = plan
             units = b * hkv * row_tiles
             part = (torch.empty(units * splits * _MAX_ROWS * (dp + 2),
                                 dtype=torch.float32, device=q.device)
                     if splits > 1 else None)
             counters = _counters(q.device, units) if splits > 1 else None
-            err = lib.repro_paged_prefill_attention_mma(
+            err = lib.repro_paged_attention_mma(
                 _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(block_table),
-                _ptr(q_start), _ptr(out),
+                _ptr(lens), _ptr(out),
                 None if part is None else _ptr(part),
                 None if counters is None else _ptr(counters), b, hkv, g, sq,
-                d, dp, bs, m, splits, _scale(scale, d), _stream(q))
+                d, dp, bs, m, splits, int(decode), _scale(scale, d),
+                _stream(q))
         else:
-            err = lib.repro_paged_prefill_attention(
-                _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k_pool), _ptr(v_pool),
-                _ptr(block_table), _ptr(q_start), _ptr(out), b, hkv, g, sq,
-                d, bs, m, _scale(scale, d), _stream(q))
+            err = lib.repro_paged_attention_simt(
+                _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(block_table),
+                _ptr(lens), _ptr(out), b, hkv, g, sq, d, bs, m, int(decode),
+                _scale(scale, d), _stream(q))
     build.check(lib, err, what)
     LAUNCHES[what] += 1
-    ROUTES[kind] += 1
+    ROUTE_COUNTS[what][kind] += 1
     return out
+
+
+def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, kv_len, *,
+                                scale=None):
+    """The decode kernel of ``q``'s dtype (:func:`route`), replacing
+    ``paged_decode_attention_pallas``
+    (``repro/kernels/paged_attention.py:103``); any block size, any g.  bf16
+    runs on the tensor cores, split over the keys (:func:`decode_plan`) and
+    combined in the same launch; fp32 on CUDA cores, one block a 64-row
+    tile.  Bound by bytes on the H100: the header note of
+    ``csrc/paged_attention.cu`` says what the design does about that."""
+    what = "paged_decode_attention"
+    if q.dim() == 4 and q.shape[2] != 1:
+        raise ValueError(f"{what}: q must carry one token per row, got "
+                         f"Sq = {q.shape[2]}")
+    return _launch(what, q, k_pool, v_pool, block_table, kv_len, scale, True)
+
+
+def paged_prefill_attention_cuda(q, k_pool, v_pool, block_table, q_start, *,
+                                 scale=None):
+    """The chunked-prefill kernel of ``q``'s dtype (:func:`route`),
+    replacing ``paged_prefill_attention_pallas``
+    (``repro/kernels/paged_attention.py:224``); any block size, any g * Sq.
+    bf16 runs on the tensor cores, split over the keys
+    (:func:`prefill_plan`) and combined in the same launch; fp32 on CUDA
+    cores, one block a 64-row tile.  The chunk's own K/V must already sit
+    in its block, written on the same stream before this call."""
+    return _launch("paged_prefill_attention", q, k_pool, v_pool, block_table,
+                   q_start, scale, False)

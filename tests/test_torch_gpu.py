@@ -194,6 +194,118 @@ def test_prefill_tensor_cores_repeat_bit_identical(cuda):
         assert torch.equal(pa.paged_prefill_attention_cuda(*args), first)
 
 
+def _decode_nan_case(seed, lens, *, hq, hkv, d, bs, m, dtype, dev):
+    """A decode batch on a shuffled table (each row its own blocks), NaN at
+    every pool position at or past each row's kv_len (none for a kv_len past
+    the table's M * bs: all its positions are live) and in the null block,
+    which no table here holds."""
+    b = len(lens)
+    rng = np.random.default_rng(seed)
+    n_blocks = b * m + 1
+    kp = rng.standard_normal((n_blocks, hkv, bs, d), np.float32)
+    vp = rng.standard_normal((n_blocks, hkv, bs, d), np.float32)
+    bt = (rng.permutation(n_blocks - 1) + 1).reshape(b, m).astype(np.int32)
+    q = rng.standard_normal((b, hq, 1, d), np.float32)
+    for row, n in enumerate(lens):
+        for col in range(m):
+            lo = max(n - col * bs, 0)
+            if lo < bs:
+                kp[bt[row, col], :, lo:] = np.nan
+                vp[bt[row, col], :, lo:] = np.nan
+    kp[0] = vp[0] = np.nan
+    t = [torch.from_numpy(x).to(dev)
+         for x in (q, kp, vp, bt, np.asarray(lens, np.int32))]
+    return [x.to(dtype) if x.is_floating_point() else x for x in t]
+
+
+# (Hq, Hkv, D, bs, M, kv_lens): g 2, 8, 16 and 72; block sizes 16, 48 and
+# 128; B 1 and 8; kv_len 0, 1, ends inside a 64-key tile, whole tables, and
+# past the table (an idle slot's position)
+DECODE_CASES = ((16, 8, 128, 16, 64, [1, 15, 16, 17, 1023, 1024, 500, 0]),
+                (16, 2, 128, 16, 64, [1000]),
+                (16, 1, 128, 48, 22, [0, 1, 47, 49, 95, 1056, 1100, 700]),
+                (72, 1, 64, 128, 8, [1, 130, 1024]),
+                (16, 8, 128, 128, 8, [77]),
+                (16, 2, 128, 48, 22, [500, 1, 0, 63, 64, 65, 129, 1055]))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_decode_kernel_any_block_size_and_group_with_nan_planted(cuda, dtype,
+                                                                 tol):
+    """The decode kernel at any block size and any group against its plain
+    version, NaN at every pool position at or past kv_len (the tensor cores
+    multiply whole tiles, so those keys must be zeroed, not masked); each
+    call on its dtype's route, a kv_len of 0 returning 0.  fp32 at 1e-4;
+    bf16 at 1e-2 (outputs rounded from fp32, p rounded to bf16 before
+    p v)."""
+    kind = "simt" if dtype == torch.float32 else "mma"
+    for i, (hq, hkv, d, bs, m, lens) in enumerate(DECODE_CASES):
+        args = _decode_nan_case(i, lens, hq=hq, hkv=hkv, d=d, bs=bs, m=m,
+                                dtype=dtype, dev=cuda)
+        pa.reset_launches()
+        got = pa.paged_decode_attention_cuda(*args)
+        assert pa.LAUNCHES["paged_decode_attention"] == 1
+        assert pa.DECODE_ROUTES[kind] == 1 and sum(pa.ROUTES.values()) == 0
+        want = pa.paged_decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        for row, n in enumerate(lens):
+            if n == 0:
+                assert not got[row].any()
+
+
+def test_decode_tensor_cores_repeat_bit_identical(cuda):
+    """The split decode combines its partials in split order, whichever
+    block arrives last: repeated calls give the same bits, a row's output
+    does not depend on the rows batched with it, and the arrival counters
+    stay usable from one launch to the next."""
+    args = _decode_nan_case(11, [1000, 1, 500, 1055], hq=16, hkv=2, d=128,
+                            bs=48, m=22, dtype=torch.bfloat16, dev=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pa.decode_plan(2, 8, 48, 22, sms)[1] > 1
+    first = pa.paged_decode_attention_cuda(*args)
+    for _ in range(5):
+        assert torch.equal(pa.paged_decode_attention_cuda(*args), first)
+    q, kp, vp, bt, kv = args
+    alone = pa.paged_decode_attention_cuda(q[2:3].contiguous(), kp, vp,
+                                           bt[2:3].contiguous(),
+                                           kv[2:3].contiguous())
+    assert torch.equal(alone, first[2:3])
+
+
+# (Hq, Hkv, D, bs, M, q_starts), Sq = bs: block sizes 48 (not a divisor of
+# the 64-key tile) and 128 (two tiles a block) at the first, second and
+# last chunk, and B = 3 with different starts
+PREFILL_BS = ((16, 8, 128, 48, 22, [0]), (16, 8, 128, 48, 22, [48]),
+              (16, 8, 128, 48, 22, [1008]), (16, 8, 128, 128, 8, [0]),
+              (16, 8, 128, 128, 8, [128]), (16, 8, 128, 128, 8, [896]),
+              (16, 2, 128, 48, 22, [5, 500, 1000]))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_prefill_kernel_any_block_size_with_nan_planted(cuda, dtype, tol):
+    """The prefill kernel at block sizes 48 and 128 against its plain
+    version, NaN at every pool position at or past the frontier; each call
+    on its dtype's route."""
+    kind = "simt" if dtype == torch.float32 else "mma"
+    for i, (hq, hkv, d, bs, m, starts) in enumerate(PREFILL_BS):
+        args = _prefill_nan_case(20 + i, starts, hq=hq, hkv=hkv, d=d, bs=bs,
+                                 m=m, dtype=dtype, dev=cuda)
+        pa.reset_launches()
+        got = pa.paged_prefill_attention_cuda(*args)
+        assert pa.LAUNCHES["paged_prefill_attention"] == 1
+        assert pa.ROUTES[kind] == 1
+        want = pa.paged_prefill_attention_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
 def _params_on(params, dev):
     return {k: _params_on(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in params.items()}
@@ -540,6 +652,38 @@ def test_pool_matmul_matches_plain(cuda, dtype):
             with pytest.raises(AssertionError):     # the tolerance has teeth
                 torch.testing.assert_close(tf32, k_matmul.matmul_plain(x, w),
                                            atol=atol, rtol=1e-5)
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 4096, 4096), (4096, 4095, 4097),
+                                   (127, 129, 65), (1, 1000, 3),
+                                   (513, 64, 515)])
+def test_pool_sgemm_card_size_and_ragged(cuda, m, k, n):
+    """The fp32 route (sgemm) at the card ladder's 4096^3, on ragged shapes
+    (no 16-byte row of B: 4097, 3, 65, 515) and a product a K step covers,
+    against the plain version at the fp32 tolerance (atol 2e-5 K, rtol
+    1e-5), which a TF32 product fails; the route's count moves by one.
+    Every output sums its K products in order, so the first 128 rows of
+    the product are bit for bit those of the same rows alone (another
+    tiling: a 128-row product has too few wide tiles to fill the card)."""
+    x, w = _randn(m + k + n, cuda, torch.float32, (m, k), (k, n))
+    assert k_matmul.route(x.dtype, k, n) == "sgemm"
+    atol = 2e-5 * k
+    before = dict(k_matmul.ROUTES)
+    got = _counted(k_matmul, "matmul", k_matmul.matmul_cuda, x, w)
+    assert k_matmul.ROUTES == {**before, "sgemm": before["sgemm"] + 1}
+    want = k_matmul.matmul_plain(x, w)
+    torch.testing.assert_close(got, want, atol=atol, rtol=1e-5)
+    rows = k_matmul.matmul_cuda(x[:128].contiguous(), w)
+    assert torch.equal(rows, got[:128])
+    if m * n >= 1 << 20:          # enough outputs for TF32's error to show
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = x @ w
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        with pytest.raises(AssertionError):     # the tolerance has teeth
+            torch.testing.assert_close(tf32, want, atol=atol, rtol=1e-5)
 
 
 @pytest.mark.parametrize("m,k,n,kind", [(4096, 4096, 4096, "wgmma"),

@@ -110,6 +110,31 @@ def test_plain_decode_empty_row_returns_zero():
     assert not got[0].any()
 
 
+@pytest.mark.parametrize("g,bs,lens", [
+    (8, 48, [150, 49, 47]),      # qwen2.5-3b's group; 48 does not divide 64
+    (8, 128, [300, 129, 1]),     # 128-position blocks, two tiles each
+    (72, 48, [192, 0, 96]),      # 72 rows a kv head; kv_len 0 returns 0
+    (72, 128, [512, 128, 200]),
+])
+def test_plain_decode_any_block_size_and_group_matches_reference(g, bs,
+                                                                 lens):
+    """The plain decode at block sizes that do not divide the kernels'
+    64-key tile (48) or span two of them (128), and at g 8 and 72 (two of
+    the tensor-core kernel's 64-row tiles), against the reference's ``xla``
+    path and its Pallas kernel (interpret), on a narrow D.  A row with
+    kv_len 0 is held to the Pallas kernel's 0 (the ``xla`` path's softmax
+    over no key averages V there)."""
+    q, kp, vp = _case(12, bs=bs, g=g)
+    j, t = _both(q, kp, vp, BT, np.asarray(lens, np.int32))
+    got = pa.paged_decode_attention_plain(*t)
+    assert got.shape == (3, 2 * g, 1, 16)
+    live = [i for i, n in enumerate(lens) if n]
+    _close(got[live], np.asarray(paged_decode_attention_xla(*j))[live])
+    _close(got, paged_decode_attention_pallas(*j, interpret=True))
+    if 0 in lens:
+        assert not got[lens.index(0)].any()
+
+
 # ---------------------------------------------------------------------------
 # Chunked prefill.
 # ---------------------------------------------------------------------------
@@ -181,6 +206,94 @@ def test_prefill_plan_covers_every_key_tile_once(hkv, rows, bs, m, want):
         assert len(ranges) == splits
         assert [t for r in ranges for t in r] == list(range(n_tiles))
         assert all(r.start <= n_tiles <= max_tiles for r in ranges)
+
+
+# every block size a table may have, now that neither kernel needs bs to
+# divide its 64-key tile: (hkv, g, bs, M, want) on an H100's 132 SMs
+DECODE_PLANS = [
+    (8, 2, 16, 64, (1, 16)),      # qwen3-0.6b, block_size 16, 1024 tokens
+    (2, 8, 16, 64, (1, 16)),      # qwen2.5-3b's group of 8
+    (1, 72, 16, 64, (2, 16)),     # g 72: two row tiles
+    (8, 2, 48, 22, (1, 17)),      # 1056 keys: 16.5 tiles
+    (8, 2, 128, 8, (1, 16)),
+    (8, 2, 1, 64, (1, 1)),        # one position a block: one tile
+    (8, 2, 64, 16, (1, 16)),
+    (8, 2, 24, 3, (1, 2)),        # 72 keys: a tile and a ragged one
+    (8, 2, 16, 4096, (1, 17)),    # a wide table: enough blocks for the card
+]
+
+
+@pytest.mark.parametrize("hkv,g,bs,m,want", DECODE_PLANS)
+def test_decode_plan_covers_every_key_tile_once(hkv, g, bs, m, want):
+    """The tensor-core decode's (row tiles, splits) for an H100's 132 SMs,
+    and the tiles of each split at every kv_len the table allows (kv_len 0
+    up to an idle slot's past M * bs): contiguous, in order, each tile
+    exactly once, no split past the table's last tile.  The plan takes
+    neither B nor kv_len, so it is the same for every batch and length."""
+    import inspect
+    assert set(inspect.signature(pa.decode_plan).parameters) == {
+        "hkv", "g", "bs", "max_blocks", "n_sm"}
+    row_tiles, splits = pa.decode_plan(hkv, g, bs, m, 132)
+    assert (row_tiles, splits) == want
+    assert (row_tiles - 1) * 64 < g <= row_tiles * 64
+    max_tiles = -(-m * bs // 64)
+    assert 1 <= splits <= min(max_tiles, pa.MAX_SPLITS)
+    for kv_len in range(m * bs + 17):
+        n_tiles = -(-min(kv_len, m * bs) // 64)     # the kernel's walk
+        ranges = pa.split_tiles(n_tiles, splits)
+        assert len(ranges) == splits
+        assert [t for r in ranges for t in r] == list(range(n_tiles))
+        assert all(r.start <= n_tiles <= max_tiles for r in ranges)
+
+
+@pytest.mark.parametrize("bs", [1, 3, 16, 24, 48, 64, 100, 128, 256])
+def test_prefill_plan_any_block_size(bs):
+    """The prefill's plan at block sizes that need not divide the 64-key
+    tile: at most one split a tile of the table's M * bs keys, every tile
+    of every frontier walked once (Sq = bs, qwen2.5-3b's g 8)."""
+    m = -(-1024 // bs)
+    row_tiles, splits = pa.prefill_plan(2, 8 * bs, bs, m, 132)
+    max_tiles = -(-m * bs // 64)
+    assert row_tiles == -(-8 * bs // 64)
+    assert 1 <= splits <= min(max_tiles, pa.MAX_SPLITS)
+    for n_tiles in range(max_tiles + 1):
+        assert [t for r in pa.split_tiles(n_tiles, splits)
+                for t in r] == list(range(n_tiles))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 8), (torch.bfloat16, 72),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 8), (torch.float32, 128)])
+def test_both_kernels_fit_shared_memory_at_any_group(dtype, d):
+    """Each route's shared memory at every head dim the kernels take and
+    any rows a kv head (a block holds at most 64 of them), the combine of
+    64 splits included, fits the H100's 227 KB; decode and prefill share
+    the route of their dtype."""
+    kind, dp = pa.route(dtype, d)
+    assert (kind, dp) == pa.prefill_route(dtype, d)
+    assert kind == ("mma" if dtype == torch.bfloat16 else "simt")
+    for rows in (1, 2, 8, 64, 72, 1024):
+        assert pa.smem_bytes(kind, dp, rows, pa.MAX_SPLITS) <= 227 * 1024
+
+
+def test_decode_routes_are_counted_apart():
+    """Decode's launches by route sit beside the prefill's (whose keys the
+    existing callers read): ``ROUTE_COUNTS`` names each kernel's, and
+    ``reset_launches`` zeroes both."""
+    assert pa.ROUTE_COUNTS == {"paged_decode_attention": pa.DECODE_ROUTES,
+                               "paged_prefill_attention": pa.ROUTES}
+    saved = [dict(c) for c in (pa.LAUNCHES, pa.ROUTES, pa.DECODE_ROUTES)]
+    try:
+        for counts in (pa.LAUNCHES, pa.ROUTES, pa.DECODE_ROUTES):
+            for name in counts:
+                counts[name] += 2
+        pa.reset_launches()
+        assert not any(n for c in (pa.LAUNCHES, pa.ROUTES, pa.DECODE_ROUTES)
+                       for n in c.values())
+    finally:
+        for counts, old in zip((pa.LAUNCHES, pa.ROUTES, pa.DECODE_ROUTES),
+                               saved):
+            counts.update(old)
 
 
 def test_prefill_route_by_dtype():
