@@ -27,8 +27,11 @@ Phases, each of which exits non-zero on failure:
               bit-identical to three B = 1 launches, and each row's last
               64 visible keys dropped shown to fail the bf16 tolerance.
               SSD: bf16 and
-              fp32, S in {7, 64, 960}, (B, G) in {(1, 1), (2, 2)}, H 64,
-              P 64, N 64, with and without h0 and d_skip; S = 200 raises;
+              fp32, S in {7, 33, 64, 192, 960}, (B, G) in {(1, 1), (2, 2)},
+              H 64, P 64, N 64, with and without h0 and d_skip, each call on
+              its route (bf16 mma, fp32 simt) with kernels_per_call
+              launches, bf16 repeats and B = 2 rows alone bit-identical;
+              S = 200 raises;
 4. timing   - kernel, plain version, one PyTorch library call (none for
               SSD), and the least time the card could take (the bound), ms;
               flash also at zamba2's shape (Hq = Hkv = 32, D 64, S 960),
@@ -37,13 +40,16 @@ Phases, each of which exits non-zero on failure:
               the attention kernels the kernel's and SDPA's device time
               per call from torch.profiler beside the event timer's (a
               launch shorter than the host's launch cost leaves the timer
-              reading the host), for the paged ones also SDPA with the
+              reading the host; SSD's summed over its three launches;
+              exp's and torch.exp's at 2^26 in both dtypes, in turns), for
+              the paged ones also SDPA with the
               gather and mask a paged caller would pay, and fft's 2^24
               launches and cuFFT's device time;
 5. checks   - the whole model on the card against the plain CPU path: a
               narrow fp32 copy of qwen3-0.6b, and the full-width model; a
               narrow fp32 copy of zamba2-1.2b with a tail layer (7 layers,
-              a shared block every 3), and the full-width zamba2's
+              a shared block every 3; its 7 SSD launches on simt), and the
+              full-width zamba2's
               first-token logits at prompts of 64 and 960 tokens (fp32
               within 1e-4 of their scale; bf16 no farther from the fp32
               logits than 1.5 times the CPU's own bf16 run);
@@ -74,8 +80,9 @@ Phases, each of which exits non-zero on failure:
               unchanged);
 9. hybrid   - zamba2-1.2b at full width on seeded random bf16 weights:
               8 requests (prompts of 7 to 960 tokens) served continuous
-              twice (token-identical, 38 SSD and 6 flash launches per
-              prefill, flash on the tensor cores), lockstep (its prefill
+              twice (token-identical, 38 SSD calls of kernels_per_call
+              launches and 6 flash launches per prefill, both on the
+              tensor cores), lockstep (its prefill
               row by row) equal to continuous on a uniform trace of 8 x 128
               tokens, one sampled row preempted after 5 decode steps and
               resumed by replay (its tokens unchanged, every replayed
@@ -247,6 +254,7 @@ EXP_EDGE = (89.0, 100.0, -87.3, -87.5, -88.0, -200.0, 0.0, math.inf,
             -math.inf, math.nan)
 FFT_TOL = 5e-6     # times sqrt(n), against an fp64 transform
 FFT_N = 1 << 24    # fft's card-scale length (the pool's card ladder)
+EXP_N = 1 << 26    # exp's card-scale length (the pool's card ladder)
 # torch.equal (NaN for NaN)
 EXACT_OPS = ("pathfinder", "jacobi2d", "dropout", "exp", "dwt")
 
@@ -602,26 +610,32 @@ def _ssd_inputs(torch, gen, dev, dtype, b, s, g):
 
 
 def phase_ssd_parity(torch, ss, dev):
-    """The SSD kernel against its plain version, y and the final state, on
-    every case; one launch counted per call; S = 200 (neither at most 64
-    nor a multiple of it) raises in both.  Returns the worst bf16 y error
-    (the main path's dtype)."""
+    """The SSD kernels against their plain version, y and the final state,
+    on every case, each call on its dtype's route (bf16 on the tensor cores,
+    fp32 on ``simt``) with ``kernels_per_call`` launches counted; in bf16 a
+    repeat and a B = 2 call's rows alone bit-identical; S = 200 (neither at
+    most 64 nor a multiple of it) raises in both.  Returns the worst bf16 y
+    error (the main path's dtype)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     worst = {}
     n_cases = 0
     for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, TOL_FP32)):
         name = str(dtype).split(".")[-1]
-        for s in (7, 64, SSD_S):
+        rt = ss.route(dtype)
+        for s in (7, 33, 64, 192, SSD_S):
             for b, g in ((1, 1), (2, 2)):
                 x, dt, a_log, bm, cm, d_skip, h0 = _ssd_inputs(
                     torch, gen, dev, dtype, b, s, g)
                 for kw in ({}, {"h0": h0}, {"d_skip": d_skip},
                            {"h0": h0, "d_skip": d_skip}):
-                    n0 = ss.LAUNCHES["ssd_scan"]
+                    n0, r0 = ss.LAUNCHES["ssd_scan"], ss.ROUTES[rt]
                     y, hf = ss.ssd_cuda(x, dt, a_log, bm, cm, **kw)
-                    require(ss.LAUNCHES["ssd_scan"] == n0 + 1,
-                            "ssd: one launch must count one")
+                    k = ss.kernels_per_call(s, dtype)
+                    require(ss.LAUNCHES["ssd_scan"] == n0 + k
+                            and ss.ROUTES[rt] == r0 + k,
+                            f"ssd: a call must count kernels_per_call ({k}) "
+                            f"launches on route {rt}")
                     yp, hp = ss.ssd_plain(x, dt, a_log, bm, cm, **kw)
                     torch.cuda.synchronize()
                     label = (f"ssd {name} B={b} S={s} G={g} "
@@ -639,6 +653,20 @@ def phase_ssd_parity(torch, ss, dev):
                                     "disagrees with its plain version")
                         key = f"{name} {what}"
                         worst[key] = max(worst.get(key, 0.0), err)
+                    if dtype == torch.bfloat16 and b == 2 and len(kw) == 2:
+                        again = ss.ssd_cuda(x, dt, a_log, bm, cm, **kw)
+                        rows = [ss.ssd_cuda(
+                            x[r:r + 1].contiguous(), dt[r:r + 1].contiguous(),
+                            a_log, bm[r:r + 1].contiguous(),
+                            cm[r:r + 1].contiguous(), d_skip=d_skip,
+                            h0=h0[r:r + 1].contiguous()) for r in range(b)]
+                        require(torch.equal(again[0], y)
+                                and torch.equal(again[1], hf)
+                                and all(torch.equal(yr, y[r:r + 1])
+                                        and torch.equal(hr, hf[r:r + 1])
+                                        for r, (yr, hr) in enumerate(rows)),
+                                f"{label}: a repeat or a row alone is not "
+                                "bit-identical")
                     n_cases += 1
     x, dt, a_log, bm, cm, _, _ = _ssd_inputs(torch, gen, dev, torch.bfloat16,
                                              1, 200, 1)
@@ -648,8 +676,9 @@ def phase_ssd_parity(torch, ss, dev):
         except ValueError:
             continue
         raise SmokeFailure(f"ssd: {fn.__name__} took S = 200")
-    log(f"parity ssd: {n_cases} cases ok, worst max_abs_err {worst}; "
-        "S = 200 raises in kernel and plain")
+    log(f"parity ssd: {n_cases} cases ok, worst max_abs_err {worst}; bf16 "
+        "on mma, fp32 on simt; bf16 repeats and B = 2 rows alone "
+        "bit-identical; S = 200 raises in kernel and plain")
     return worst["bfloat16 y"]
 
 
@@ -669,7 +698,7 @@ def _sdpa_inputs(torch, pa, q, kp, vp, bt, lens, causal):
     return q, k, v, mask
 
 
-def phase_timing(torch, pa, fa, ss, kf, dev):
+def phase_timing(torch, pa, fa, ss, kf, kexp, dev):
     """kernel / plain / library / bound, in ms, for each kernel; for the
     attention kernels also the profiler's device time of the kernel and of
     SDPA (a ~0.03 ms call leaves the event timer reading the host), and for
@@ -799,14 +828,36 @@ def phase_timing(torch, pa, fa, ss, kf, dev):
     tri = q * (q + 1) // 2         # the causal half of each chunk's products
     sflops = (SSD_S // q) * SSD_H * 2 * (tri * (SSD_N + SSD_P)
                                          + 2 * q * SSD_P * SSD_N)
+    def ssd(*a):
+        return ss.ssd_cuda(*a[:5], d_skip=a[5])
     out["ssd_scan"] = dict(
-        ms=time_ms(torch, lambda *a: ss.ssd_cuda(*a[:5], d_skip=a[5]), sd,
-                   50),
+        ms=time_ms(torch, ssd, sd, 50),
         plain_ms=time_ms(torch, lambda *a: ss.ssd_plain(*a[:5], d_skip=a[5]),
                          sd, 10),
-        library_ms=None,
+        library_ms=None, device_ms=device_ms(torch, ssd, sd),
         **dict(zip(("bound_ms", "bound_by"), bound(sbytes, sflops))))
+    # exp at the pool's card length, both dtypes: the profiler's device
+    # time of the kernel and of torch.exp, in turns (logged, not in the
+    # kernels line: the pool phase times exp through its entry point)
+    for dtype in (torch.float32, torch.bfloat16):
+        ex = [[torch.randn(EXP_N, generator=gen, device=dev).to(dtype) * 4]
+              for _ in range(2)]
+        dev_ms = [device_ms(torch, f, ex) for f in (kexp.exp_cuda, torch.exp,
+                                                    kexp.exp_cuda, torch.exp)]
+        out[f"exp n={EXP_N} {str(dtype)[6:]}"] = dict(
+            ms=time_ms(torch, kexp.exp_cuda, ex, 20), plain_ms=None,
+            library_ms=time_ms(torch, torch.exp, ex, 20),
+            device_ms=dev_ms[0::2], library_device_ms=dev_ms[1::2],
+            bound_ms=None, bound_by=None)
+        del ex
     for name, t in out.items():
+        if name.startswith("exp"):       # device times of two turns each
+            log(f"timing {name}: kernel_ms={t['ms']:.4f} library_ms="
+                f"{t['library_ms']:.4f} (torch.exp) device_ms="
+                f"{', '.join(map(_ms, t['device_ms']))} library_device_ms="
+                f"{', '.join(map(_ms, t['library_device_ms']))} (profiler, "
+                "kernel and torch.exp in turns)")
+            continue
         if t["plain_ms"] is None:        # fft: the pool phase times the rest
             log(f"timing {name}: kernel_ms={t['ms']:.4f} library_ms="
                 f"{t['library_ms']:.4f} (cuFFT, complex64) device_ms="
@@ -835,8 +886,8 @@ def phase_timing(torch, pa, fa, ss, kf, dev):
                                           "gather_ms", "gather_device_ms")
             if k in t)
         if extra:
-            extra += (" (device_*: profiler; gather_*: SDPA with the gather "
-                      "and mask included)")
+            extra += (" (device_*: profiler, SSD's summed over its launches; "
+                      "gather_*: SDPA with the gather and mask included)")
         log(f"timing {name} ({shape}): kernel_ms={t['ms']:.4f} "
             f"plain_ms={t['plain_ms']:.4f} library_ms={lib} "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}){extra}")
@@ -1233,6 +1284,7 @@ def phase_hybrid_checks(torch, cfgs, build_model, dev):
     38 recurrent layers: the CPU's own bf16 logits sit about 6% of the
     scale from its fp32 ones, so a fixed 4% bound, as qwen3's check uses,
     cannot hold for any bf16 run of this model.)"""
+    from repro_torch.kernels import ssd_scan as ss
     cfg = cfgs.get_config("zamba2-1.2b")
     narrow = dataclasses.replace(cfg, n_layers=7, shared_attn_every=3,
                                  d_model=256, d_ff=512, vocab_size=1000)
@@ -1251,7 +1303,11 @@ def phase_hybrid_checks(torch, cfgs, build_model, dev):
     model = build_model(narrow)
     params = model.init(3, device=dev, dtype=torch.float32)
     p = prompt(192, narrow.vocab_size)
+    ss.reset_launches()
     got = _hybrid_logits(torch, model, params, p, 3, dev)
+    require(ss.ROUTES == {"mma": 0, "simt": narrow.n_layers},
+            f"narrow zamba2 fp32: SSD launches by route {ss.ROUTES}, "
+            f"expected {narrow.n_layers} on simt")
     want = _hybrid_logits(torch, model, _cpu_copy(params), p, 3, "cpu")
     require(bool(torch.isfinite(got).all()), "narrow zamba2: non-finite")
     report(f"{narrow.name} L=7 d=256 float32 prompt_len=192 decode=3, card "
@@ -1320,6 +1376,8 @@ def phase_hybrid(torch, cfgs, build_model, serving, kmods, dev, name):
     """zamba2-1.2b served at full width; returns (the launches of its
     continuous run, model, params)."""
     import numpy as np
+
+    from repro_torch.kernels import ssd_scan as ss
     cfg = cfgs.get_config("zamba2-1.2b")
     model = build_model(cfg)
     params = model.init(0, device=dev)
@@ -1333,9 +1391,10 @@ def phase_hybrid(torch, cfgs, build_model, serving, kmods, dev, name):
                for n in HYBRID_PROMPT_LENS]
     eng = serving.ServeEngine(model, params, max_batch=8, cache_len=1024)
 
-    def counted(launches, label, prefills):
-        ssd = cfg.n_layers * prefills
-        require(launches["ssd_scan"] == ssd
+    def counted(launches, label, lens):
+        prefills = len(lens)
+        ssd = cfg.n_layers * sum(ss.kernels_per_call(n) for n in lens)
+        require(launches["ssd_scan"] == ssd == launches["ssd_scan.mma"]
                 and launches["flash_attention"] == n_attn * prefills
                 == launches["flash_attention.mma"]
                 and launches["paged_decode_attention"] == 0
@@ -1350,7 +1409,7 @@ def phase_hybrid(torch, cfgs, build_model, serving, kmods, dev, name):
                 for i, p in enumerate(prompts)]
         runs.append(_serve_run(torch, kmods, eng, reqs,
                                f"hybrid continuous run {run}", name))
-        counted(runs[-1][1], "continuous", len(prompts))
+        counted(runs[-1][1], "continuous", HYBRID_PROMPT_LENS)
     require(runs[0][0] == runs[1][0],
             "hybrid continuous: a repeat run changed the tokens")
     for rid, t in enumerate(runs[0][0]):
@@ -1370,7 +1429,8 @@ def phase_hybrid(torch, cfgs, build_model, serving, kmods, dev, name):
         modes[mode], launches = _serve_run(
             torch, kmods, e, reqs, f"hybrid {mode} uniform {n_uni}x{len_uni}",
             name)
-        counted(launches, f"{mode} uniform", n_uni)  # lockstep: row by row
+        counted(launches, f"{mode} uniform",
+                [len_uni] * n_uni)           # lockstep: row by row
     require(modes["lockstep"] == modes["continuous"],
             "hybrid: lockstep and continuous differ on the uniform trace")
     log("hybrid lockstep == continuous on the uniform trace")
@@ -1819,8 +1879,7 @@ def phase_fft_launches(torch, kf, dev):
 # name fragments of the port's own kernels, listed by the profile phases
 # even outside the top eight
 PORT_KERNELS = ("flash_mma_kernel", "flash_attention_kernel",
-                "paged_attention_kernel", "paged_mma_kernel",
-                "ssd_scan_kernel")
+                "paged_attention_kernel", "paged_mma_kernel", "ssd_scan_")
 
 
 def _profile(torch, fn, n):
@@ -1963,7 +2022,8 @@ def main() -> int:
         errs = phase_parity(torch, pa, dev)
         errs["flash_attention"] = phase_flash_parity(torch, fa, dev)
         errs["ssd_scan"] = phase_ssd_parity(torch, ss, dev)
-        times = phase_timing(torch, pa, fa, ss, ideality.POOL["fft"], dev)
+        times = phase_timing(torch, pa, fa, ss, ideality.POOL["fft"],
+                             ideality.POOL["exp"], dev)
         phase_checks(torch, cfgs, build_model, dev)
         phase_hybrid_checks(torch, cfgs, build_model, dev)
         phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods, dev,

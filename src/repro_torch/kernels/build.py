@@ -44,8 +44,11 @@ SIGNATURES = {
             (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     },
     "ssd_scan.cu": {
-        "repro_ssd_scan":
-            (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        "repro_ssd_scan_simt":
+            (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _P),
+        "repro_ssd_scan_mma":
+            (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _I, _P),
     },
     "matmul.cu": {

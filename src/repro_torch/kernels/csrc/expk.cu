@@ -12,8 +12,10 @@
 // FMAs are written as fmaf (nvcc's -fmad default is not relied on), the
 // rounding as rintf (roundf rounds half away from zero), and the flush in
 // code: the build flags are shared with every other source, so -ftz stays
-// off.  p * 2^ni is exact in fp64, so its flush test is exact.  The result
-// equals the plain version bit for bit.  Any n >= 1 (the Pallas kernel
+// off.  The last step is one fp32 multiply, exact wherever the result is
+// not flushed, and the flush is decided from ni and p (see exp_poly); the
+// plain version takes the exact product in fp64.  The result equals the
+// plain version bit for bit.  Any n >= 1 (the Pallas kernel
 // asserts that its 1024-element blocks divide n).
 //
 // What bounds it on the H100: bytes.  At n = 2^26 fp32 it reads and writes
@@ -52,8 +54,12 @@ __device__ __forceinline__ float exp_poly(float x) {
   p = fmaf(p, r, 1.0f);
   const int ni = static_cast<int>(fminf(fmaxf(n, -126.f), 127.f));
   const float two_n = __int_as_float((ni + 127) << 23);
-  const double y = static_cast<double>(p) * static_cast<double>(two_n);
-  return fabs(y) < 0x1p-126 ? 0.f : __double2float_rn(y);
+  // p 2^ni is exact in fp32 wherever it is not flushed: for -126 < ni <
+  // 127, n was not clipped, so |r| <= ~0.35, p is in [0.7, 1.42] and p 2^ni
+  // is a normal number; at ni = 127 the product is exact or overflows to
+  // inf as the rounding of the exact value does.  Only ni = -126 can fall
+  // below 2^-126, and there |p 2^-126| < 2^-126 is |p| < 1.
+  return (ni == -126 && fabsf(p) < 1.f) ? 0.f : __fmul_rn(p, two_n);
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

@@ -165,17 +165,13 @@ def fma32(a, b, c):
     return s.float()
 
 
-def exp_poly(x, fma=fma32):
-    """The Pallas body ``_exp_poly`` (expk.py:22-32) in fp32, as ``jit``
-    and the interpret path compile it: n = rint(x log2e) (half to even),
-    r = fma(-n, ln2, x), six Horner steps p = fma(p, r, c), n clipped to
-    [-126, 127] (a NaN n to -126, as fmaxf) and 2^n built from exponent
-    bits; p 2^n, whose exact value is a product by a power of two, is
-    flushed to +0 where it is below the least normal fp32 (XLA:CPU
-    flushes subnormals; PyTorch does not).  Outside about [-87.3, 88.7]
-    the result follows the clip (89 -> 2.2e38, -200 -> 1.6e-38); +-inf
-    give NaN.  ``fma`` is the multiply-add (a test plants a schedule that
-    rounds the product and the sum apart)."""
+def exp_parts(x, fma=fma32):
+    """The Pallas body ``_exp_poly`` (expk.py:22-32) up to its last step,
+    in fp32: n = rint(x log2e) (half to even), r = fma(-n, ln2, x), six
+    Horner steps p = fma(p, r, c), n clipped to [-126, 127] (a NaN n to
+    -126, as fmaxf).  Returns (p, the clipped n as int32, 2^n built from
+    exponent bits).  ``fma`` is the multiply-add (a test plants a schedule
+    that rounds the product and the sum apart)."""
     xf = x.float()
     dev = xf.device
     f32 = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
@@ -185,7 +181,17 @@ def exp_poly(x, fma=fma32):
     for c in EXP_COEFFS[1:]:
         p = fma(p, r, f32(c))
     ni = torch.fmin(torch.fmax(n, f32(-126.0)), f32(127.0)).to(torch.int32)
-    two_n = ((ni + 127) << 23).view(torch.float32)
+    return p, ni, ((ni + 127) << 23).view(torch.float32)
+
+
+def exp_poly(x, fma=fma32):
+    """The Pallas body ``_exp_poly`` (expk.py:22-32) in fp32, as ``jit``
+    and the interpret path compile it (:func:`exp_parts`), then p 2^n,
+    whose exact value is a product by a power of two, flushed to +0 where
+    it is below the least normal fp32 (XLA:CPU flushes subnormals; PyTorch
+    does not).  Outside about [-87.3, 88.7] the result follows the clip
+    (89 -> 2.2e38, -200 -> 1.6e-38); +-inf give NaN."""
+    p, _, two_n = exp_parts(x, fma)
     y = p.double() * two_n.double()          # exact
     return torch.where(y.abs() < FLT_MIN, 0.0, y).float()
 

@@ -12,11 +12,16 @@ of Q, as the reference asserts): inside a chunk the masked
 ``(C B^T) * exp(segsum)`` product, across chunks the carried fp32 state.
 Three implementations, as in the reference (``repro/kernels/ssd_scan.py``):
 
-* ``ssd_cuda`` - the hand-written Hopper kernel in ``csrc/ssd_scan.cu``,
-  launched on PyTorch's current stream.  It replaces ``ssd_pallas`` (and the
-  wrapper's separate ``d_skip`` / ``h0`` handling: the kernel loads ``h0``
-  in place of zeros and adds ``d_skip * x`` in fp32 before the one rounding
-  of y).  It adds one to ``LAUNCHES["ssd_scan"]`` per launch.
+* ``ssd_cuda`` - the hand-written Hopper kernels in ``csrc/ssd_scan.cu``,
+  launched on PyTorch's current stream.  They replace ``ssd_pallas`` (and
+  the wrapper's separate ``d_skip`` / ``h0`` handling: the kernels load
+  ``h0`` in place of zeros and add ``d_skip * x`` in fp32 before the one
+  rounding of y).  The dtype picks the route (:func:`route`): bf16 runs
+  chunk-parallel on the tensor cores (``mma``: chunk states, a state pass
+  over the chunks, chunk outputs; one fused launch for one chunk), fp32
+  the first port's kernel on CUDA cores (``simt``, one launch).  Each call
+  adds :func:`kernels_per_call` to ``LAUNCHES["ssd_scan"]`` and to its
+  route's count in ``ROUTES``.
 * ``ssd_plain`` - plain PyTorch with the arithmetic of ``ssd_xla``, a Python
   loop over chunks.  The CPU runs it, and ``chip_smoke.py`` holds the kernel
   against it.
@@ -37,14 +42,17 @@ from . import build
 SOURCE = "ssd_scan.cu"
 CHUNK = 64
 
-# launches of the hand-written kernel since the last reset (a plain dict of
+# launches of the hand-written kernels since the last reset (a plain dict of
 # ints: chip_smoke zeroes it before the main path and reads it after)
 LAUNCHES = {"ssd_scan": 0}
+# the same launches by route: "mma" (bf16, tensor cores), "simt" (fp32)
+ROUTES = {"mma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def chunk_len(s: int, chunk: int = CHUNK) -> int:
@@ -129,15 +137,47 @@ def ssd_step_plain(h_state, xt, dtt, a_log, bt, ct, *, d_skip=None):
 # Hand-written CUDA kernel (csrc/ssd_scan.cu).
 # ---------------------------------------------------------------------------
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# limits of csrc/ssd_scan.cu: 16 state rows (of P) a thread block, a chunk
-# of at most 64 positions, and the fp32 tiles below in shared memory
+_ROUTE = {torch.bfloat16: "mma", torch.float32: "simt"}
+# limits of csrc/ssd_scan.cu: a chunk of at most 64 positions, a state of
+# at most 256; the simt kernel takes 16 state rows (of P) a thread block
+# and holds the fp32 tiles below in shared memory
 _SLICE_P, _MAX_STATE = 16, 256
 _MAX_SMEM = 227 * 1024
 
 
+def route(dtype) -> str:
+    """The kernel that takes ``dtype``: ``"mma"`` (bf16, chunk-parallel on
+    the tensor cores) or ``"simt"`` (fp32, CUDA cores).  Raises on any
+    other dtype."""
+    if dtype not in _ROUTE:
+        raise TypeError(f"ssd_scan: x dtype {dtype}; the kernel takes "
+                        "bfloat16 or float32")
+    return _ROUTE[dtype]
+
+
+def n_chunks(s: int) -> int:
+    return s // chunk_len(s)
+
+
+def kernels_per_call(s: int, dtype=torch.bfloat16) -> int:
+    """Launches of one call at sequence length ``s``: the mma route runs
+    chunk states, the state pass and chunk outputs (3), or one fused
+    launch where S is one chunk; simt one."""
+    if route(dtype) == "simt" or n_chunks(s) == 1:
+        return 1
+    return 3
+
+
+def workspace_numel(b: int, s: int, h: int, p: int, n: int) -> int:
+    """fp32 elements of the mma route's workspace: each chunk's state
+    (B, chunks, H, P, N) and its exp(s_last) (B, chunks, H); none where S
+    is one chunk."""
+    nc = n_chunks(s)
+    return 0 if nc == 1 else b * nc * h * (p * n + 1)
+
+
 def smem_bytes(q: int, n: int) -> int:
-    """Dynamic shared memory of one thread block (csrc/ssd_scan.cu)."""
+    """Dynamic shared memory of one simt thread block (csrc/ssd_scan.cu)."""
     ld = n + 1
     return 4 * (2 * q * ld + q * (q + 1) + 2 * q * _SLICE_P
                 + _SLICE_P * ld + 3 * q)
@@ -156,9 +196,7 @@ def _check(x, dt, a_log, b_mat, c_mat, d_skip, h0) -> int:
                              f"CUDA device of x ({x.device})")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{what}: x dtype {x.dtype}; the kernel takes "
-                        "bfloat16 or float32")
+    route(x.dtype)
     if b_mat.dtype != x.dtype or c_mat.dtype != x.dtype:
         raise TypeError(f"{what}: b_mat / c_mat ({b_mat.dtype}, "
                         f"{c_mat.dtype}) must match x ({x.dtype})")
@@ -185,31 +223,41 @@ def _check(x, dt, a_log, b_mat, c_mat, d_skip, h0) -> int:
     if n < 1 or n > _MAX_STATE or p < 1:
         raise ValueError(f"{what}: d_state {n} must be in [1, {_MAX_STATE}]"
                          f" and head_dim {p} >= 1")
-    if smem_bytes(q, n) > _MAX_SMEM:
+    if x.dtype == torch.float32 and smem_bytes(q, n) > _MAX_SMEM:
         raise ValueError(f"{what}: needs {smem_bytes(q, n)} bytes of shared "
                          f"memory, the card offers {_MAX_SMEM}")
     return q
 
 
 def ssd_cuda(x, dt, a_log, b_mat, c_mat, *, d_skip=None, h0=None):
-    """The kernel, replacing ``ssd_pallas`` (``repro/kernels/ssd_scan.py:153``)
-    and its wrapper's ``d_skip`` / ``h0`` handling.  Returns (y in x's
-    dtype, h_final (B, H, P, N) fp32)."""
+    """The kernels, replacing ``ssd_pallas``
+    (``repro/kernels/ssd_scan.py:153``) and its wrapper's ``d_skip`` / ``h0``
+    handling.  Returns (y in x's dtype, h_final (B, H, P, N) fp32)."""
     q = _check(x, dt, a_log, b_mat, c_mat, d_skip, h0)
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2:]
     y = torch.empty_like(x)
     h_out = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    rt = route(x.dtype)
 
     def ptr(t):
         return ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = build.library(SOURCE)
     with torch.cuda.device(x.device):
-        err = lib.repro_ssd_scan(
-            _DTYPE_CODE[x.dtype], ptr(x), ptr(dt), ptr(a_log), ptr(b_mat),
-            ptr(c_mat), ptr(h0), ptr(d_skip), ptr(y), ptr(h_out), bsz, s, h,
-            p, g, n, q,
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(x.device).cuda_stream)
+        args = (ptr(x), ptr(dt), ptr(a_log), ptr(b_mat), ptr(c_mat), ptr(h0),
+                ptr(d_skip), ptr(y), ptr(h_out))
+        if rt == "simt":
+            err = lib.repro_ssd_scan_simt(*args, bsz, s, h, p, g, n, q,
+                                          stream)
+        else:
+            ws = torch.empty(workspace_numel(bsz, s, h, p, n),
+                             dtype=torch.float32, device=x.device)
+            err = lib.repro_ssd_scan_mma(*args, ptr(ws), bsz, s, h, p, g, n,
+                                         q, stream)
     build.check(lib, err, "ssd_scan")
-    LAUNCHES["ssd_scan"] += 1
+    k = kernels_per_call(s, x.dtype)
+    LAUNCHES["ssd_scan"] += k
+    ROUTES[rt] += k
     return y, h_out

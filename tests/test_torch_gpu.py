@@ -533,18 +533,24 @@ def _ssd_case(seed, b, s, h, p, g, n, dtype, dev):
 def test_ssd_kernel_matches_plain(cuda, dtype, tol):
     """The SSD kernel against its plain version: one ragged chunk (S = 7,
     33) and several (S = 128, 192), groups 1, 2 and 4, P = 20 (a short
-    16-row slice), with and without h0 and d_skip.  y at fp32 1e-4 (other
-    summation orders) or bf16 1e-2 (outputs rounded from fp32); the final
-    state, fp32 in both, at 1e-4."""
+    16-row slice), N = 8 and 32, and the served shape (B 1, S 960, H 64,
+    P = N = 64, G 1), with and without h0 and d_skip, each call on its
+    dtype's route (bf16 on the tensor cores) with ``kernels_per_call``
+    launches.  y at fp32 1e-4 (other summation orders) or bf16 1e-2
+    (outputs rounded from fp32); the final state, fp32 in both, at 1e-4."""
+    rt = ss.route(dtype)
     for seed, (b, s, h, p, g, n) in enumerate([
             (1, 7, 4, 16, 1, 16), (2, 33, 4, 20, 2, 8),
-            (2, 128, 8, 16, 4, 32), (1, 192, 4, 64, 1, 64)]):
+            (2, 128, 8, 16, 4, 32), (1, 192, 4, 64, 1, 64),
+            (1, 960, 64, 64, 1, 64)]):
         x, dt, a_log, bm, cm, d_skip, h0 = _ssd_case(seed, b, s, h, p, g, n,
                                                      dtype, cuda)
         for kw in (dict(), dict(d_skip=d_skip, h0=h0), dict(h0=h0)):
-            n0 = ss.LAUNCHES["ssd_scan"]
+            n0, r0 = ss.LAUNCHES["ssd_scan"], ss.ROUTES[rt]
             y, hf = ss.ssd_cuda(x, dt, a_log, bm, cm, **kw)
-            assert ss.LAUNCHES["ssd_scan"] == n0 + 1
+            k = ss.kernels_per_call(s, dtype)
+            assert ss.LAUNCHES["ssd_scan"] == n0 + k
+            assert ss.ROUTES[rt] == r0 + k
             yp, hp = ss.ssd_plain(x, dt, a_log, bm, cm, **kw)
             torch.cuda.synchronize()
             assert y.dtype == dtype and hf.dtype == torch.float32
@@ -552,6 +558,25 @@ def test_ssd_kernel_matches_plain(cuda, dtype, tol):
             torch.testing.assert_close(y.float(), yp.float(), rtol=tol,
                                        atol=tol)
             torch.testing.assert_close(hf, hp, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s", [33, 960])
+def test_ssd_mma_rows_are_batch_invariant_and_repeatable(cuda, s):
+    """bf16 on the tensor cores: a B = 3 call's rows equal three B = 1
+    calls bit for bit (y and the final state, with h0 and d_skip), and a
+    rerun equals the first run bit for bit."""
+    x, dt, a_log, bm, cm, d_skip, h0 = _ssd_case(30 + s, 3, s, 64, 64, 1, 64,
+                                                 torch.bfloat16, cuda)
+    kw = dict(d_skip=d_skip, h0=h0)
+    y, hf = ss.ssd_cuda(x, dt, a_log, bm, cm, **kw)
+    y2, hf2 = ss.ssd_cuda(x, dt, a_log, bm, cm, **kw)
+    assert torch.equal(y, y2) and torch.equal(hf, hf2)
+    for r in range(3):
+        yr, hr = ss.ssd_cuda(x[r:r + 1].contiguous(), dt[r:r + 1].contiguous(),
+                             a_log, bm[r:r + 1].contiguous(),
+                             cm[r:r + 1].contiguous(), d_skip=d_skip,
+                             h0=h0[r:r + 1].contiguous())
+        assert torch.equal(yr, y[r:r + 1]) and torch.equal(hr, hf[r:r + 1])
 
 
 def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
@@ -987,6 +1012,25 @@ def test_pool_dwt_matches_plain(cuda, dtype):
     assert torch.equal(_counted(k_dwt, "dwt", k_dwt.dwt_haar_cuda, x,
                                 levels=4),
                        k_dwt.dwt_haar_plain(x, levels=4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_exp_every_bit_pattern(cuda, dtype):
+    """exp equals its plain version bit for bit (NaN for NaN) on every bit
+    pattern of its dtype: all 2^16 bf16 values, and all 2^32 fp32 values
+    in chunks of 2^27."""
+    bits = 16 if dtype == torch.bfloat16 else 32
+    chunk = min(1 << bits, 1 << 27)
+    for start in range(0, 1 << bits, chunk):
+        raw = torch.arange(start, start + chunk, dtype=torch.int64,
+                           device=cuda)
+        if dtype == torch.bfloat16:
+            x = raw.to(torch.int16).view(torch.bfloat16)
+        else:
+            x = (raw - (1 << 31)).to(torch.int32).view(torch.float32)
+        assert _same_bits(_counted(k_exp, "exp", k_exp.exp_cuda, x),
+                          k_exp.exp_plain(x))
+        del raw, x
 
 
 def test_pool_exp_dwt_reject_what_they_do_not_take(cuda):

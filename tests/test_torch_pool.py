@@ -573,6 +573,39 @@ def test_exp_eager_schedule_is_more_than_one_ulp_away():
     np.testing.assert_array_equal(eager_port, eager_ref)
 
 
+def _exp_fp32_last_step(x):
+    """exp as csrc/expk.cu computes its last step: one fp32 multiply p 2^n,
+    +0 where n is clipped to -126 and |p| < 1."""
+    p, ni, two_n = tref.exp_parts(x)
+    return torch.where((ni == -126) & (p.abs() < 1.0), 0.0, p * two_n)
+
+
+def test_exp_fp32_last_step_equals_the_exact_product():
+    """The kernel's fp32 last step equals the plain version's exact fp64
+    product and flush bit for bit, NaN for NaN, on every bf16 bit pattern
+    (65,536, taken in fp32) and on fp32's edges: +-0, subnormals, the
+    least normal and its neighbours, +-inf, NaN, +-88.7, +-1e30, fp32's
+    extremes, and a sweep across the flush near -87.34."""
+    bf16 = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16).float()
+    tiny = np.float32(2.0 ** -126)
+    edges = np.array(EXP_EDGE + [0.0, -0.0, 1e-45, -1e-45, 1e-39, -1e-39,
+                                 float(tiny), float(-tiny), 88.7, -88.7,
+                                 3.4028235e38, -3.4028235e38,
+                                 float(np.nextafter(tiny, np.float32(0))),
+                                 float(np.nextafter(tiny, np.float32(1)))],
+                     np.float32)
+    sweep = np.float32(-87.33654) + np.arange(-4096, 4096, dtype=np.float32) \
+        * np.float32(2 ** -17)
+    for x in (bf16, torch.from_numpy(edges),
+              torch.from_numpy(sweep.astype(np.float32))):
+        got, want = _exp_fp32_last_step(x), tref.exp_poly(x)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        fin = ~torch.isnan(want)
+        assert torch.equal(got[fin].view(torch.int32),
+                           want[fin].view(torch.int32))
+
+
 def _round_fp32(exact):
     """The fp32 value nearest a rational ``exact``, ties to even."""
     f = np.float32(float(exact))

@@ -171,3 +171,151 @@ def test_cuda_wrapper_rejects_cpu_tensors_before_any_launch():
     with pytest.raises(ValueError, match="CUDA"):
         ss.ssd_cuda(*args)
     assert ss.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The bf16 route's design (csrc/ssd_scan.cu, route "mma"), emulated in plain
+# PyTorch before the card: three phases, bf16 operands, fp32 sums.
+# ---------------------------------------------------------------------------
+
+def _bf16(v):
+    return v.bfloat16().float()
+
+
+def _parts(v, split):
+    """v as the kernel feeds it to the tensor cores: hi = bf16(v) and
+    lo = bf16(v - hi) (``split``), or hi alone (one rounding)."""
+    hi = _bf16(v)
+    return (hi, _bf16(v - hi)) if split else (hi,)
+
+
+def _emulate_mma_route(x, dt, a_log, bm, cm, *, d_skip=None, h0=None,
+                       split=True):
+    """The mma route's arithmetic: chunk states dh_c = sum_j x_j (outer)
+    (exp(s_last - s_j) dt_j B_j), a state pass h_c = exp(s_last,c) h_{c-1} +
+    dh_c, and chunk outputs y = scores . x + exp(s_i) C . h_entering
+    (+ d_skip x), scores = (C B^T) exp(s_i - s_j) dt_j under the causal mask.
+    x, B and C are bf16 values; every product sums fp32 terms of bf16
+    operands, the fp32 operand (w B, the scores, the entering state) split
+    into hi + lo (``split``) or rounded once."""
+    bsz, s, h, p = x.shape
+    g, n = bm.shape[2:]
+    q = ss.chunk_len(s)
+    nc = s // q
+
+    def chunks(t):
+        return t.float().reshape(bsz, nc, q, *t.shape[2:])
+    xc, dtc = chunks(x), chunks(dt)
+    bc = chunks(bm).repeat_interleave(h // g, dim=3)       # (B, c, q, H, N)
+    cc = chunks(cm).repeat_interleave(h // g, dim=3)
+    s_ = torch.cumsum(dtc * -torch.exp(a_log.float()), dim=2)  # (B, c, q, H)
+    last = s_[:, :, -1:]
+    wb = (torch.exp(last - s_) * dtc)[..., None] * bc
+    dh = sum(torch.einsum("bcjhp,bcjhn->bchpn", xc, part)
+             for part in _parts(wb, split))
+    dec = torch.exp(last[:, :, 0])                          # (B, c, H)
+    state = (torch.zeros((bsz, h, p, n)) if h0 is None else h0.float())
+    enter = []
+    for c in range(nc):
+        enter.append(state)
+        state = dec[:, c, :, None, None] * state + dh[:, c]
+    enter = torch.stack(enter, dim=1)                       # (B, c, H, P, N)
+    st = s_.permute(0, 1, 3, 2)                             # (B, c, H, q)
+    causal = torch.ones((q, q), dtype=torch.bool).tril()
+    scores = torch.where(
+        causal, torch.einsum("bcihn,bcjhn->bchij", cc, bc)
+        * torch.exp(st[..., :, None] - st[..., None, :])
+        * dtc.permute(0, 1, 3, 2)[..., None, :], 0.0)
+    y = sum(torch.einsum("bchij,bcjhp->bcihp", part, xc)
+            for part in _parts(scores, split))
+    y = y + torch.exp(s_)[..., None] * sum(
+        torch.einsum("bcihn,bchpn->bcihp", cc, part)
+        for part in _parts(enter, split))
+    if d_skip is not None:
+        y = y + d_skip.float()[:, None] * xc
+    return y.reshape(bsz, s, h, p).to(x.dtype), state
+
+
+def _zamba2_ssd(s, seed):
+    """bf16 x, B, C at zamba2-1.2b's SSD widths (H 64, P = N = 64, G 1) in
+    the model's ranges, as numpy fp32 arrays of bf16 values: x normal,
+    dt = softplus(N(-2, 1)), a_log = log U(1, 16), B and C 0.3 normal,
+    d_skip normal, h0 0.2 normal."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def bf(a):
+        return torch.from_numpy(a.astype(f32)).bfloat16().float().numpy()
+    return [bf(rng.standard_normal((1, s, 64, 64))),
+            np.logaddexp(rng.standard_normal((1, s, 64)) - 2.0, 0.0).astype(
+                f32),
+            np.log(rng.uniform(1.0, 16.0, 64)).astype(f32),
+            bf(rng.standard_normal((1, s, 1, 64)) * 0.3),
+            bf(rng.standard_normal((1, s, 1, 64)) * 0.3),
+            rng.standard_normal(64).astype(f32),
+            (rng.standard_normal((1, 64, 64, 64)) * 0.2).astype(f32)]
+
+
+def _mma_vs_xla(s, extras, split):
+    """(y within 1e-2, final state within 1e-4, max state error) of the
+    emulation against ``ssd_xla`` on bf16 inputs at zamba2's widths."""
+    x, dt, a_log, bm, cm, d_skip, h0 = _zamba2_ssd(s, seed=s + extras)
+    kw = dict(d_skip=d_skip, h0=h0) if extras else {}
+    yx, hx = ssd_xla(jnp.asarray(x, jnp.bfloat16), jnp.asarray(dt),
+                     jnp.asarray(a_log), jnp.asarray(bm, jnp.bfloat16),
+                     jnp.asarray(cm, jnp.bfloat16),
+                     **{k: jnp.asarray(v) for k, v in kw.items()})
+    y, h = _emulate_mma_route(
+        torch.from_numpy(x).bfloat16(), torch.from_numpy(dt),
+        torch.from_numpy(a_log), torch.from_numpy(bm).bfloat16(),
+        torch.from_numpy(cm).bfloat16(), split=split,
+        **{k: torch.from_numpy(v) for k, v in kw.items()})
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    y_want = np.asarray(yx.astype(jnp.float32))
+    y_ok = np.allclose(y.float().numpy(), y_want, atol=1e-2, rtol=1e-2)
+    h_ok = np.allclose(h.numpy(), np.asarray(hx), atol=1e-4, rtol=1e-4)
+    return y_ok, h_ok, float(np.abs(h.numpy() - np.asarray(hx)).max())
+
+
+@pytest.mark.parametrize("extras", [False, True])
+@pytest.mark.parametrize("s", [192, 960])
+def test_mma_route_design_matches_xla_at_zamba2_widths(s, extras):
+    """The bf16 route's three phases with split operands, against the
+    reference's ``ssd_xla`` on the same bf16 inputs: y within the kernel's
+    bf16 tolerance (1e-2), the final state within 1e-4, with and without
+    h0 / d_skip, at S 192 (three chunks) and 960 (the served prompt)."""
+    y_ok, h_ok, err = _mma_vs_xla(s, extras, split=True)
+    assert y_ok and h_ok, err
+
+
+def test_mma_route_with_one_bf16_rounding_fails_the_state_tolerance():
+    """The same design with each fp32 operand rounded once to bf16 (as
+    mamba_ssm's chunk kernels feed the tensor cores) misses the final
+    state's 1e-4: the tolerance tells the two designs apart."""
+    y_ok, h_ok, err = _mma_vs_xla(960, True, split=False)
+    assert not h_ok and err > 1e-4, err
+
+
+def test_routes_launches_and_workspace():
+    """route: bf16 -> mma, fp32 -> simt, anything else raises.  Launches a
+    call: mma 3 (states, state pass, outputs) or 1 where S is one chunk,
+    simt 1.  The workspace holds every
+    chunk's state and decay, 15.7 MB at the served shape, none for one
+    chunk."""
+    assert ss.route(torch.bfloat16) == "mma"
+    assert ss.route(torch.float32) == "simt"
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        ss.route(torch.float16)
+    assert [ss.kernels_per_call(s) for s in (7, 33, 64, 128, 960)] == \
+        [1, 1, 1, 3, 3]
+    assert [ss.kernels_per_call(s, torch.float32) for s in (7, 960)] == [1, 1]
+    with pytest.raises(ValueError, match="multiple"):
+        ss.kernels_per_call(200)
+    assert ss.workspace_numel(1, 960, 64, 64, 64) * 4 == 15_732_480
+    assert ss.workspace_numel(3, 192, 8, 16, 32) == 3 * 3 * 8 * (16 * 32 + 1)
+    assert ss.workspace_numel(2, 64, 64, 64, 64) == 0
+    ss.ROUTES["mma"] += 1
+    ss.LAUNCHES["ssd_scan"] += 1
+    ss.reset_launches()
+    assert ss.ROUTES == {"mma": 0, "simt": 0}
+    assert ss.LAUNCHES == {"ssd_scan": 0}
