@@ -41,8 +41,11 @@ Phases, each of which exits non-zero on failure:
               per call from torch.profiler beside the event timer's (a
               launch shorter than the host's launch cost leaves the timer
               reading the host; SSD's summed over its three launches;
-              exp's and torch.exp's at 2^26 in both dtypes, in turns), for
-              the paged ones also SDPA with the
+              exp's and torch.exp's at 2^26 in both dtypes, in turns;
+              pathfinder's at 1024 x 2^18 and jacobi2d's at 16384^2 in
+              both dtypes, in turns with a yardstick that is not the
+              function: one read of w, torch.amin, and a copy of x,
+              x.clone()), for the paged ones also SDPA with the
               gather and mask a paged caller would pay, and fft's 2^24
               launches and cuFFT's device time;
 5. checks   - the whole model on the card against the plain CPU path: a
@@ -96,7 +99,9 @@ Phases, each of which exits non-zero on failure:
               against its plain version in fp32 and bf16 at the
               reference's benchmark sizes, at sizes that fill the card and
               on ragged shapes (pathfinder, jacobi2d, dropout, exp and dwt
-              bit for bit, NaN for NaN, which exp with its multiply-adds
+              bit for bit, NaN for NaN, pathfinder's and jacobi2d's ragged
+              shapes also with NaN and +-inf planted at window, strip and
+              warp edges, which exp with its multiply-adds
               rounded apart and a bf16 dwt kept in fp32 fail; fft, kernel
               and plain version, within 5e-6 sqrt(n) of an fp64
               transform, which a conjugated stage fails), dotproduct also
@@ -217,7 +222,11 @@ SOURCES = {
 # kernel's longest cached row, 12281 and 20000 take its uncached path; fft:
 # the shortest signal and the first that takes two passes; pathfinder: one
 # row, one column, several windows, several launches; jacobi2d: no interior,
-# and three sweeps; dropout: the edge bits (DROPOUT_EDGE_BITS); exp: a length
+# and three sweeps, every W mod 8 at H 66 (64-row strips of 64 and 2
+# rows), a strip of one row (H 65) and three sweeps on misaligned rows;
+# pathfinder also rows at k 64 + {0, 1, 2} with columns at k 896 + {-1, 0,
+# 1} (a launch's rows, a window's finished columns); dropout: the edge bits
+# (DROPOUT_EDGE_BITS); exp: a length
 # no 16-byte load divides, EXP_EDGE at its head; dwt: n = 3 2^11 at one,
 # five and eleven levels, and 2^20 at the one-launch depth and past it
 POOL_RAGGED = (("matmul", ((127, 129), (129, 65)), ()),
@@ -233,9 +242,15 @@ POOL_RAGGED = (("matmul", ((127, 129), (129, 65)), ()),
                ("pathfinder", ((20, 257),), ()),
                ("pathfinder", ((3, 70000),), ()),
                ("pathfinder", ((200, 1000),), ()),
+               *(("pathfinder", (shape,), ()) for shape in
+                 ((64, 895), (65, 896), (66, 897), (128, 1791), (129, 1792),
+                  (130, 1793))),
                ("jacobi2d", ((35, 67),), ()), ("jacobi2d", ((3, 3),), ()),
                ("jacobi2d", ((2, 5),), ()),
                ("jacobi2d", ((35, 67),), (("steps", 3),)),
+               *(("jacobi2d", ((66, 1024 + m),), ()) for m in range(8)),
+               ("jacobi2d", ((65, 1027),), ()),
+               ("jacobi2d", ((129, 515),), (("steps", 3),)),
                ("dropout", ((1000,), (1000,)), (("rate", 0.1),)),
                ("dropout", ((1000,), (1000,)), (("rate", 0.5),)),
                ("exp", ((1_000_003,),), ()),
@@ -257,6 +272,13 @@ FFT_N = 1 << 24    # fft's card-scale length (the pool's card ladder)
 EXP_N = 1 << 26    # exp's card-scale length (the pool's card ladder)
 # torch.equal (NaN for NaN)
 EXACT_OPS = ("pathfinder", "jacobi2d", "dropout", "exp", "dwt")
+# (row, column) cells of a ragged case's input where NaN, inf, -inf and NaN
+# are planted: pathfinder at a window's edge (its finished columns end at
+# 895 / 896), a launch's edge (row 64) and the last column; jacobi2d at a
+# strip's edge (rows 63 / 64) and warp edges (columns 127 / 128 in fp32,
+# 255 / 256 in bf16), taken modulo the shape
+PLANT_CELLS = {"pathfinder": ((1, 895), (64, 896), (65, 127), (-1, -1)),
+               "jacobi2d": ((63, 127), (64, 128), (1, 255), (2, 256))}
 
 
 class SmokeFailure(Exception):
@@ -698,7 +720,7 @@ def _sdpa_inputs(torch, pa, q, kp, vp, bt, lens, causal):
     return q, k, v, mask
 
 
-def phase_timing(torch, pa, fa, ss, kf, kexp, dev):
+def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, dev):
     """kernel / plain / library / bound, in ms, for each kernel; for the
     attention kernels also the profiler's device time of the kernel and of
     SDPA (a ~0.03 ms call leaves the event timer reading the host), and for
@@ -850,7 +872,36 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, dev):
             device_ms=dev_ms[0::2], library_device_ms=dev_ms[1::2],
             bound_ms=None, bound_by=None)
         del ex
+    # pathfinder and jacobi2d at the card ladder's shapes, both dtypes: the
+    # profiler's device time in turns with a yardstick that is not the
+    # function (one read of w; a copy of x), beside the event timer's
+    # (logged, not in the kernels line: the pool phase times them through
+    # the entry point)
+    for kmod, fn, shape, yard, yname in (
+            (kpf, kpf.pathfinder_cuda, (1024, 1 << 18), torch.amin,
+             "torch.amin(w)"),
+            (kjc, kjc.jacobi2d_cuda, (16384, 16384), torch.clone,
+             "x.clone()")):
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = [[torch.randn(shape, generator=gen, device=dev).abs().to(
+                dtype)] for _ in range(2)]
+            dev_ms = [device_ms(torch, f, xs) for f in (fn, yard, fn, yard)]
+            out[f"{kmod.SOURCE[:-3]} {shape[0]}x{shape[1]} "
+                f"{str(dtype)[6:]}"] = dict(
+                ms=time_ms(torch, fn, xs, 10), plain_ms=None,
+                library_ms=time_ms(torch, yard, xs, 10), yardstick=yname,
+                device_ms=dev_ms[0::2], library_device_ms=dev_ms[1::2],
+                bound_ms=None, bound_by=None)
+            del xs
     for name, t in out.items():
+        if "yardstick" in t:             # device times of two turns each
+            log(f"timing {name}: kernel_ms={t['ms']:.4f} yardstick_ms="
+                f"{t['library_ms']:.4f} ({t['yardstick']}, not the "
+                f"function) device_ms={', '.join(map(_ms, t['device_ms']))}"
+                f" yardstick_device_ms="
+                f"{', '.join(map(_ms, t['library_device_ms']))} (profiler, "
+                "kernel and yardstick in turns)")
+            continue
         if name.startswith("exp"):       # device times of two turns each
             log(f"timing {name}: kernel_ms={t['ms']:.4f} library_ms="
                 f"{t['library_ms']:.4f} (torch.exp) device_ms="
@@ -1655,10 +1706,33 @@ def _pool_check(torch, ideality, mod, case, args, out_dtype=None):
     return got, err
 
 
+def _pool_planted(torch, ideality, mod, case, args):
+    """The case's input with NaN and +-inf planted at ``PLANT_CELLS``: one
+    counted kernel call equal to the plain version, NaN for NaN."""
+    x = args[0].clone()
+    h, w = x.shape
+    for (i, j), v in zip(PLANT_CELLS[case.op],
+                         (math.nan, math.inf, -math.inf, math.nan)):
+        x[i % h, j % w] = v
+    fn, kw = ideality.function(case.op), dict(case.kw)
+    n0 = mod.LAUNCHES[case.op]
+    got = getattr(mod, f"{fn}_cuda")(x, **kw)
+    require(mod.LAUNCHES[case.op] == n0 + case.kernels_per_call(),
+            f"{case.name} planted: the count did not move by one call's "
+            "kernels")
+    ok = same_bits(torch, got, getattr(mod, f"{fn}_plain")(x, **kw))
+    log(f"parity {case.name} with NaN / inf planted: {int(got.isnan().sum())}"
+        f" NaN, {int(got.isinf().sum())} inf out, "
+        f"{'bit-identical' if ok else 'FAIL'}")
+    require(ok, f"{case.name}: with NaN / inf planted the kernel disagrees "
+                "with its plain version")
+
+
 def phase_pool_parity(torch, ideality, pool, dev):
     """Each pool kernel against its plain version on the card, its count
-    moving by its kernels per call; matmul with the other output dtype
-    too, and a TF32 product shown to fail the fp32 tolerance; dotproduct
+    moving by its kernels per call (pathfinder's and jacobi2d's ragged
+    cases also with NaN and +-inf planted); matmul with the other output
+    dtype too, and a TF32 product shown to fail the fp32 tolerance; dotproduct
     called twice, bit-identical, and a lost block or tail shown to fail;
     an FFT with one stage's twiddles conjugated shown to fail fft's
     tolerance; exp with its multiply-adds rounded apart (the reference's
@@ -1673,6 +1747,8 @@ def phase_pool_parity(torch, ideality, pool, dev):
         mod = pool[case.op]
         args = pool_inputs(torch, case, gen, dev)
         got, err = _pool_check(torch, ideality, mod, case, args)
+        if case.op in PLANT_CELLS and "_ragged_" in case.name:
+            _pool_planted(torch, ideality, mod, case, args)
         if case.op == "matmul":
             other = (torch.bfloat16 if case.dtype == torch.float32
                      else torch.float32)
@@ -2023,7 +2099,8 @@ def main() -> int:
         errs["flash_attention"] = phase_flash_parity(torch, fa, dev)
         errs["ssd_scan"] = phase_ssd_parity(torch, ss, dev)
         times = phase_timing(torch, pa, fa, ss, ideality.POOL["fft"],
-                             ideality.POOL["exp"], dev)
+                             ideality.POOL["exp"], ideality.POOL["pathfinder"],
+                             ideality.POOL["jacobi2d"], dev)
         phase_checks(torch, cfgs, build_model, dev)
         phase_hybrid_checks(torch, cfgs, build_model, dev)
         phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods, dev,

@@ -63,9 +63,9 @@ SIGNATURES = {
         "repro_fft_local": (_I, _P, _P, _P, _P, _I, _P),
     },
     "pathfinder.cu": {
-        "repro_pathfinder": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "repro_pathfinder": (_I, _P, _P, _P, _I, _I, _I, _P),
     },
-    "jacobi2d.cu": {"repro_jacobi2d": (_I, _P, _P, _I, _I, _P)},
+    "jacobi2d.cu": {"repro_jacobi2d": (_I, _P, _P, _P, _I, _I, _I, _P)},
     "dropout.cu": {"repro_dropout": (_I, _P, _P, _P, _L, _F, _F, _P)},
     "expk.cu": {"repro_exp": (_I, _P, _P, _L, _P)},
     "dwt.cu": {"repro_dwt_haar": (_I, _P, _L, _I, _P, _P, _P)},

@@ -8,10 +8,12 @@ implementations, as in the reference (``repro/kernels/jacobi2d.py``):
 
 * ``jacobi2d_cuda`` - the hand-written Hopper kernel in
   ``csrc/jacobi2d.cu``, replacing ``jacobi2d_pallas``: one launch a sweep,
-  ping-ponging two buffers, a thread a point.  Any H and W (the Pallas
-  kernel asserts that 8 divides H - 2; below 3 the sweep is a copy).  The
-  wrapper adds one to ``LAUNCHES["jacobi2d"]`` per launch:
-  :func:`kernels_per_call` of them a call, one a sweep.
+  ping-ponging two buffers, all from one C call; a thread owns 16 bytes of
+  a row (4 fp32 or 8 bf16 columns) and walks a strip of rows down, the
+  rows above and below in registers.  Any H and W (the Pallas kernel
+  asserts that 8 divides H - 2; below 3 the sweep is a copy).  The wrapper
+  adds the launches to ``LAUNCHES["jacobi2d"]``: :func:`kernels_per_call`
+  of them a call, one a sweep.
 * ``jacobi2d_plain`` - the oracle's sweeps (``ref.jacobi2d_ref``), the
   counterpart of ``jacobi2d_xla``, which takes ``steps`` too.
 
@@ -61,18 +63,17 @@ def jacobi2d_cuda(x, steps=1):
     out = torch.empty_like(x)
     if steps == 0:
         return out.copy_(x)
-    # the sweeps ping-pong between out and scratch, the last writing out
+    # one C call launches every sweep, ping-ponging between out and
+    # scratch, the last writing out
     scratch = torch.empty_like(x) if steps > 1 else None
     lib = build.library(SOURCE)
     h, w = x.shape
-    src = x
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for i in range(steps):
-            dst = out if (steps - 1 - i) % 2 == 0 else scratch
-            err = lib.repro_jacobi2d(_DTYPE_CODE[x.dtype], src.data_ptr(),
-                                     dst.data_ptr(), h, w, stream)
-            build.check(lib, err, what)
-            LAUNCHES["jacobi2d"] += 1
-            src = dst
+        err = lib.repro_jacobi2d(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), h, w, steps,
+            stream)
+    build.check(lib, err, what)
+    LAUNCHES["jacobi2d"] += steps
     return out

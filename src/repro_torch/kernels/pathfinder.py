@@ -9,9 +9,12 @@ Two implementations, as in the reference (``repro/kernels/pathfinder.py``):
 * ``pathfinder_cuda`` - the hand-written Hopper kernel in
   ``csrc/pathfinder.cu``, replacing ``pathfinder_pallas``: ghost-zone
   tiling, each launch advancing ``HEIGHT`` rows over 1024-column windows
-  that need no exchange between blocks.  The wrapper adds one to
-  ``LAUNCHES["pathfinder"]`` per launch: :func:`kernels_per_call` of them
-  a call (``ceil((rows - 1) / HEIGHT)``, one for a single row).
+  that need no exchange between blocks, a thread owning 4 contiguous
+  columns (16 bytes of an fp32 cost row, 8 of a bf16 one), the next rows
+  streaming into a ring in shared memory by ``cp.async``.  One C call launches every
+  launch of a call; the wrapper adds them to ``LAUNCHES["pathfinder"]``:
+  :func:`kernels_per_call` of them (``ceil((rows - 1) / HEIGHT)``, one for
+  a single row).
 * ``pathfinder_plain`` - the oracle's row loop (``ref.pathfinder_ref``).
 
 Both fill the edge with the Pallas kernel's 3.0e38 (``_BIG``), where the
@@ -28,7 +31,9 @@ from . import build, ref
 
 SOURCE = "pathfinder.cu"
 LAUNCHES = {"pathfinder": 0}
-HEIGHT = 64       # rows a launch advances; < 512, csrc/pathfinder.cu's window
+# rows a launch advances: a multiple of 8 below 512 (csrc/pathfinder.cu's
+# 1024-column window)
+HEIGHT = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 
@@ -58,22 +63,17 @@ def pathfinder_cuda(w):
     if rows > _INT_MAX or cols > _INT_MAX:
         raise ValueError(f"{what}: {rows} x {cols} exceeds 2^31 - 1")
     launches = kernels_per_call(w.shape)
-    # the rows ping-pong between out and scratch, the last launch writing
-    # out
+    # one C call launches them all, the rows ping-ponging between out and
+    # scratch, the last launch writing out
     out = torch.empty(cols, dtype=torch.float32, device=w.device)
     scratch = torch.empty_like(out) if launches > 1 else None
     lib = build.library(SOURCE)
-    src = None
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
-        for i in range(launches):
-            dst = out if (launches - 1 - i) % 2 == 0 else scratch
-            row0 = 1 + i * HEIGHT
-            err = lib.repro_pathfinder(
-                _DTYPE_CODE[w.dtype], w.data_ptr(),
-                None if src is None else src.data_ptr(), dst.data_ptr(),
-                rows, cols, row0, min(HEIGHT, rows - row0), HEIGHT, stream)
-            build.check(lib, err, what)
-            LAUNCHES["pathfinder"] += 1
-            src = dst
+        err = lib.repro_pathfinder(
+            _DTYPE_CODE[w.dtype], w.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), rows, cols,
+            HEIGHT, stream)
+    build.check(lib, err, what)
+    LAUNCHES["pathfinder"] += launches
     return out

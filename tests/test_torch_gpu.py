@@ -8,6 +8,7 @@ imports no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -924,6 +925,70 @@ def test_pool_exact_kernels_match_plain(cuda, dtype):
             assert got.dtype == dtype
             assert torch.equal(got, k_dropout.dropout_plain(x, bits,
                                                             rate=rate))
+
+
+# pathfinder: rows at k 64 + {0, 1, 2}, columns at k 896 + {-1, 0, 1} (a
+# launch's rows, a window's finished columns); jacobi2d: every W mod 8, H
+# not a multiple of the 64-row strip and strips of one row
+PF_RAGGED = [(64, 895), (65, 896), (66, 897), (128, 1791), (129, 1792),
+             (130, 1793)]
+JC_RAGGED = [(66, 1024 + m) for m in range(8)] + [(65, 1027), (129, 515)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_pathfinder_jacobi2d_ragged_and_planted(cuda, dtype):
+    """pathfinder and jacobi2d equal their plain versions bit for bit, NaN
+    for NaN, on the shapes of the CPU emulations
+    (``tests/test_torch_pool.py``), plain and with NaN and +-inf planted:
+    pathfinder's at a window edge (column 895, 896), a launch edge (row
+    64) and the last column; jacobi2d's at a strip edge (row 63 / 64), a
+    warp edge (columns 127 / 128 in fp32, 255 / 256 in bf16: lanes 31 and
+    0), a thread edge (columns 31 / 32) and the last column; jacobi2d also at three sweeps on a misaligned
+    width, and in bf16 on subnormals.  Launches are ``kernels_per_call``."""
+    warp = 32 * 16 // torch.tensor([], dtype=dtype).element_size()
+    for seed, shape in enumerate(PF_RAGGED):
+        (w,) = _randn(seed, cuda, dtype, shape)
+        w = w.abs()
+        for planted in (False, True):
+            if planted:
+                for (i, j), v in zip([(1, 895), (64, 896), (65, 127),
+                                      (-1, -1), (2, 0)],
+                                     [math.nan, math.inf, -math.inf,
+                                      math.nan, math.inf]):
+                    w[i % shape[0], j % shape[1]] = v
+            got = _counted(k_pathfinder, "pathfinder",
+                           k_pathfinder.pathfinder_cuda, w)
+            assert got.dtype == torch.float32
+            assert _same_bits(got, k_pathfinder.pathfinder_plain(w))
+    for seed, shape in enumerate(JC_RAGGED):
+        (x,) = _randn(seed, cuda, dtype, shape)
+        for planted in (False, True):
+            if planted:
+                for (i, j), v in zip([(63, warp - 1), (64, warp), (1, 31),
+                                      (2, 32), (40, -1)],
+                                     [math.nan, math.inf, -math.inf,
+                                      math.inf, math.nan]):
+                    x[i % shape[0], j % shape[1]] = v
+            for steps in (1, 3):
+                got = _counted(k_jacobi2d, "jacobi2d",
+                               k_jacobi2d.jacobi2d_cuda, x, steps=steps)
+                assert got.dtype == dtype
+                assert _same_bits(got, k_jacobi2d.jacobi2d_plain(x, steps))
+    (x,) = _randn(99, cuda, dtype, (300, 301), scale=1e-38)
+    got = _counted(k_jacobi2d, "jacobi2d", k_jacobi2d.jacobi2d_cuda, x)
+    assert torch.equal(got, k_jacobi2d.jacobi2d_plain(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_pathfinder_card_scale_matches_plain(cuda, dtype):
+    """pathfinder at the card ladder's 1024 x 2^18, once, bit for bit
+    against its plain version, in 16 launches."""
+    (w,) = _randn(7, cuda, dtype, (1024, 1 << 18))
+    w = w.abs()
+    got = _counted(k_pathfinder, "pathfinder",
+                   k_pathfinder.pathfinder_cuda, w)
+    assert k_pathfinder.kernels_per_call(w.shape) == 16
+    assert torch.equal(got, k_pathfinder.pathfinder_plain(w))
 
 
 def test_pool_new_kernels_reject_what_they_do_not_take(cuda):

@@ -390,6 +390,89 @@ def test_pathfinder_launches_cover_every_row():
             (1, 2, 65, 66, 1024)] == [1, 1, 1, 2, 16]
 
 
+# csrc/pathfinder.cu's window: 1024 columns, 4 columns a thread
+PF_WINDOW, PF_COLS = 1024, 4
+PF_FILL = 3.0e38
+
+
+def _pathfinder_tiled(w):
+    """An emulation of csrc/pathfinder.cu's tiling (on no path): launches
+    of ``HEIGHT`` rows over 1024-column windows that overlap by ``HEIGHT``
+    halo columns a side, a thread's 4 contiguous columns of each cost row
+    in a (threads, 4) view, neighbours from
+    the adjacent thread (by shuffle in a warp, through the warps' edge
+    values at a warp's ends), 3.0e38 beside the window's two ends and in
+    the columns outside [0, cols), which are never updated.  Returns the
+    last row in fp32 and the launches it took."""
+    rows, cols = w.shape
+    height = k_pathfinder.HEIGHT
+    threads = PF_WINDOW // PF_COLS
+    out = PF_WINDOW - 2 * height
+    fill = torch.tensor(PF_FILL)
+    src, launches, row0 = None, 0, 1
+    while launches == 0 or row0 < rows:
+        nrows = min(height, rows - row0)
+        dst = torch.empty(cols)
+        for b in range(-(-cols // out)):
+            g = b * out - height + torch.arange(PF_WINDOW).view(threads,
+                                                               PF_COLS)
+            inside = (g >= 0) & (g < cols)
+            gi = g.clamp(0, cols - 1)
+            v = torch.where(inside, (w[row0 - 1].float() if src is None
+                                     else src)[gi], fill)
+            for i in range(nrows):
+                cost = w[row0 + i].float()[gi]
+                # the neighbour of column k of thread t: thread t's k - 1
+                # or k + 1, else thread t - 1's last / t + 1's first
+                left = torch.cat([fill.view(1), v[:-1, -1]])
+                right = torch.cat([v[1:, 0], fill.view(1)])
+                lft = torch.cat([left[:, None], v[:, :-1]], 1)
+                rgt = torch.cat([v[:, 1:], right[:, None]], 1)
+                v = torch.where(inside, cost + torch.minimum(
+                    v, torch.minimum(lft, rgt)), v)
+            done = (g >= b * out) & (g < (b + 1) * out) & inside
+            dst[g[done]] = v[done]
+        src, launches, row0 = dst, launches + 1, row0 + nrows
+    return src, launches
+
+
+def _plant(a, cells, values):
+    a = a.copy()
+    for (i, j), v in zip(cells, values):
+        a[i % a.shape[0], j % a.shape[1]] = v
+    return a
+
+
+# rows at k HEIGHT + {0, 1, 2}, columns at k out - 1, k out, k out + 1
+# (out = 1024 - 2 HEIGHT = 896, the columns a window finishes)
+PF_RAGGED = [(64, 895), (65, 896), (66, 897), (128, 1791), (129, 1792),
+             (130, 1793)]
+
+
+@pytest.mark.parametrize("shape", PF_RAGGED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("planted", [False, True])
+def test_pathfinder_tiling_exact_against_pallas_interpret(shape, dtype,
+                                                          planted):
+    """The tiling of csrc/pathfinder.cu, emulated: bit for bit against the
+    Pallas body (``impl="interpret"``) and the port's plain version, NaN
+    for NaN, on shapes around the window's and a launch's edges, with NaN
+    and +-inf planted at a window edge, a launch edge and the last
+    column; its launches are ``kernels_per_call``."""
+    rng = np.random.default_rng(37)
+    w = np.abs(rng.standard_normal(shape)).astype(np.float32)
+    if planted:
+        w = _plant(w, [(1, 895), (64, 896), (65, 127), (-1, -1), (2, 0)],
+                   [np.nan, np.inf, -np.inf, np.nan, np.inf])
+    jd, td = DTYPES[dtype]
+    tw = torch.from_numpy(w).to(td)
+    got, launches = _pathfinder_tiled(tw)
+    assert launches == k_pathfinder.kernels_per_call(shape)
+    want = _np(jops.pathfinder(jnp.asarray(w).astype(jd), impl="interpret"))
+    np.testing.assert_array_equal(_np(got), want)
+    np.testing.assert_array_equal(_np(ops.pathfinder(tw)), want)
+
+
 # ---------------------------------------------------------------------------
 # jacobi2d.
 # ---------------------------------------------------------------------------
@@ -418,6 +501,97 @@ def test_jacobi2d_exact_against_xla(shape, dtype, steps):
     assert got.dtype == DTYPES[dtype][1] and got.shape == shape
     np.testing.assert_array_equal(
         _np(got), _np(jops.jacobi2d(jx, impl="xla", steps=steps)))
+
+
+# csrc/jacobi2d.cu's strip: 128 threads of 16 bytes (4 fp32 or 8 bf16
+# columns) walk 64 rows down, 6 rows loaded ahead of the one computed
+JC_THREADS, JC_ROWS, JC_AHEAD = 128, 64, 6
+
+
+def _jacobi2d_strips(x, rows=JC_ROWS):
+    """An emulation of csrc/jacobi2d.cu's sweep (on no path): column strips
+    of 128 threads a block, each thread's 16-byte vector of a row in a
+    (threads, V) view; row strips of ``rows`` walked down with the rows
+    above, at and below the one computed in a ring of ``JC_AHEAD + 2``
+    slots, each row loaded once into slot (r - start + 1) mod size and
+    never past the strip's halo row; left and right neighbours from the
+    adjacent thread, a warp's two edge elements by their own load; the
+    first and last rows and columns copied."""
+    h, w = x.shape
+    v_per = 16 // x.element_size()
+    span = JC_THREADS * v_per
+    blocks = -(-w // span)
+    c0 = torch.arange(blocks * JC_THREADS) * v_per          # every thread
+    lane = torch.arange(blocks * JC_THREADS) % 32
+    cols = c0[:, None] + torch.arange(v_per)                # (threads, V)
+    inside = cols < w
+    fifth = torch.tensor(0.2).to(x.dtype)
+    zero = torch.zeros((), dtype=x.dtype)
+
+    def load(r):
+        xr = x[r]
+        v = torch.where(inside, xr[cols.clamp(max=w - 1)], zero)
+        le = torch.where((lane == 0) & (c0 > 0) & (c0 <= w),
+                         xr[(c0 - 1).clamp(0, w - 1)], zero)
+        re = torch.where((lane == 31) & (c0 + v_per < w),
+                         xr[(c0 + v_per).clamp(max=w - 1)], zero)
+        return v, le, re
+
+    y = torch.empty_like(x)
+    ring_size = JC_AHEAD + 2
+    for ra in range(0, h, rows):
+        rb = min(ra + rows, h)
+        last = min(rb, h - 1)
+        ring = [load(r) if 0 <= r <= last else None
+                for r in range(ra - 1, ra - 1 + ring_size)]
+        for r in range(ra, rb):
+            s = (r - ra) % ring_size
+            cur = ring[(s + 1) % ring_size]
+            out = cur[0]
+            if 0 < r < h - 1:
+                (up, _, _), (c, le, re), (dn, _, _) = (
+                    ring[s], cur, ring[(s + 2) % ring_size])
+                # thread t - 1's last / t + 1's first, unless the lane is a
+                # warp's end
+                left = torch.where(lane == 0, le,
+                                   torch.cat([zero.view(1), c[:-1, -1]]))
+                right = torch.where(lane == 31, re,
+                                    torch.cat([c[1:, 0], zero.view(1)]))
+                lft = torch.cat([left[:, None], c[:, :-1]], 1)
+                rgt = torch.cat([c[:, 1:], right[:, None]], 1)
+                out = fifth * ((((c + up) + dn) + lft) + rgt)
+                out = torch.where((cols == 0) | (cols == w - 1), c, out)
+            y[r] = out[inside]
+            if r + JC_AHEAD + 1 <= last:
+                ring[s] = load(r + JC_AHEAD + 1)
+    return y
+
+
+@pytest.mark.parametrize("w_mod", range(8))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jacobi2d_strips_exact_against_reference(w_mod, dtype):
+    """The strips of csrc/jacobi2d.cu, emulated, at every W mod 8 (the
+    widths whose rows are not all 16-byte aligned), H = 66 (strips of 64
+    and 2 rows; bit for bit against the Pallas body, whose 8-row blocks
+    divide 64, and ``jacobi2d_xla``) and H = 65 (a strip of one row; against
+    ``jacobi2d_xla``), and strips of one row throughout, with NaN and
+    +-inf planted at a strip edge and a warp edge."""
+    shape = (66, 1024 + w_mod)
+    rng = np.random.default_rng(38 + w_mod)
+    x = _plant(rng.standard_normal(shape).astype(np.float32),
+               [(63, 31), (64, 32), (1, 512), (40, 1023)],
+               [np.nan, np.inf, -np.inf, np.inf])
+    jd, td = DTYPES[dtype]
+    tx = torch.from_numpy(x).to(td)
+    jx = jnp.asarray(x).astype(jd)
+    want = _np(jops.jacobi2d(jx, impl="xla"))
+    np.testing.assert_array_equal(_np(jops.jacobi2d(jx, impl="interpret")),
+                                  want)
+    np.testing.assert_array_equal(_np(_jacobi2d_strips(tx)), want)
+    np.testing.assert_array_equal(_np(_jacobi2d_strips(tx, rows=1)), want)
+    np.testing.assert_array_equal(
+        _np(_jacobi2d_strips(tx[:65])),
+        _np(jops.jacobi2d(jx[:65], impl="xla")))
 
 
 def test_jacobi2d_rounds_in_bf16_as_the_reference():
