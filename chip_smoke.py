@@ -45,7 +45,9 @@ Phases, each of which exits non-zero on failure:
               pathfinder's at 1024 x 2^18 and jacobi2d's at 16384^2 in
               both dtypes, in turns with a yardstick that is not the
               function: one read of w, torch.amin, and a copy of x,
-              x.clone()), for the paged ones also SDPA with the
+              x.clone(); conv2d's at 3 x 4096^2, k 7, in turns with
+              F.conv2d, cuDNN's TF32 off, and dotproduct's at 2^26 with
+              torch.dot, both dtypes), for the paged ones also SDPA with the
               gather and mask a paged caller would pay, and fft's 2^24
               launches and cuFFT's device time;
 5. checks   - the whole model on the card against the plain CPU path: a
@@ -108,13 +110,16 @@ Phases, each of which exits non-zero on failure:
               bit-identical when called again, each matmul on the route
               its shapes name (bf16: wgmma where TMA can describe the
               operands, else wmma) and a 512^3 wgmma product with B's
-              transpose bit flipped outside the bf16 tolerance; then the
+              transpose bit flipped outside the bf16 tolerance, each conv2d
+              on its dtype's route (bf16 mma, fp32 simt; k 1 to 11, W off
+              and on a multiple of 8, 1 x 1 outputs); then the
               pool's entry
               point, ``repro_torch.launch.ideality``, at both ladders of
               sizes, the counts zeroed just before each and read just
               after (each timed call launched its kernels, and no other
-              kernel ran; matmul's calls by route, the 4096^3 bf16 rows
-              on wgmma); its Fig 4/5 model rows; and beside the kernel
+              kernel ran; matmul's and conv2d's calls by route, the
+              4096^3 bf16 rows on wgmma, bf16 conv2d on mma and fp32 on
+              simt); its Fig 4/5 model rows; and beside the kernel
               times of those runs, which are the pool's only kernel
               timer, the plain version's, the library call's and the
               bound; then each launch of fft's plan at 2^24 timed alone.
@@ -228,7 +233,11 @@ SOURCES = {
 # 1} (a launch's rows, a window's finished columns); dropout: the edge bits
 # (DROPOUT_EDGE_BITS); exp: a length
 # no 16-byte load divides, EXP_EDGE at its head; dwt: n = 3 2^11 at one,
-# five and eleven levels, and 2^20 at the one-launch depth and past it
+# five and eleven levels, and 2^20 at the one-launch depth and past it;
+# conv2d: 1 x 1 outputs, k 1, 3, 7, 9 and 11 (two K-steps of the banded
+# product) at W = 8m - 1, 8m, 8m + 1 (rows that are not 16-byte aligned go
+# element by element), two 64 x 128 output tiles each way, and 100
+# channels (the mma route's B table does not fit: B from w)
 POOL_RAGGED = (("matmul", ((127, 129), (129, 65)), ()),
                ("matmul", ((1, 1000), (1000, 3)), ()),
                ("dotproduct", ((1003,), (1003,)), ()),
@@ -238,6 +247,11 @@ POOL_RAGGED = (("matmul", ((127, 129), (129, 65)), ()),
                ("fft", ((2,),), ()), ("fft", ((8192,),), ()),
                ("conv2d", ((3, 7, 7), (3, 7, 7)), ()),
                ("conv2d", ((1, 70, 33), (1, 3, 3)), ()),
+               ("conv2d", ((1, 1, 1), (1, 1, 1)), ()),
+               ("conv2d", ((2, 11, 11), (2, 11, 11)), ()),
+               *(("conv2d", ((2, 64 + k, 128 + d), (2, k, k)), ())
+                 for k in (1, 3, 7, 9, 11) for d in (-1, 0, 1)),
+               ("conv2d", ((100, 20, 40), (100, 1, 1)), ()),
                ("pathfinder", ((1, 5),), ()), ("pathfinder", ((2, 1),), ()),
                ("pathfinder", ((20, 257),), ()),
                ("pathfinder", ((3, 70000),), ()),
@@ -270,6 +284,7 @@ EXP_EDGE = (89.0, 100.0, -87.3, -87.5, -88.0, -200.0, 0.0, math.inf,
 FFT_TOL = 5e-6     # times sqrt(n), against an fp64 transform
 FFT_N = 1 << 24    # fft's card-scale length (the pool's card ladder)
 EXP_N = 1 << 26    # exp's card-scale length (the pool's card ladder)
+DOT_N = 1 << 26    # dotproduct's card-scale length (the pool's card ladder)
 # torch.equal (NaN for NaN)
 EXACT_OPS = ("pathfinder", "jacobi2d", "dropout", "exp", "dwt")
 # (row, column) cells of a ragged case's input where NaN, inf, -inf and NaN
@@ -720,11 +735,13 @@ def _sdpa_inputs(torch, pa, q, kp, vp, bt, lens, causal):
     return q, k, v, mask
 
 
-def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, dev):
+def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, kconv, kdot, dev):
     """kernel / plain / library / bound, in ms, for each kernel; for the
     attention kernels also the profiler's device time of the kernel and of
     SDPA (a ~0.03 ms call leaves the event timer reading the host), and for
-    the paged ones SDPA with the gather a paged caller would pay."""
+    the paged ones SDPA with the gather a paged caller would pay; for exp,
+    conv2d and dotproduct at card scale the device time of the kernel and
+    of one PyTorch call of the same function, in turns."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -868,10 +885,37 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, dev):
                                                     kexp.exp_cuda, torch.exp)]
         out[f"exp n={EXP_N} {str(dtype)[6:]}"] = dict(
             ms=time_ms(torch, kexp.exp_cuda, ex, 20), plain_ms=None,
-            library_ms=time_ms(torch, torch.exp, ex, 20),
+            library_ms=time_ms(torch, torch.exp, ex, 20), library="torch.exp",
             device_ms=dev_ms[0::2], library_device_ms=dev_ms[1::2],
             bound_ms=None, bound_by=None)
         del ex
+    # conv2d at the card ladder's 3 x 4096 x 4096, k 7, and dotproduct at
+    # its 2^26, both dtypes: the profiler's device time in turns with one
+    # PyTorch call of the same function (F.conv2d with cuDNN's TF32 off;
+    # torch.dot), beside the event timer's (logged, not in the kernels
+    # line: the pool phase times them through the entry point)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, fn, shapes, lib, lname in (
+                ("conv2d 3x4096x4096 k7", kconv.conv2d_cuda,
+                 ((3, 4096, 4096), (3, 7, 7)),
+                 lambda x, w: F.conv2d(x[None], w[None]),
+                 "F.conv2d, TF32 off"),
+                (f"dotproduct n={DOT_N}", kdot.dotproduct_cuda,
+                 ((DOT_N,), (DOT_N,)), torch.dot, "torch.dot")):
+            for dtype in (torch.float32, torch.bfloat16):
+                xs = [[torch.randn(sh, generator=gen, device=dev).to(dtype)
+                       for sh in shapes] for _ in range(2)]
+                dev_ms = [device_ms(torch, f, xs) for f in (fn, lib, fn, lib)]
+                out[f"{name} {str(dtype)[6:]}"] = dict(
+                    ms=time_ms(torch, fn, xs, 10), plain_ms=None,
+                    library_ms=time_ms(torch, lib, xs, 10), library=lname,
+                    device_ms=dev_ms[0::2], library_device_ms=dev_ms[1::2],
+                    bound_ms=None, bound_by=None)
+                del xs
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     # pathfinder and jacobi2d at the card ladder's shapes, both dtypes: the
     # profiler's device time in turns with a yardstick that is not the
     # function (one read of w; a copy of x), beside the event timer's
@@ -902,12 +946,12 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, dev):
                 f"{', '.join(map(_ms, t['library_device_ms']))} (profiler, "
                 "kernel and yardstick in turns)")
             continue
-        if name.startswith("exp"):       # device times of two turns each
+        if "library" in t:               # device times of two turns each
             log(f"timing {name}: kernel_ms={t['ms']:.4f} library_ms="
-                f"{t['library_ms']:.4f} (torch.exp) device_ms="
+                f"{t['library_ms']:.4f} ({t['library']}) device_ms="
                 f"{', '.join(map(_ms, t['device_ms']))} library_device_ms="
                 f"{', '.join(map(_ms, t['library_device_ms']))} (profiler, "
-                "kernel and torch.exp in turns)")
+                f"kernel and {t['library']} in turns)")
             continue
         if t["plain_ms"] is None:        # fft: the pool phase times the rest
             log(f"timing {name}: kernel_ms={t['ms']:.4f} library_ms="
@@ -1691,6 +1735,12 @@ def _pool_check(torch, ideality, mod, case, args, out_dtype=None):
                 f"{label}: not one launch on the {kind} route "
                 f"({mod.ROUTES} after {routes0})")
         label += f" [{kind}]"
+    if case.op == "conv2d":     # the route its dtype names
+        kind = mod.route(case.dtype, case.shapes[1][1])
+        require(mod.ROUTES == {**routes0, kind: routes0[kind] + 1},
+                f"{label}: not one launch on the {kind} route "
+                f"({mod.ROUTES} after {routes0})")
+        label += f" [{kind}]"
     want = getattr(mod, f"{fn}_plain")(*args, **kw)
     torch.cuda.synchronize()
     err, close = pool_close(torch, case, args, got, want, out_dtype)
@@ -1845,20 +1895,25 @@ def phase_pool(torch, ideality, pool, others):
         want.update(ideality.expected_launches(sizes))
         require(got == want, f"pool {sizes}: launches {got}, expected "
                              f"{want}")
-        # matmul by route: each case's calls on the route its shapes name
-        # (the 4096^3 bf16 rows on wgmma)
+        # matmul and conv2d by route: each case's calls on the route its
+        # shapes and dtype name (the 4096^3 bf16 rows on wgmma, bf16 conv2d
+        # on mma, fp32 on simt)
         cases, iters = ideality.SIZES[sizes]
-        mm = pool["matmul"]
-        want_routes = dict.fromkeys(mm.ROUTES, 0)
-        for case in cases:
-            if case.op == "matmul":
-                (_, k), (_, n) = case.shapes
-                want_routes[mm.route(case.dtype, k, n)] += \
+        for op in ("matmul", "conv2d"):
+            mod = pool[op]
+            want_routes = dict.fromkeys(mod.ROUTES, 0)
+            for case in cases:
+                if case.op != op:
+                    continue
+                kind = (mod.route(case.dtype, case.shapes[0][1],
+                                  case.shapes[1][1]) if op == "matmul"
+                        else mod.route(case.dtype, case.shapes[1][1]))
+                want_routes[kind] += \
                     (ideality.WARMUP + iters) * case.kernels_per_call()
-        require(mm.ROUTES == want_routes, f"pool {sizes}: matmul routes "
-                                          f"{mm.ROUTES}, expected "
-                                          f"{want_routes}")
-        log(f"pool {sizes}: matmul launches by route {mm.ROUTES}")
+            require(mod.ROUTES == want_routes, f"pool {sizes}: {op} routes "
+                                               f"{mod.ROUTES}, expected "
+                                               f"{want_routes}")
+            log(f"pool {sizes}: {op} launches by route {mod.ROUTES}")
         model = [r for r in rows if r[0].startswith("fig")]
         require(len(model) == 48, f"pool {sizes}: {len(model)} model rows")
         for name, us, _ in rows[len(model):]:
@@ -2100,7 +2155,8 @@ def main() -> int:
         errs["ssd_scan"] = phase_ssd_parity(torch, ss, dev)
         times = phase_timing(torch, pa, fa, ss, ideality.POOL["fft"],
                              ideality.POOL["exp"], ideality.POOL["pathfinder"],
-                             ideality.POOL["jacobi2d"], dev)
+                             ideality.POOL["jacobi2d"], ideality.POOL["conv2d"],
+                             ideality.POOL["dotproduct"], dev)
         phase_checks(torch, cfgs, build_model, dev)
         phase_hybrid_checks(torch, cfgs, build_model, dev)
         phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods, dev,

@@ -5,12 +5,17 @@ A valid convolution of a ``(C, H, W)`` input with one ``(C, k, k)`` filter,
 giving ``(H-k+1, W-k+1)``, accumulated in fp32 over the taps ``ci, ki, kj``.
 Two implementations, as in the reference (``repro/kernels/conv2d.py``):
 
-* ``conv2d_cuda`` - the hand-written Hopper kernel in ``csrc/conv2d.cu``,
-  replacing ``conv2d_pallas``: a thread block per 32 x 32 output tile, the
-  input tile with its halo and the filter staged in shared memory one
-  channel at a time.  Any H, W >= k (the Pallas kernel asserts that its
-  8-row blocks divide H-k+1).  It adds one to ``LAUNCHES["conv2d"]`` per
-  launch.
+* ``conv2d_cuda`` - the hand-written Hopper kernels in ``csrc/conv2d.cu``,
+  replacing ``conv2d_pallas``; the dtype picks the route (:func:`route`).
+  bf16 runs ``mma``: the convolution as a banded (Toeplitz) product on
+  ``mma.sync`` tensor cores with fp32 sums, ceil((k + 7) / 16) K-steps of
+  16 a filter row.  fp32 runs ``simt``: a register-blocked direct convolution
+  on CUDA cores (8 x 4 outputs a thread), each output's ``fmaf`` chain in
+  the order ci, ki, kj.  Both stage a 64 x 128 output tile's input with
+  its halo in shared memory one channel at a time.  Any C >= 1, H, W >= k
+  and k up to :data:`MAX_K` (the Pallas kernel asserts that its 8-row
+  blocks divide H-k+1).  Each call adds one to ``LAUNCHES["conv2d"]`` and
+  to its route's count in ``ROUTES``.
 * ``conv2d_plain`` - the oracle's tap loop (``ref.conv2d_ref``), cast to
   x's dtype.
 
@@ -27,19 +32,38 @@ from . import build, ref
 
 SOURCE = "conv2d.cu"
 LAUNCHES = {"conv2d": 0}
+# the same launches by route: "mma" (bf16, tensor cores), "simt" (fp32)
+ROUTES = {"mma": 0, "simt": 0}
 KERNELS_PER_CALL = 1
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_TILE, _MAX_SMEM_FLOATS = 32, 12288     # csrc/conv2d.cu
+_ROUTE = {torch.bfloat16: "mma", torch.float32: "simt"}
+# the largest filter: the first kernel's line, a 32 x 32 output tile with
+# its halo and the filter in 48 KB of fp32 ((31 + k)^2 + k^2 <= 12288)
+MAX_K = 61
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def kernels_per_call(*_shapes, **_kw) -> int:
     """Kernels one call launches, whatever the shapes."""
     return KERNELS_PER_CALL
+
+
+def route(dtype, k: int) -> str:
+    """The kernel that takes a ``k x k`` filter of ``dtype``: ``"mma"``
+    (bf16, the banded product on tensor cores) or ``"simt"`` (fp32, CUDA
+    cores).  Raises on any other dtype, or k outside 1 .. MAX_K."""
+    if dtype not in _ROUTE:
+        raise TypeError(f"conv2d: dtype {dtype}; the kernels take float32 "
+                        "or bfloat16")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"conv2d: a {k} x {k} filter; the kernels take k "
+                         f"from 1 to the largest, {MAX_K}")
+    return _ROUTE[dtype]
 
 
 def conv2d_plain(x, w):
@@ -60,9 +84,7 @@ def conv2d_cuda(x, w):
     if c < 1 or k < 1 or h < k or wd < k:
         raise ValueError(f"{what}: need C >= 1 and H, W >= k >= 1, got x "
                          f"{tuple(x.shape)}, k {k}")
-    if (_TILE + k - 1) ** 2 + k * k > _MAX_SMEM_FLOATS:
-        raise ValueError(f"{what}: a {k} x {k} filter's tile exceeds the "
-                         "kernel's 48 KB of shared memory")
+    kind = route(x.dtype, k)
     out = torch.empty((h - k + 1, wd - k + 1), dtype=x.dtype,
                       device=x.device)
     lib = build.library(SOURCE)
@@ -72,4 +94,5 @@ def conv2d_cuda(x, w):
             c, h, wd, k, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, what)
     LAUNCHES["conv2d"] += KERNELS_PER_CALL
+    ROUTES[kind] += KERNELS_PER_CALL
     return out

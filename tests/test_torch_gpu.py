@@ -804,6 +804,137 @@ def test_pool_conv2d_matches_plain(cuda, dtype):
                                    atol=1e-4, rtol=1e-4 if f32 else 2.0 ** -7)
 
 
+def _conv2d_fmaf_chain(x, w):
+    """fp32 ``acc = fmaf(w, x, acc)`` from 0 over ci, ki, kj, each fused
+    multiply-add rounded once (``ref.fma32``): the arithmetic of the port's
+    first conv2d kernel and of the simt route."""
+    c, h, wd = x.shape
+    k = w.shape[1]
+    acc = torch.zeros((h - k + 1, wd - k + 1), device=x.device)
+    for ci in range(c):
+        for ki in range(k):
+            for kj in range(k):
+                acc = ref.fma32(w[ci, ki, kj].expand_as(acc),
+                                x[ci, ki:ki + h - k + 1, kj:kj + wd - k + 1],
+                                acc)
+    return acc
+
+
+def _conv2d_routed(x, w):
+    """One counted call on the route its dtype names."""
+    kind = k_conv2d.route(x.dtype, w.shape[1])
+    before = dict(k_conv2d.ROUTES)
+    out = _counted(k_conv2d, "conv2d", k_conv2d.conv2d_cuda, x, w)
+    assert k_conv2d.ROUTES == {**before, kind: before[kind] + 1}
+    return out
+
+
+def _conv2d_close(got, x, w):
+    """The conv2d tolerances: 1e-4 (fp32) or atol 1e-4, rtol one bf16 step,
+    2^-7 (bf16), against the plain version; finite, in x's dtype."""
+    want = k_conv2d.conv2d_plain(x, w)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(
+        got.float(), want.float(), atol=1e-4,
+        rtol=1e-4 if x.dtype == torch.float32 else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_conv2d_routes_at_card_scale(cuda, dtype):
+    """3 x 4096 x 4096, k 7 (the card ladder's case) on its route: bf16 on
+    the tensor cores (mma), fp32 on the CUDA cores (simt), each within the
+    pool's tolerance of the plain version, a repeat bit for bit, and a
+    filter with its taps shifted a column shown to fail the tolerance."""
+    x, w = _randn(1, cuda, dtype, (3, 4096, 4096), (3, 7, 7))
+    got = _conv2d_routed(x, w)
+    _conv2d_close(got, x, w)
+    assert torch.equal(_conv2d_routed(x, w), got)
+    shifted = torch.roll(w, 1, dims=2)
+    with pytest.raises(AssertionError):
+        _conv2d_close(k_conv2d.conv2d_plain(x, shifted), x, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_conv2d_ragged_shapes(cuda, dtype):
+    """k 1 to 11 (two K-steps of the banded product at 11, three at 25) at
+    W = 8m - 1, 8m, 8m + 1 (rows not on 16 bytes take the element-by-element
+    copy), two output tiles each way, 1 x 1 outputs, 100 channels (B from w,
+    not the table), every call counted on its route."""
+    shapes = [(2, 64 + k, 128 + d, k) for k in (1, 3, 5, 7, 9, 11)
+              for d in (-1, 0, 1)]
+    shapes += [(1, 1, 1, 1), (3, 7, 7, 7), (2, 11, 11, 11), (100, 20, 40, 1),
+               (2, 90, 100, 25), (4, 30, 30, 2)]
+    for seed, (c, h, wd, k) in enumerate(shapes):
+        x, w = _randn(seed, cuda, dtype, (c, h, wd), (c, k, k))
+        _conv2d_close(_conv2d_routed(x, w), x, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_conv2d_nan_planted(cuda, dtype):
+    """NaN and +-inf planted in x reach exactly the outputs whose window
+    covers them (the banded product's zeros never meet them: a tile whose
+    sums are not all finite is recomputed tap by tap); every other output
+    within the tolerance."""
+    for seed, (c, h, wd, k) in enumerate([(2, 100, 300, 7), (3, 130, 257, 3),
+                                         (1, 40, 40, 11), (3, 200, 400, 7)]):
+        x, w = _randn(seed, cuda, dtype, (c, h, wd), (c, k, k))
+        x[c - 1, 50 % h, 140 % wd] = math.nan
+        x[0, 10, 5] = math.inf
+        x[0, h - 1, wd - 1] = -math.inf
+        got = _conv2d_routed(x, w)
+        want = k_conv2d.conv2d_plain(x, w)
+        hit = torch.zeros((h, wd), dtype=torch.bool, device=cuda)
+        hit[50 % h, 140 % wd] = hit[10, 5] = hit[h - 1, wd - 1] = True
+        covered = torch.nn.functional.max_pool2d(
+            hit[None, None].float(), k, stride=1)[0, 0].bool()
+        assert torch.equal(~torch.isfinite(got.float()), covered)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        g, v = got[covered], want[covered]     # the plain version's bits
+        assert torch.equal(g.isnan(), v.isnan())
+        assert torch.equal(g[~g.isnan()], v[~v.isnan()])
+        torch.testing.assert_close(
+            got.float()[~covered], want.float()[~covered], atol=1e-4,
+            rtol=1e-4 if dtype == torch.float32 else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("shape", [(3, 4096, 4096, 7), (2, 74, 129, 7),
+                                   (2, 76, 127, 9), (2, 90, 100, 25),
+                                   (1, 124, 200, 61)])
+def test_pool_conv2d_simt_is_the_fmaf_chain(cuda, shape):
+    """fp32 (simt) bit for bit the fmaf chain over ci, ki, kj that the first
+    kernel computed: a filter in registers (k 7), the taps walked in
+    chunks (k 9, 25, 61), rows off 16 bytes (W 127, 129)."""
+    c, h, wd, k = shape
+    x, w = _randn(2, cuda, torch.float32, (c, h, wd), (c, k, k))
+    assert torch.equal(_conv2d_routed(x, w), _conv2d_fmaf_chain(x, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_conv2d_largest_filter(cuda, dtype):
+    """k = MAX_K (61: five K-steps of the banded product, 220 KB of shared
+    memory for simt) against the exact fp64 sum: 3721 taps an output, so
+    the sum's order moves it by up to ~1e-7 of sum |w x| (the pool's
+    tolerance is for k 7); held to 1e-6 of sum |w x| plus one bf16 step
+    (2^-8) of the value in bf16.  k = 62 raises."""
+    k = k_conv2d.MAX_K
+    x, w = _randn(3, cuda, dtype, (1, k + 63, 200), (1, k, k))
+    got = _conv2d_routed(x, w).double()
+    exact = _conv2d_fp64(x, w)
+    mass = _conv2d_fp64(x.abs(), w.abs())
+    rel = 0.0 if dtype == torch.float32 else 2.0 ** -8
+    assert ((got - exact).abs() <= 1e-6 * mass + rel * exact.abs()).all()
+    with pytest.raises(ValueError, match="largest"):
+        k_conv2d.conv2d_cuda(x[:, :k + 1, :k + 1].contiguous(),
+                             torch.ones((1, k + 1, k + 1), dtype=dtype,
+                                        device=cuda))
+
+
+def _conv2d_fp64(x, w):
+    """The convolution's exact value (fp64 sums of exact products)."""
+    return torch.nn.functional.conv2d(x.double()[None], w.double()[None])[0, 0]
+
+
 def test_pool_kernels_reject_what_they_do_not_take(cuda):
     x, w = _randn(0, cuda, torch.float32, (8, 8), (8, 8))
     before = ideality.launches()

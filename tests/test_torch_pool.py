@@ -259,6 +259,113 @@ def test_conv2d_bf16_follows_the_pallas_kernel():
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-2, rtol=2e-2)
 
 
+def _k_steps(k):
+    """K-steps of 16 that the banded product takes a filter row: a 16 x 8
+    output tile's band B[kk, n] = w[16 s + kk - n] spans k + 7 columns."""
+    return -(-(k + 7) // 16)
+
+
+def _conv2d_banded(x, w, shifted=None):
+    """The mma route's arithmetic in plain torch: for each channel ci,
+    filter row ki and K-step s, every 16 x 8 output tile gains A B with
+    A[m, kk] = x[ci, i0+m+ki, j0+16s+kk] (zeros past the edge) and the
+    Toeplitz band B[kk, n] = w[ci, ki, 16s+kk-n] (0 outside the filter
+    row); bf16-valued operands, their exact products summed in fp32 a
+    K-step at a time, the result rounded to x's dtype.  ``shifted=d``
+    plants a fault: the band's diagonal kk - n = d moved to d + 1."""
+    c, h, wd = x.shape
+    k = w.shape[1]
+    ho, wo = h - k + 1, wd - k + 1
+    steps, tiles = _k_steps(k), -(-wo // 8)
+    xp = torch.zeros((c, h, 8 * tiles + 16 * steps))
+    xp[:, :, :wd] = x.float()
+    kk, n = torch.arange(16)[:, None], torch.arange(8)[None, :]
+    acc = torch.zeros((ho, tiles, 8))
+    for ci in range(c):
+        for ki in range(k):
+            for s in range(steps):
+                tap = 16 * s + kk - n                       # (16, 8)
+                if shifted is not None:
+                    tap = torch.where(tap == shifted + 1, shifted,
+                                      torch.where(tap == shifted, -1, tap))
+                band = torch.where((tap >= 0) & (tap < k),
+                                   w[ci, ki].float()[tap.clamp(0, k - 1)],
+                                   0.0)
+                cols = 8 * torch.arange(tiles)[:, None] + 16 * s + \
+                    torch.arange(16)[None, :]               # (tiles, 16)
+                a = xp[ci, ki:ki + ho][:, cols]             # (ho, tiles, 16)
+                acc += torch.einsum("mpk,kn->mpn", a, band)
+    return acc.reshape(ho, 8 * tiles)[:, :wo].to(x.dtype)
+
+
+# k 1 to 11 (two K-steps at 10 and up), W at 8m - 1, 8m and 8m + 1, and a
+# 1 x 1 output; 8 output rows, one block of the Pallas kernel
+BANDED_SHAPES = [(2, 7 + k, 32 + d, k) for k in (1, 3, 7, 9, 11)
+                 for d in (-1, 0, 1)] + [(3, 7, 7, 7), (2, 11, 11, 11)]
+
+
+@pytest.mark.parametrize("c,h,w,k", BANDED_SHAPES)
+def test_conv2d_banded_product_against_the_reference(c, h, w, k):
+    """The banded product on bf16 inputs against the plain version's
+    arithmetic, the reference's oracle (``impl="xla"``) on the same values
+    in fp32 (exact products) rounded to bf16, at atol 1e-4 and rtol one
+    bf16 step, 2^-7; and against the Pallas body (``impl="interpret"`` on
+    the bf16 inputs, which rounds each product to bf16, as ``xla`` does on
+    bf16) within 2e-2 absolute and relative."""
+    (jx, jw), (tx, tw) = _both(20 + k, (c, h, w), (c, k, k),
+                               dtype="bfloat16")
+    got = _conv2d_banded(tx, tw)
+    assert got.dtype == torch.bfloat16 and got.shape == (h - k + 1, w - k + 1)
+    plain = jops.conv2d(jx.astype(jnp.float32), jw.astype(jnp.float32),
+                        impl="xla").astype(jnp.bfloat16)
+    np.testing.assert_array_equal(_np(k_conv2d.conv2d_plain(tx, tw)),
+                                  _np(plain))
+    np.testing.assert_allclose(_np(got), _np(plain), atol=1e-4, rtol=2.0 ** -7)
+    np.testing.assert_allclose(_np(got),
+                               _np(jops.conv2d(jx, jw, impl="interpret")),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("k,shifted", [(3, 0), (7, 3), (11, 9)])
+def test_conv2d_banded_tolerance_has_teeth(k, shifted):
+    """A band with one diagonal moved a column over fails the tolerance
+    the banded product is held to (so does the kernel's, on the card)."""
+    (jx, jw), (tx, tw) = _both(30 + k, (2, 7 + k, 33), (2, k, k),
+                               dtype="bfloat16")
+    plain = _np(jops.conv2d(jx.astype(jnp.float32), jw.astype(jnp.float32),
+                            impl="xla").astype(jnp.bfloat16))
+    np.testing.assert_allclose(_np(_conv2d_banded(tx, tw)), plain,
+                               atol=1e-4, rtol=2.0 ** -7)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(_np(_conv2d_banded(tx, tw, shifted)),
+                                   plain, atol=1e-4, rtol=2.0 ** -7)
+
+
+def test_conv2d_routes_and_counts():
+    """bf16 takes the tensor cores (``mma``), fp32 the CUDA cores
+    (``simt``), for every k up to MAX_K; other dtypes and filters raise;
+    the band spans k + 7 columns, so k up to 9 takes one K-step;
+    ``reset_launches`` zeroes both counts."""
+    for k in (1, 7, 9, 11, k_conv2d.MAX_K):
+        assert k_conv2d.route(torch.bfloat16, k) == "mma"
+        assert k_conv2d.route(torch.float32, k) == "simt"
+    with pytest.raises(TypeError):
+        k_conv2d.route(torch.float16, 7)
+    for k in (0, k_conv2d.MAX_K + 1):
+        with pytest.raises(ValueError):
+            k_conv2d.route(torch.float32, k)
+    assert [_k_steps(k) for k in (1, 9, 10, 25, 26, 61)] == \
+        [1, 1, 2, 2, 3, 5]
+    assert set(k_conv2d.ROUTES) == {"mma", "simt"}
+    k_conv2d.LAUNCHES["conv2d"] += 3
+    k_conv2d.ROUTES["mma"] += 2
+    k_conv2d.ROUTES["simt"] += 1
+    k_conv2d.reset_launches()
+    assert k_conv2d.LAUNCHES == {"conv2d": 0}
+    assert k_conv2d.ROUTES == {"mma": 0, "simt": 0}
+    assert k_conv2d.kernels_per_call((3, 64, 64), (3, 7, 7)) == 1
+
+
 # ---------------------------------------------------------------------------
 # fft.
 # ---------------------------------------------------------------------------
