@@ -22,7 +22,10 @@ Phases, each of which exits non-zero on failure:
               window 64, Sq = Sk in {7, 128, 900}, Sq < Sk, and Sq > Sk
               causal (fully masked rows: the mean of V), and the served
               shapes (zamba2's g 1, D 64, S 960; g 2 and 8 at D 128, S 900;
-              D 24 and 72, zero-padded), each call on its dtype's route (bf16 on
+              D 24 and 72, zero-padded; groups of 65 and 128 q-heads a kv
+              head, D 64, S 256, with and without a window of 48, which
+              the fp32 route cuts into blocks of 64 q-heads), each call on
+              its dtype's route (bf16 on
               the tensor cores) with its error and route logged; B = 3
               bit-identical to three B = 1 launches, and each row's last
               64 visible keys dropped shown to fail the bf16 tolerance.
@@ -63,7 +66,10 @@ Phases, each of which exits non-zero on failure:
               the paged layout and on the dense one (each kernel on its
               fp32 route, simt); the tokens must agree
               row for row (where rows part, each row's first differing
-              token and the logits' top-2 gap there are logged);
+              token and the logits' top-2 gap there are logged); then the
+              cluster on the same weights, 8x1 and 2x4 over a starved pool
+              (97 blocks), sequential: token-identical to the single paged
+              engine on all 8 rids, the preempted ones among them;
 7. serve    - the paged path: ``ServeEngine(kv_layout="paged")`` serving 8
               greedy requests with the full qwen3-0.6b config on seeded
               random bf16 weights, with every kernel's launch count read
@@ -83,6 +89,23 @@ Phases, each of which exits non-zero on failure:
               their scale; then the trace with half its
               rows sampled at temperature 0.7 (repeat-identical, greedy rows
               unchanged);
+8b. cluster - the multi-replica ``ClusterEngine`` on phase 7's model and
+              trace (8 slots in all, bf16), each cell twice and
+              byte-identical, the counts zeroed just before each run and
+              read just after (every paged launch on mma, decode launches
+              28 a step summed over the replicas, replayed steps of
+              preempted requests included, the shared pool drained): 1x8
+              byte-identical to phase 7's single paged engine; 8x1 under
+              round_robin, sequential and threaded (a replica a thread, a
+              CUDA stream each), identical, and under least_loaded and
+              shortest_queue at 2 new tokens, identical to round_robin's;
+              2x4 over a starved pool of 97 blocks (cool-down 16 rounds),
+              sequential and threaded, identical, each run preempting;
+              wall time,
+              tokens/s, TTFT and TPOT p50/p99, preemptions, pool bytes
+              logged per run, 8x1 threaded against 1x8 on one line, and
+              the rids where 8x1 and 2x4 part from the single engine with
+              their top-2 logit gaps;
 9. hybrid   - zamba2-1.2b at full width on seeded random bf16 weights:
               8 requests (prompts of 7 to 960 tokens) served continuous
               twice (token-identical, 38 SSD calls of kernels_per_call
@@ -112,7 +135,9 @@ Phases, each of which exits non-zero on failure:
               operands, else wmma) and a 512^3 wgmma product with B's
               transpose bit flipped outside the bf16 tolerance, each conv2d
               on its dtype's route (bf16 mma, fp32 simt; k 1 to 11, W off
-              and on a multiple of 8, 1 x 1 outputs); then the
+              and on a multiple of 8, 1 x 1 outputs), and filters past one
+              stage (k 62, 97 and 200, walked in bands) within 1e-6 of
+              sum |w x| of the exact fp64 convolution; then the
               pool's entry
               point, ``repro_torch.launch.ideality``, at both ladders of
               sizes, the counts zeroed just before each and read just
@@ -182,6 +207,9 @@ FLASH_ZAMBA2 = (32, 1, 64, 960)        # (Hq, g, D, S)
 # kernel's templates (zero-padded: 24 to 32, 72 to 128)
 FLASH_SERVED = ((32, 1, 64, 960), (16, 2, 128, 900), (16, 8, 128, 900),
                 (4, 2, 24, 200), (4, 1, 72, 130))       # (Hq, g, D, S)
+# groups past 64 q-heads a kv head (the fp32 route cuts them into blocks
+# of 64), causal, B 1, with and without a window of 48
+FLASH_WIDE_GROUPS = ((130, 65, 64, 256), (256, 128, 64, 256))  # (Hq, g, D, S)
 FLASH_INVARIANT = (3, 16, 2, 128, 333)   # (B, Hq, g, D, S): B rows vs B = 1
 FLASH_DROP = 64        # planted: each row's last 64 visible keys dropped
 SSD_H, SSD_P, SSD_N = 64, 64, 64   # zamba2-1.2b's SSD heads, head dim, state
@@ -189,6 +217,22 @@ SSD_S = 960            # timing: B = 1, G = 1, bf16: the longest hybrid prompt
 HYBRID_PROMPT_LENS = [7, 16, 33, 64, 128, 320, 512, 960]   # <= 64 or 64k
 HYBRID_UNIFORM = (8, 128)     # lockstep vs continuous: 8 prompts of 128
 PREEMPT_RID, PREEMPT_AFTER = 3, 5
+# the cluster phase: qwen3-0.6b's serve trace over 8 slots in all; the
+# router cells beside round_robin run this many new tokens (time: their
+# 131 prefill chunks dominate), the starved pool holds 96 allocatable blocks
+# against the ~146 the trace holds at full length (the 900-token request
+# alone needs 59), with a preemption cool-down of 16 rounds (4 thrashed:
+# 18 preemptions and 660 chunks where 16 takes 5 and 273; the schedule
+# does not depend on the device, so a CPU run of the trace counts them)
+CLUSTER_ROUTER_MAX_NEW = 2
+CLUSTER_PRESSURE_BLOCKS = 97
+CLUSTER_HYSTERESIS = 16
+# conv2d filters past one stage (conv2d.bands), (C, H, W, k): k 62 (one
+# band, one past the first kernel's 61), 97 (two bands of filter rows in
+# fp32) and 200 (one filter row a band, in bands of columns); W on 16 bytes
+# and off it
+CONV2D_BANDED = ((1, 62 + 65, 62 + 129, 62), (2, 97 + 64, 97 + 131, 97),
+                 (1, 200 + 64, 200 + 132, 200))
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/paged_attention.py:103",
     "paged_prefill_attention": "src/repro/kernels/paged_attention.py:224",
@@ -581,6 +625,8 @@ def phase_flash_parity(torch, fa, dev):
     cases = [(g, sq, sk, causal, window, 2, HQ, D)
              for g, sq, sk, causal, window in flash_cases()]
     cases += [(g, s, s, True, None, 1, hq, d) for hq, g, d, s in FLASH_SERVED]
+    cases += [(g, s, s, True, window, 1, hq, d)
+              for hq, g, d, s in FLASH_WIDE_GROUPS for window in (None, 48)]
     for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, TOL_FP32)):
         name = str(dtype).split(".")[-1]
         for g, sq, sk, causal, window, b, hq, d in cases:
@@ -1253,6 +1299,8 @@ def phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods, dev,
             f"fp32 paged and dense tokens differ (first index per rid "
             f"{diffs})")
     log("fp32 paged vs dense: all 8 rids token-identical")
+    phase_cluster_fp32(torch, serving, kmods, model, params, toks["paged"],
+                       dev, name)
     del params
     torch.cuda.empty_cache()
 
@@ -1352,6 +1400,181 @@ def phase_dense(torch, serving, kmods, model, params, paged, dev, name):
         f"logits, host wall ms per step (to tokens on the host): "
         f"{(time.perf_counter() - t0) / 10 * 1e3:.3f}")
     return main_launches
+
+
+def _cluster_run(torch, kmods, cl, reqs, label, name, route):
+    """One ``ClusterEngine.generate`` of ``reqs`` on the card with the
+    counts zeroed just before and read just after: every request's tokens
+    in-vocab and of its budget, the shared pool drained, every paged launch
+    on ``route``, no flash launch, decode launches 28 a step (the replicas'
+    steps summed, plus the steps that replayed a preempted request's done
+    tokens), prefill launches 28 a chunk (more when a preempted request
+    re-prefills).  Returns (tokens, stats, wall s, replayed tokens)."""
+    cfg = cl.engines[0].model.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    results = cl.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**read_launches(kmods), **read_routes(kmods)}
+    s = cl.last_stats
+    replayed = cl.last_metrics.counter("resume_replay_tokens").n
+    toks = [r.tokens for r in results]
+    chunks = sum(math.ceil(len(r.prompt) / cl.pool.block_size) for r in reqs)
+    log(f"cluster {label} on {name}: wall_s={wall:.3f} "
+        f"tokens_per_s={s.tokens_per_s:.1f} ttft_ms p50={s.ttft_ms_p50:.1f}"
+        f" p99={s.ttft_ms_p99:.1f} tpot_ms p50={s.tpot_ms_p50:.2f} "
+        f"p99={s.tpot_ms_p99:.2f} preempted={s.preempted} "
+        f"requeued={s.requeued} replayed_tokens={replayed} "
+        f"block_util_peak={s.block_util_peak:.3f} "
+        f"pool_bytes={cl.last_pool_bytes} decode_steps={s.decode_steps} "
+        f"launches={launches} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    require(all(len(t) == r.max_new_tokens and
+                all(0 <= x < cfg.vocab_size for x in t)
+                for t, r in zip(toks, reqs)),
+            f"cluster {label}: every request must return max_new_tokens "
+            "in-vocab tokens")
+    cl.pool.check_integrity()
+    require(cl.pool.n_live == 0 and cl.pool.n_reserved == 0,
+            f"cluster {label}: the shared pool did not drain")
+    for kernel in ("paged_decode_attention", "paged_prefill_attention"):
+        require(launches[f"{kernel}.{route}"] == launches[kernel] > 0,
+                f"cluster {label}: a {kernel} launch off {route} "
+                f"({launches})")
+    require(launches["flash_attention"] == 0,
+            f"cluster {label}: the paged path launched flash ({launches})")
+    require(launches["paged_decode_attention"]
+            == cfg.n_layers * (s.decode_steps + replayed),
+            f"cluster {label}: decode launches {launches} != "
+            f"{cfg.n_layers} x ({s.decode_steps} steps + {replayed} "
+            "replayed)")
+    want = cfg.n_layers * chunks
+    require(launches["paged_prefill_attention"] == want if not s.preempted
+            else launches["paged_prefill_attention"] >= want,
+            f"cluster {label}: prefill launches {launches} against "
+            f"{cfg.n_layers} x {chunks} chunks")
+    return toks, s, wall, replayed
+
+
+def _cluster_cell(torch, serving, kmods, model, params, label, name, route,
+                  max_new=None, runs=2, **kw):
+    """A cluster cell over the serve trace, 8 slots in all, ``max_new``
+    (default ``SERVE_MAX_NEW``) new tokens a request: ``runs`` runs, a
+    repeat byte-identical.  Returns the first run's ``_cluster_run``."""
+    prompts = serve_prompts(model.cfg.vocab_size)
+    max_new = max_new or SERVE_MAX_NEW
+    cl = serving.ClusterEngine(model, params, total_slots=8, cache_len=1024,
+                               block_size=BS, **kw)
+    out = []
+    for run in range(runs):
+        reqs = [serving.Request(p, max_new, rid=i)
+                for i, p in enumerate(prompts)]
+        out.append(_cluster_run(torch, kmods, cl, reqs,
+                                f"{label} run {run}", name, route))
+        if kw.get("n_blocks"):
+            require(out[-1][1].preempted >= 1,
+                    f"cluster {label}: the starved pool preempted nothing")
+    require(all(o[0] == out[0][0] for o in out),
+            f"cluster {label}: a repeat run changed the tokens")
+    if runs > 1:
+        log(f"cluster {label}: repeat run byte-identical")
+    del cl
+    torch.cuda.empty_cache()
+    return out[0]
+
+
+def phase_cluster(torch, serving, kmods, model, params, single, dev, name):
+    """The multi-replica ``ClusterEngine`` at full width in bf16 (the
+    phase-7 model and trace, 32 new tokens, block size 16, cache_len 1024,
+    8 slots in all), each cell twice, byte-identical: 1x8 (round_robin)
+    equal to phase 7's single paged engine (``single``); 8x1 under
+    round_robin, sequential and threaded (equal), and under least_loaded
+    and shortest_queue at ``CLUSTER_ROUTER_MAX_NEW`` tokens (equal to
+    round_robin's first tokens); 2x4 over a starved pool
+    (``CLUSTER_PRESSURE_BLOCKS``, cool-down ``CLUSTER_HYSTERESIS``),
+    sequential and threaded (equal, at least one preemption each run).  8x1 and 2x4 against the single engine: the
+    rids that part are logged with their first differing token and top-2
+    logit gap (replicas of width 1 or 4 run other GEMM shapes)."""
+    t0 = time.perf_counter()
+    prompts = serve_prompts(model.cfg.vocab_size)
+
+    def cell(label, **kw):
+        return _cluster_cell(torch, serving, kmods, model, params, label,
+                             name, "mma", **kw)
+    wide = cell("1x8", replicas=1)
+    require(wide[0] == single, "cluster 1x8 differs from the single paged "
+                               "engine")
+    log("cluster 1x8: byte-identical to the single paged engine (phase 7)")
+    narrow = cell("8x1 round_robin", replicas=8)
+    threaded = cell("8x1 round_robin threaded", replicas=8,
+                    driver="threaded")
+    require(threaded[0] == narrow[0], "cluster 8x1: threaded differs from "
+                                      "sequential")
+    log("cluster 8x1: threaded byte-identical to sequential")
+    for router in ("least_loaded", "shortest_queue"):
+        got = cell(f"8x1 {router}", replicas=8, router=router,
+                   max_new=CLUSTER_ROUTER_MAX_NEW)
+        require(got[0] == [t[:CLUSTER_ROUTER_MAX_NEW] for t in narrow[0]],
+                f"cluster 8x1 {router} differs from round_robin")
+    log("cluster 8x1: the three routers agree")
+    pressure = cell("2x4-pressure", replicas=2,
+                    n_blocks=CLUSTER_PRESSURE_BLOCKS,
+                    preempt_hysteresis=CLUSTER_HYSTERESIS)
+    pressure_thr = cell("2x4-pressure threaded", replicas=2,
+                        n_blocks=CLUSTER_PRESSURE_BLOCKS,
+                        preempt_hysteresis=CLUSTER_HYSTERESIS,
+                        driver="threaded")
+    require(pressure_thr[0] == pressure[0], "cluster 2x4-pressure: threaded "
+                                            "differs from sequential")
+    log("cluster 2x4-pressure: threaded byte-identical to sequential")
+    for label, got in (("8x1", narrow), ("2x4-pressure", pressure)):
+        diffs = first_diffs(single, got[0])
+        log(f"cluster bf16 {label} vs the single engine: "
+            f"{sum(d is not None for d in diffs)} of {len(diffs)} rids "
+            f"differ, first differing token per rid {diffs}")
+        log_margins(torch, model, params, prompts, single, got[0], diffs,
+                    f"cluster bf16 {label} vs single", dev)
+    log(f"cluster 8x1 threaded against 1x8 on {name}: tokens_per_s "
+        f"{threaded[1].tokens_per_s:.1f} vs {wide[1].tokens_per_s:.1f}, "
+        f"wall_s {threaded[2]:.3f} vs {wide[2]:.3f}, ttft_ms p50 "
+        f"{threaded[1].ttft_ms_p50:.1f} vs {wide[1].ttft_ms_p50:.1f}, "
+        f"tpot_ms p50 {threaded[1].tpot_ms_p50:.2f} vs "
+        f"{wide[1].tpot_ms_p50:.2f} (8 narrow replicas against 1 wide)")
+    log(f"cluster phase: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_cluster_fp32(torch, serving, kmods, model, params, single, dev,
+                       name):
+    """The cluster in fp32 (the phase-6 weights, TF32 off): 8x1 and 2x4
+    over the starved pool, sequential, one run each, every paged launch on
+    ``simt``; both token-identical to the single paged engine (``single``)
+    on all 8 rids, the preempted requests among them."""
+    got = {}
+    for label, kw in (("8x1", dict(replicas=8)),
+                      ("2x4-pressure", dict(
+                          replicas=2, n_blocks=CLUSTER_PRESSURE_BLOCKS,
+                          preempt_hysteresis=CLUSTER_HYSTERESIS))):
+        tracer = serving.Tracer()
+        toks, _, _, _ = _cluster_cell(torch, serving, kmods, model, params,
+                                      f"fp32 {label}", name, "simt", runs=1,
+                                      tracer=tracer, **kw)
+        preempted = sorted({e.args["rid"] for e in tracer.events()
+                            if e.name == "preempt"})
+        diffs = first_diffs(single, toks)
+        log(f"cluster fp32 {label} vs the single paged engine: first "
+            f"differing token per rid {diffs}; preempted rids {preempted}")
+        log_margins(torch, model, params, serve_prompts(model.cfg.vocab_size),
+                    single, toks, diffs, f"cluster fp32 {label} vs single",
+                    dev)
+        got[label] = toks
+    require(all(t == single for t in got.values()),
+            "cluster fp32: 8x1 or 2x4-pressure tokens differ from the single "
+            "paged engine")
+    log("cluster fp32: single, 8x1 and 2x4-pressure token-identical on all "
+        "8 rids")
 
 
 def _hybrid_logits(torch, model, params, prompt, n_decode, dev):
@@ -1878,6 +2101,44 @@ def phase_pool_parity(torch, ideality, pool, dev):
     return worst
 
 
+def phase_conv2d_bands(torch, kconv, dev):
+    """conv2d on filters larger than one stage holds (``CONV2D_BANDED``,
+    walked in bands by ``conv2d.bands``), each dtype on its route, its
+    count moving by one: within 1e-6 of sum |w x| (plus, in bf16, one bf16
+    step 2^-8 of the value) of the exact fp64 convolution (the pool's
+    tolerance is for k 7; the gpu tests hold fp32 bit for bit to the fmaf
+    chain).  Returns the worst error in units of that bound."""
+    fconv = torch.nn.functional.conv2d
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    worst = 0.0
+    for c, h, wd, k in CONV2D_BANDED:
+        x = torch.randn((c, h, wd), generator=gen, device=dev)
+        w = torch.randn((c, k, k), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            xx, ww = x.to(dtype), w.to(dtype)
+            kind = kconv.route(dtype, k)
+            kb, kw = kconv.bands(dtype, k, c)
+            n0, r0 = kconv.LAUNCHES["conv2d"], kconv.ROUTES[kind]
+            got = kconv.conv2d_cuda(xx, ww).double()
+            require(kconv.LAUNCHES["conv2d"] == n0 + 1
+                    and kconv.ROUTES[kind] == r0 + 1,
+                    f"conv2d k {k}: a call did not count one {kind} launch")
+            exact = fconv(xx.double()[None], ww.double()[None])[0, 0]
+            mass = fconv(xx.double().abs()[None], ww.double().abs()[None])[0, 0]
+            rel = 0.0 if dtype == torch.float32 else 2.0 ** -8
+            ratio = ((got - exact).abs()
+                     / (1e-6 * mass + rel * exact.abs())).max().item()
+            ok = bool(torch.isfinite(got).all()) and ratio <= 1.0
+            worst = max(worst, ratio)
+            log(f"parity conv2d {str(dtype).split('.')[-1]} [{kind}] "
+                f"C={c} H={h} W={wd} k={k} bands kb={kb} kw={kw}: max "
+                f"|err| {(got - exact).abs().max().item():.3e}, "
+                f"{ratio:.3f} of the bound {'ok' if ok else 'FAIL'}")
+            require(ok, f"conv2d k {k} {dtype}: outside its fp64 bound")
+    return worst
+
+
 def phase_pool(torch, ideality, pool, others):
     """The pool's entry point on the card at both ladders, every count
     zeroed just before each run and read just after: each timed row's
@@ -2167,6 +2428,8 @@ def main() -> int:
         launches["flash_attention"] = phase_dense(
             torch, serving, kmods, model, params, paged, dev, name)[
                 "flash_attention"]
+        phase_cluster(torch, serving, kmods, model, params, paged, dev,
+                      f"{name} ({smi})")
         phase_profile(torch, model, params, dev)
         del params
         torch.cuda.empty_cache()
@@ -2186,6 +2449,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         pool = ideality.POOL
         errs.update(phase_pool_parity(torch, ideality, pool, dev))
+        phase_conv2d_bands(torch, pool["conv2d"], dev)
         pool_launches, kernel_ms = phase_pool(torch, ideality, pool, kmods)
         launches.update(pool_launches)
         times.update(phase_pool_timing(torch, ideality, pool, dev,

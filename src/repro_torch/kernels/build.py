@@ -13,17 +13,22 @@ Nothing here runs at import (the CPU tests import every module): ``nvcc``
 runs only when a kernel is first launched on a CUDA tensor, or when
 :func:`build_all` is called.  A failed build raises; there is no fallback
 to the plain versions.
+
+Threads may launch kernels at once (the serving cluster's threaded driver
+runs a replica a thread, each on its own stream): :func:`library` builds
+and loads a source once under that source's lock, and :func:`count` is the
+one place a kernel module's launch counts move, under one lock.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
-import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO = pathlib.Path(__file__).resolve().parents[3]
@@ -57,7 +62,8 @@ SIGNATURES = {
     },
     "dotproduct.cu": {"repro_dotproduct": (_I, _P, _P, _P, _P, _L, _I, _P)},
     "softmax.cu": {"repro_softmax": (_I, _P, _P, _L, _I, _P)},
-    "conv2d.cu": {"repro_conv2d": (_I, _P, _P, _P, _I, _I, _I, _I, _P)},
+    "conv2d.cu": {"repro_conv2d":
+                  (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
     "fft.cu": {
         "repro_fft_pass": (_I, _I, _P, _P, _P, _P, _L, _I, _P),
         "repro_fft_local": (_I, _P, _P, _P, _P, _I, _P),
@@ -102,7 +108,7 @@ def _compile(source: str) -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
         capture_output=True, text=True)
@@ -122,17 +128,41 @@ def build_all() -> dict[str, pathlib.Path]:
         return {s: f.result() for s, f in futs.items()}
 
 
-@functools.cache
+_LIBS: dict[str, ctypes.CDLL] = {}
+# one lock a source, so two threads never run nvcc on one target
+_BUILD_LOCKS = {source: threading.Lock() for source in SIGNATURES}
+_COUNT_LOCK = threading.Lock()
+
+
 def library(source: str) -> ctypes.CDLL:
-    """The loaded library of one source, its entry points typed."""
-    lib = ctypes.CDLL(str(_compile(source)))
-    for name, argtypes in SIGNATURES[source].items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    """The loaded library of one source, its entry points typed; the first
+    call builds it, under the source's lock."""
+    lib = _LIBS.get(source)
+    if lib is not None:
+        return lib
+    with _BUILD_LOCKS[source]:
+        if source in _LIBS:
+            return _LIBS[source]
+        lib = ctypes.CDLL(str(_compile(source)))
+        for name, argtypes in SIGNATURES[source].items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIBS[source] = lib
+        return lib
+
+
+def count(launches: dict, name: str, n: int = 1, routes: dict | None = None,
+          kind: str | None = None) -> None:
+    """Add ``n`` launches of kernel ``name`` to ``launches`` and to
+    ``routes[kind]``, under one lock: the counts are exact when threads
+    launch at once."""
+    with _COUNT_LOCK:
+        launches[name] += n
+        if routes is not None:
+            routes[kind] += n
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -5,9 +5,9 @@
 // _conv2d_kernel at lines 18-27): x (C, H, W) and one filter w (C, k, k), both
 // fp32 or both bf16, give out (H-k+1, W-k+1) in x's type,
 //   out[i, j] = sum over ci, ki, kj of w[ci, ki, kj] * x[ci, i+ki, j+kj],
-// with fp32 sums.  Any C >= 1, H, W >= k and k up to 61 (the first port's
-// 48 KB line; the Pallas kernel asserts that its 8-row blocks divide H-k+1,
-// which bench_ideality's own 3x128x128 does not).
+// with fp32 sums.  Any C >= 1, H, W >= k and k >= 1 (the Pallas kernel
+// asserts that its 8-row blocks divide H-k+1, which bench_ideality's own
+// 3x128x128 does not).
 //
 // What bounds it on the H100: bytes.  At 3 x 4096 x 4096, k = 7 it reads
 // 201 MB and writes 67 MB in fp32, 0.080 ms at 3.35 TB/s (bf16: 0.040 ms),
@@ -53,6 +53,16 @@
 // tensor memory accelerator where rows start on 16 bytes, else by cp.async
 // (fp32) or element loads (bf16).  Shared memory does not grow with C;
 // above 48 KB it is opted in.  One launch a call.
+//
+// A filter whose input tile does not fit a stage (or a TMA box of 256 rows
+// and 256 columns) is walked in bands that fit, each band an item of its
+// own, accumulating in the same registers: bands of kb filter rows (the
+// staged tile 64+kb-1 rows), and where even one filter row is too wide, one
+// row a band in bands of kw columns (fp32: kw taps; bf16: kw K-steps of
+// the banded product).  Items go channel, row band, column band, so the
+// fp32 route still takes each output's fmaf chain in the order ci, ki, kj.
+// The host picks kb and kw (conv2d.bands); a filter that fits takes one
+// band, the kernel as it was.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,7 +75,7 @@ namespace {
 using tc::bf16;
 
 constexpr int kThreads = 256;          // 8 warps
-constexpr int kMaxK = 61;              // the largest k (the first kernel's 48 KB line)
+constexpr int kMaxBox = 256;           // a TMA box's largest side, elements
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
@@ -133,21 +143,40 @@ __device__ __forceinline__ void copy_tile(T* tile, const T* __restrict__ x, int 
   }
 }
 
+// The bands of a filter: kb filter rows by kw column units (fp32: taps,
+// bf16: K-steps of 16), `units` of them in a filter row, `col_step` input
+// columns from one column band to the next.
+struct Bands {
+  int kb, kw, rbands, cbands, col_step;
+  __host__ __device__ Bands(int k, int kb_, int kw_, int units, int col_step_)
+      : kb(kb_), kw(kw_), rbands((k + kb_ - 1) / kb_), cbands((units + kw_ - 1) / kw_),
+        col_step(col_step_) {}
+  __host__ __device__ int count() const { return rbands * cbands; }
+};
+
 // The work of a block: TH x TW output tiles blockIdx.x, + gridDim.x, ...,
-// each channel of each an item.
+// each (channel, row band, column band) of each an item, in that order.
 template <int TH, int TW>
 struct Walk {
-  int channels, tiles_x, items;
-  __device__ Walk(int channels_, int ho, int wo) : channels(channels_) {
+  int channels, per_tile, tiles_x, items;
+  Bands bands;
+  __device__ Walk(int channels_, const Bands& bands_, int ho, int wo)
+      : channels(channels_), per_tile(channels_ * bands_.count()), bands(bands_) {
     tiles_x = (wo + TW - 1) / TW;
     const int tiles = tiles_x * ((ho + TH - 1) / TH);
-    items = (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x * channels;
+    items = (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x * per_tile;
   }
   // item n's tile origin (oy0, ox0)
   __device__ int2 origin(int n) const {
-    const int tile = blockIdx.x + n / channels * gridDim.x;
+    const int tile = blockIdx.x + n / per_tile * gridDim.x;
     return make_int2(tile / tiles_x * TH, tile % tiles_x * TW);
   }
+  // item n's channel, row band and column band
+  __device__ int channel(int n) const { return n % per_tile / bands.count(); }
+  __device__ int rband(int n) const { return n % per_tile % bands.count() / bands.cbands; }
+  __device__ int cband(int n) const { return n % per_tile % bands.count() % bands.cbands; }
+  // the tile's last item
+  __device__ bool last(int n) const { return n % per_tile == per_tile - 1; }
 };
 
 // A ring of kStages tiles (rows x pitch of T, 128-byte aligned), items
@@ -182,19 +211,22 @@ struct Ring {
   }
   __device__ T* stage(int n) const { return base + (n % kStages) * stride; }
 
-  // start item n's copy (none past the last item); call with every thread
+  // start item n's copy (none past the last item): its band's rows and
+  // columns of its channel; call with every thread
   template <typename W>
   __device__ void issue(const W& walk, int n, const CUtensorMap* map, const T* x, int h,
                         int wd) const {
     if (n >= walk.items) return;
     const int2 o = walk.origin(n);
-    const int ci = n % walk.channels;
+    const int ci = walk.channel(n);
+    const int oy = o.x + walk.rband(n) * walk.bands.kb;
+    const int ox = o.y + walk.cband(n) * walk.bands.col_step;
     if (!tma) {
-      copy_tile(stage(n), x, ci, h, wd, o.x, o.y, rows, pitch);
+      copy_tile(stage(n), x, ci, h, wd, oy, ox, rows, pitch);
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     } else if (threadIdx.x == 0) {
       tma_tile(stage(n), map, &full[n % kStages],
-               rows * pitch * static_cast<uint32_t>(sizeof(T)), o.y, o.x, ci);
+               rows * pitch * static_cast<uint32_t>(sizeof(T)), ox, oy, ci);
     }
   }
   // wait for item n, then a barrier: every thread sees it, and every
@@ -222,10 +254,11 @@ constexpr int kHalves = kTilesW + 1;   // 8-column halves of A a step loads
 constexpr int kMmaStages = 3;          // items in the ring: 2 in flight
 
 __host__ __device__ constexpr int mma_steps(int k) { return (k + 7 + 15) / 16; }
-// columns of the staged tile: the last warp's last step reaches 8 (kTilesW +
-// 2 steps - 1) past its origin; pitch * 2 bytes is an odd multiple of 16
-// modulo 128 for every k, so ldmatrix's 8 rows fall in distinct banks
-__host__ __device__ constexpr int mma_pitch(int k) { return kMmaTileW + 16 * mma_steps(k) - 8; }
+// columns of the staged tile for a band of `steps` K-steps: the last warp's
+// last step reaches 8 (kTilesW + 2 steps - 1) past its origin; pitch * 2
+// bytes is an odd multiple of 16 modulo 128 for every band, so ldmatrix's 8
+// rows fall in distinct banks
+__host__ __device__ constexpr int mma_pitch(int steps) { return kMmaTileW + 16 * steps - 8; }
 // the output tile's pitch when it passes through a stage: rows 16 bytes
 // apart in the banks, so a warp's fragment stores do not collide
 constexpr int kOutPitch = kMmaTileW + 8;
@@ -238,9 +271,10 @@ __host__ __device__ constexpr int mma_table_bytes(int channels, int k) {
   return channels * k * mma_steps(k) * 32 * static_cast<int>(sizeof(uint2));
 }
 using MmaRing = Ring<bf16, kMmaStages>;
-__host__ __device__ constexpr int mma_smem(int channels, int k) {
+// kb filter rows and kw K-steps a band
+__host__ __device__ constexpr int mma_smem(int channels, int k, int kb, int kw) {
   return 128 + MmaRing::bytes(mma_table_fits(channels, k) ? mma_table_bytes(channels, k) : 0,
-                              kMmaTileH + k - 1, mma_pitch(k));
+                              kMmaTileH + kb - 1, mma_pitch(kw));
 }
 
 __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
@@ -316,16 +350,18 @@ __device__ __forceinline__ uint2 mma_b(const uint2* btab, const uint16_t* __rest
   return b;
 }
 
-// One channel of a warp's 16 x 64 outputs: every (ki, s) step in order.
-// `a` is the lane's ldmatrix row at ki = 0, s = 0; c0 = 2t - g; `btab` the
-// channel's B fragments, or null.  K > 0: k = K <= 9, one step a filter row,
-// unrolled, the next step's A and B loaded before this step's products;
-// K = 0: any k, B a step ahead.
+// One band of one channel of a warp's 16 x 64 outputs: its (ki, s) steps in
+// order, filter rows k0 + [0, kbn) and K-steps s0 + [0, sn).  `a` is the
+// lane's ldmatrix row at the band's first row and step; c0 = 2t - g; `btab`
+// the channel's B fragments, or null.  K > 0: k = K <= 9, one band, one step
+// a filter row, unrolled, the next step's A and B loaded before this step's
+// products; K = 0: any k, B a step ahead.
 template <int K>
 __device__ __forceinline__ void mma_channel(float (&acc)[kTilesW][4], const bf16* a,
                                             int pitch, int lhalf, const uint2* btab,
                                             const uint16_t* __restrict__ wc, int c0,
-                                            int k, int lane) {
+                                            int k, int lane, int k0, int kbn, int s0,
+                                            int sn) {
   uint32_t hv[2][kHalves][2];
   if constexpr (K > 0) {
     mma_halves(hv[0], a, lhalf);
@@ -342,12 +378,12 @@ __device__ __forceinline__ void mma_channel(float (&acc)[kTilesW][4], const bf16
     }
   } else {
     const int steps = mma_steps(k);
-    uint2 b = mma_b(btab, wc, 0, 0, steps, c0, k, lane);
-    for (int ki = 0, s = 0; ki < k;) {
+    uint2 b = mma_b(btab, wc, k0, s0, steps, c0, k, lane);
+    for (int ki = 0, s = 0; ki < kbn;) {
       int nki = ki, ns = s + 1;
-      if (ns == steps) ns = 0, ++nki;
+      if (ns == sn) ns = 0, ++nki;
       uint2 nb = b;
-      if (nki < k) nb = mma_b(btab, wc, nki, ns, steps, c0, k, lane);
+      if (nki < kbn) nb = mma_b(btab, wc, k0 + nki, s0 + ns, steps, c0, k, lane);
       mma_halves(hv[0], a + ki * pitch + 16 * s, lhalf);
       mma_tiles(acc, hv[0], b);
       b = nb, ki = nki, s = ns;
@@ -372,14 +408,15 @@ template <int K>
 __global__ void __launch_bounds__(kThreads, 2)
 conv2d_mma_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restrict__ x,
                   const bf16* __restrict__ w, bf16* __restrict__ out, int channels,
-                  int h, int wd, int k, bool tma) {
+                  int h, int wd, int k, int kb, int kw, bool tma) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
   // [the ring's barriers | B table, when it fits | the ring's stages]
   const bool table = mma_table_fits(channels, k);
   uint2* btab = reinterpret_cast<uint2*>(smem + MmaRing::kHead);
-  const int pitch = mma_pitch(k), rows = kMmaTileH + k - 1;
+  const int pitch = mma_pitch(kw), rows = kMmaTileH + kb - 1;
+  const int steps = mma_steps(k);
   const MmaRing ring(smem, table ? mma_table_bytes(channels, k) : 0, rows, pitch, tma);
   const int ho = h - k + 1, wo = wd - k + 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -389,7 +426,7 @@ conv2d_mma_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restric
   // window's rows 8-15, lanes 16-31 the next half
   const int lrow = (lane & 7) + (lane & 8), lhalf = lane >> 4;
   const uint16_t* w16 = reinterpret_cast<const uint16_t*>(w);
-  const Walk<kMmaTileH, kMmaTileW> walk(channels, ho, wo);
+  const Walk<kMmaTileH, kMmaTileW> walk(channels, Bands(k, kb, kw, steps, 16 * kw), ho, wo);
   if (table) mma_table(btab, w16, channels, k);   // seen after the first barrier
   __syncthreads();                                  // the barriers initialised
 
@@ -404,13 +441,14 @@ conv2d_mma_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restric
   for (int n = 0; n < walk.items; ++n) {
     ring.wait(n, walk.items);
     ring.issue(walk, n + kMmaStages - 1, &map, x, h, wd);
-    const int ci = n % channels;
+    const int ci = walk.channel(n), k0 = walk.rband(n) * kb, s0 = walk.cband(n) * kw;
     mma_channel<K>(acc, ring.stage(n) + (wr + lrow) * pitch + wc, pitch, lhalf,
-                   table ? btab + ci * k * mma_steps(k) * 32 : nullptr,
-                   w16 + static_cast<size_t>(ci) * k * k, 2 * t - g, k, lane);
-    if (ci != channels - 1) continue;
+                   table ? btab + ci * k * steps * 32 : nullptr,
+                   w16 + static_cast<size_t>(ci) * k * k, 2 * t - g, k, lane, k0,
+                   min(kb, k - k0), s0, min(kw, steps - s0));
+    if (!walk.last(n)) continue;
 
-    // the tile's last channel: write it out
+    // the tile's last item: write it out
     const int2 o = walk.origin(n);
     bool bad = false;
 #pragma unroll
@@ -462,12 +500,14 @@ constexpr int kSimtStages = 2;         // items in the ring: 1 in flight
 constexpr int kSimtWarpRows = 8;       // warps: 8 x kRows rows by 1 x 128 columns
 constexpr int kSimtTileH = kRows * kSimtWarpRows, kSimtTileW = 32 * kCols * (8 / kSimtWarpRows);
 
-__host__ __device__ constexpr int simt_chunks(int k) { return (k + 7) / 8; }
+__host__ __device__ constexpr int simt_chunks(int kw) { return (kw + 7) / 8; }
 // a thread's 16-byte loads reach 8 chunks + 3 columns past its first column
-__host__ __device__ constexpr int simt_pitch(int k) { return kSimtTileW + 8 * simt_chunks(k); }
+// (kw: the taps of a band's filter row)
+__host__ __device__ constexpr int simt_pitch(int kw) { return kSimtTileW + 8 * simt_chunks(kw); }
 using SimtRing = Ring<float, kSimtStages>;
-__host__ __device__ constexpr int simt_smem(int k) {
-  return 128 + SimtRing::bytes(0, kSimtTileH + k - 1, simt_pitch(k));
+// kb filter rows and kw taps a band
+__host__ __device__ constexpr int simt_smem(int kb, int kw) {
+  return 128 + SimtRing::bytes(0, kSimtTileH + kb - 1, simt_pitch(kw));
 }
 
 // One channel's taps, K known here: the filter in registers, each input row
@@ -476,7 +516,8 @@ __host__ __device__ constexpr int simt_smem(int k) {
 template <int K>
 __device__ __forceinline__ void simt_channel(float (&acc)[kRows][kCols],
                                              const float* src, int pitch,
-                                             const float* __restrict__ wc, int) {
+                                             const float* __restrict__ wc, int, int,
+                                             int, int, int) {
   constexpr int kLoads = (kCols + K - 1 + 3) / 4;
   constexpr int kEnd = kRows + K - 1;
   float wv[K * K];
@@ -507,13 +548,16 @@ __device__ __forceinline__ void simt_channel(float (&acc)[kRows][kCols],
   }
 }
 
-// Any k: the taps of a row in chunks of 8, the weights from L1.
+// Any k, one band: filter rows k0 + [0, kbn) by taps j0 + [0, kwn), a row's
+// taps in chunks of 8, the weights from L1; `src` is the thread's first
+// column in the band's first staged row.
 template <>
 __device__ __forceinline__ void simt_channel<0>(float (&acc)[kRows][kCols],
                                                 const float* src, int pitch,
-                                                const float* __restrict__ wc, int k) {
-  for (int r = 0; r < kRows + k - 1; ++r) {
-    for (int kb = 0; kb < k; kb += 8) {
+                                                const float* __restrict__ wc, int k,
+                                                int k0, int kbn, int j0, int kwn) {
+  for (int r = 0; r < kRows + kbn - 1; ++r) {
+    for (int kb = 0; kb < kwn; kb += 8) {
       float xv[12];
 #pragma unroll
       for (int q = 0; q < 3; ++q)
@@ -522,11 +566,11 @@ __device__ __forceinline__ void simt_channel<0>(float (&acc)[kRows][kCols],
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int ki = r - i;
-        if (ki < 0 || ki >= k) continue;
-        const float* wrow = wc + ki * k + kb;
+        if (ki < 0 || ki >= kbn) continue;
+        const float* wrow = wc + (k0 + ki) * k + j0 + kb;
 #pragma unroll
         for (int kj = 0; kj < 8; ++kj) {
-          if (kb + kj >= k) break;
+          if (kb + kj >= kwn) break;
           const float wv = __ldg(wrow + kj);
 #pragma unroll
           for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(wv, xv[c + kj], acc[i][c]);
@@ -540,17 +584,17 @@ template <int K>
 __global__ void __launch_bounds__(kThreads, 2)
 conv2d_simt_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ x,
                    const float* __restrict__ w, float* __restrict__ out, int channels,
-                   int h, int wd, int k, bool tma) {
+                   int h, int wd, int k, int kb, int kw, bool tma) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
-  const int pitch = simt_pitch(k), rows = kSimtTileH + k - 1;
+  const int pitch = simt_pitch(kw), rows = kSimtTileH + kb - 1;
   const SimtRing ring(smem, 0, rows, pitch, tma);
   const int ho = h - k + 1, wo = wd - k + 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   // the thread's outputs
   const int ty = warp % kSimtWarpRows * kRows, tx = (warp / kSimtWarpRows * 32 + lane) * kCols;
-  const Walk<kSimtTileH, kSimtTileW> walk(channels, ho, wo);
+  const Walk<kSimtTileH, kSimtTileW> walk(channels, Bands(k, kb, kw, k, kw), ho, wo);
   __syncthreads();                                  // the barriers initialised
 
   float acc[kRows][kCols];
@@ -564,12 +608,13 @@ conv2d_simt_kernel(const __grid_constant__ CUtensorMap map, const float* __restr
   for (int n = 0; n < walk.items; ++n) {
     ring.wait(n, walk.items);
     ring.issue(walk, n + kSimtStages - 1, &map, x, h, wd);
-    const int ci = n % channels;
+    const int ci = walk.channel(n), k0 = walk.rband(n) * kb, j0 = walk.cband(n) * kw;
     simt_channel<K>(acc, ring.stage(n) + ty * pitch + tx, pitch,
-                    w + static_cast<size_t>(ci) * k * k, k);
-    if (ci != channels - 1) continue;
+                    w + static_cast<size_t>(ci) * k * k, k, k0, min(kb, k - k0), j0,
+                    min(kw, k - j0));
+    if (!walk.last(n)) continue;
 
-    // the tile's last channel: write it out
+    // the tile's last item: write it out
     const int2 o = walk.origin(n);
     const int ox = o.y + tx;
 #pragma unroll
@@ -630,10 +675,10 @@ struct Fit {
 
 template <typename T>
 cudaError_t launch_kernel(void (*kernel)(CUtensorMap, const T*, const T*, T*, int, int,
-                                         int, int, bool),
+                                         int, int, int, int, bool),
                           Fit& fit, int tile_h, int tile_w, int pitch, int smem,
                           const void* x, const void* w, void* out, int channels, int h,
-                          int wd, int k, void* stream) {
+                          int wd, int k, int kb, int kw, void* stream) {
   cudaError_t e = cudaSuccess;
   int device = 0;
   if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
@@ -655,7 +700,7 @@ cudaError_t launch_kernel(void (*kernel)(CUtensorMap, const T*, const T*, T*, in
                      ((ho + tile_h - 1) / tile_h);
   const int grid = static_cast<int>(tiles < fit.blocks ? tiles : fit.blocks);
   // TMA where rows start on 16 bytes: the base on 16 and W whole 16 bytes;
-  // a box is one channel's staged tile, (pitch, rows, 1)
+  // a box is one item's staged tile, (pitch, rows, 1)
   CUtensorMap map{};
   const bool tma = reinterpret_cast<uintptr_t>(x) % 16 == 0 && wd * sizeof(T) % 16 == 0;
   if (tma) {
@@ -665,7 +710,7 @@ cudaError_t launch_kernel(void (*kernel)(CUtensorMap, const T*, const T*, T*, in
     const cuuint64_t strides[2] = {static_cast<cuuint64_t>(wd) * sizeof(T),
                                    static_cast<cuuint64_t>(wd) * h * sizeof(T)};
     const cuuint32_t box[3] = {static_cast<cuuint32_t>(pitch),
-                               static_cast<cuuint32_t>(tile_h + k - 1), 1};
+                               static_cast<cuuint32_t>(tile_h + kb - 1), 1};
     const cuuint32_t elem[3] = {1, 1, 1};
     if (encode == nullptr ||
         encode(&map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -678,49 +723,56 @@ cudaError_t launch_kernel(void (*kernel)(CUtensorMap, const T*, const T*, T*, in
   }
   kernel<<<grid < 1 ? 1 : grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       map, static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
-      channels, h, wd, k, tma);
+      channels, h, wd, k, kb, kw, tma);
   return cudaGetLastError();
 }
 
 // Each route: an instance with the pool's 7 x 7 filter unrolled (its only
-// filter), and one for any k.
+// filter, always one band), and one for any k and any bands.
 cudaError_t launch_simt(const void* x, const void* w, void* out, int channels,
-                        int h, int wd, int k, void* stream) {
+                        int h, int wd, int k, int kb, int kw, void* stream) {
   static thread_local Fit fit[2];
-  const int smem = simt_smem(k), pitch = simt_pitch(k);
-  if (k == 7)
+  const int smem = simt_smem(kb, kw), pitch = simt_pitch(kw);
+  if (k == 7 && kb == 7 && kw == 7)
     return launch_kernel<float>(conv2d_simt_kernel<7>, fit[0], kSimtTileH, kSimtTileW, pitch,
-                                smem, x, w, out, channels, h, wd, k, stream);
+                                smem, x, w, out, channels, h, wd, k, kb, kw, stream);
   return launch_kernel<float>(conv2d_simt_kernel<0>, fit[1], kSimtTileH, kSimtTileW, pitch,
-                              smem, x, w, out, channels, h, wd, k, stream);
+                              smem, x, w, out, channels, h, wd, k, kb, kw, stream);
 }
 
 cudaError_t launch_mma(const void* x, const void* w, void* out, int channels,
-                       int h, int wd, int k, void* stream) {
+                       int h, int wd, int k, int kb, int kw, void* stream) {
   static thread_local Fit fit[2];
-  const int smem = mma_smem(channels, k), pitch = mma_pitch(k);
-  if (k == 7)
+  const int smem = mma_smem(channels, k, kb, kw), pitch = mma_pitch(kw);
+  if (k == 7 && kb == 7 && kw == mma_steps(7))
     return launch_kernel<bf16>(conv2d_mma_kernel<7>, fit[0], kMmaTileH, kMmaTileW, pitch, smem,
-                               x, w, out, channels, h, wd, k, stream);
+                               x, w, out, channels, h, wd, k, kb, kw, stream);
   return launch_kernel<bf16>(conv2d_mma_kernel<0>, fit[1], kMmaTileH, kMmaTileW, pitch, smem,
-                             x, w, out, channels, h, wd, k, stream);
+                             x, w, out, channels, h, wd, k, kb, kw, stream);
 }
 
 }  // namespace
 
 // dtype (x, w and out): 0 = float32 (route simt), 1 = bfloat16 (route mma);
 // x (channels, h, wd), w (channels, k, k), out (h-k+1, wd-k+1), contiguous.
+// kb: filter rows a band; kw: a band's taps (fp32) or K-steps (bf16) of a
+// filter row, several column bands only with one row a band (conv2d.bands).
 // Returns the CUDA error of the launch (0 on success); the Python wrapper
 // raises on anything else.
 extern "C" int repro_conv2d(int dtype, const void* x, const void* w, void* out,
-                            int channels, int h, int wd, int k, void* stream) {
-  if (channels < 1 || k < 1 || k > kMaxK || h < k || wd < k)
+                            int channels, int h, int wd, int k, int kb, int kw,
+                            void* stream) {
+  const int units = dtype == 0 ? k : mma_steps(k);
+  const int pitch = dtype == 0 ? simt_pitch(kw) : mma_pitch(kw);
+  if (channels < 1 || k < 1 || h < k || wd < k || kb < 1 || kb > k || kw < 1 ||
+      kw > units || (kw < units && kb != 1) || pitch > kMaxBox ||
+      kSimtTileH + kb - 1 > kMaxBox)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch_simt(x, w, out, channels, h, wd, k, stream));
+      return static_cast<int>(launch_simt(x, w, out, channels, h, wd, k, kb, kw, stream));
     case 1:
-      return static_cast<int>(launch_mma(x, w, out, channels, h, wd, k, stream));
+      return static_cast<int>(launch_mma(x, w, out, channels, h, wd, k, kb, kw, stream));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -61,7 +61,9 @@
 // these sums, and TF32 would not hold fp32's tolerance).
 //   * one thread block per (q tile, b, kv head) serves all g q-heads that
 //     share the kv head: rows = g * bq (at most 64) query rows, so a K/V tile
-//     is read from HBM once per kv head and q tile, not once per q-head;
+//     is read from HBM once per kv head and q tile, not once per q-head.  A
+//     group of more than 64 is cut into ceil(g / 64) blocks of at most 64
+//     q-heads (bq = 1), each reading the kv head's tiles;
 //   * K and V go through shared memory in tiles of 64 keys, the next tile
 //     copied (cp.async, 16 bytes a thread) while the current one is computed;
 //   * key tiles wholly outside the causal / window band of every row of the
@@ -153,22 +155,26 @@ __host__ __device__ size_t smem_bytes(int rows, int d) {
           3 * static_cast<size_t>(rows)) * sizeof(float);
 }
 
-// Grid: (q tiles, B * Hkv); blockIdx.y = b * hkv + h.  q / out: (B, hkv * g,
-// sq, d) contiguous; k / v: (B, hkv, sk, d) contiguous.  Row r of a block is
-// q-head h * g + r / bq at query q0 + r % bq.  RPT: score rows per thread;
-// rows <= kRowGroups * RPT.
+// Grid: (q tiles, B * Hkv * gblocks); blockIdx.y = (b * hkv + h) * gblocks +
+// gb, gblocks = ceil(g / gh).  q / out: (B, hkv * g, sq, d) contiguous; k / v:
+// (B, hkv, sk, d) contiguous.  Block gb serves q-heads gb * gh + [0, gn) of
+// kv head h, gn = min(gh, g - gb * gh); its row r is q-head h * g + gb * gh +
+// r / bq at query q0 + r % bq.  RPT: score rows per thread; gh * bq <=
+// kRowGroups * RPT.
 template <typename T, int RPT>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int hkv,
-                       int g, int sq, int sk, int d, int bq, float scale,
-                       int causal, int window) {
+                       int g, int gh, int sq, int sk, int d, int bq,
+                       float scale, int causal, int window) {
   constexpr int kRowsMax = kRowGroups * RPT;
-  const int b = blockIdx.y / hkv;
-  const int h = blockIdx.y % hkv;
+  const int gblocks = (g + gh - 1) / gh;
+  const int bkv = blockIdx.y / gblocks, gb = blockIdx.y % gblocks;
+  const int b = bkv / hkv;
+  const int h = bkv % hkv;
   const int q0 = blockIdx.x * bq;
   const int nq = min(bq, sq - q0);          // queries of this tile
-  const int rows = g * bq;
+  const int rows = min(gh, g - gb * gh) * bq;
   const int shift = sk - sq;                // qpos = query index + shift
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -184,7 +190,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* l_s = m_s + rows;                                // (rows,)
   float* alpha_s = l_s + rows;                            // (rows,)
 
-  const int64_t head0 = static_cast<int64_t>(b) * hkv * g + static_cast<int64_t>(h) * g;
+  const int64_t head0 = static_cast<int64_t>(b) * hkv * g + static_cast<int64_t>(h) * g +
+                        static_cast<int64_t>(gb) * gh;
   auto row_offset = [&](int r) -> int64_t {   // element offset of row r in q / out
     return ((head0 + r / bq) * sq + q0 + r % bq) * d;
   };
@@ -357,20 +364,20 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int RPT>
 cudaError_t launch_rpt(const void* q, const void* k, const void* v, void* out,
-                       int batch, int hkv, int g, int sq, int sk, int d,
-                       int bq, float scale, int causal, int window,
+                       int batch, int hkv, int g, int gh, int sq, int sk,
+                       int d, int bq, float scale, int causal, int window,
                        void* stream) {
-  const size_t smem = smem_bytes<T>(g * bq, d);
+  const size_t smem = smem_bytes<T>(gh * bq, d);
   const cudaError_t e = cudaFuncSetAttribute(
       flash_attention_kernel<T, RPT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const dim3 grid((sq + bq - 1) / bq, batch * hkv);
+  const dim3 grid((sq + bq - 1) / bq, batch * hkv * ((g + gh - 1) / gh));
   flash_attention_kernel<T, RPT><<<grid, kThreads, smem,
                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hkv, g, sq, sk, d, bq,
-      scale, causal, window);
+      static_cast<const T*>(v), static_cast<T*>(out), hkv, g, gh, sq, sk, d,
+      bq, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -379,13 +386,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int batch, int hkv, int g, int sq, int sk, int d,
                    float scale, int causal, int window, void* stream) {
   if (batch == 0 || hkv == 0 || sq == 0) return cudaSuccess;
-  if (d % 8 || d > kMaxHeadDim || g <= 0 || g > kMaxRows || sk <= 0)
+  if (d % 8 || d > kMaxHeadDim || g <= 0 || sk <= 0 ||
+      static_cast<long long>(batch) * hkv * ((g + kMaxRows - 1) / kMaxRows) > 65535)
     return cudaErrorInvalidValue;
-  const int bq = std::min(kMaxRows / g, sq);   // queries a block, g * bq rows
-  const int rows = g * bq;
+  const int gh = std::min(g, kMaxRows);        // q-heads a block
+  const int bq = std::min(kMaxRows / gh, sq);  // queries a block, gh * bq rows
+  const int rows = gh * bq;
 #define REPRO_LAUNCH(RPT)                                                  \
-  return launch_rpt<T, RPT>(q, k, v, out, batch, hkv, g, sq, sk, d, bq,    \
-                            scale, causal, window, stream)
+  return launch_rpt<T, RPT>(q, k, v, out, batch, hkv, g, gh, sq, sk, d,    \
+                            bq, scale, causal, window, stream)
   if (rows <= kRowGroups * 1) REPRO_LAUNCH(1);
   if (rows <= kRowGroups * 2) REPRO_LAUNCH(2);
   if (rows <= kRowGroups * 4) REPRO_LAUNCH(4);

@@ -70,5 +70,5 @@ def dotproduct_cuda(x, y):
             partial.data_ptr(), out.data_ptr(), n, blocks,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, what)
-    LAUNCHES["dotproduct"] += KERNELS_PER_CALL
+    build.count(LAUNCHES, "dotproduct", KERNELS_PER_CALL)
     return out

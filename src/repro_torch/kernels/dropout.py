@@ -67,5 +67,5 @@ def dropout_cuda(x, bits, *, rate):
             x.shape[0], rate, divisor,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, what)
-    LAUNCHES["dropout"] += 1
+    build.count(LAUNCHES, "dropout")
     return y

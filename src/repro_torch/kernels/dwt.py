@@ -73,6 +73,6 @@ def dwt_haar_cuda(x, *, levels=1):
                                      here, out.data_ptr(), lo.data_ptr(),
                                      stream)
             build.check(lib, err, what)
-            LAUNCHES["dwt"] += 1
+            build.count(LAUNCHES, "dwt")
             src, m, left = lo, m >> here, left - here
     return out

@@ -58,5 +58,5 @@ def exp_cuda(x):
                             x.shape[0],
                             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, what)
-    LAUNCHES["exp"] += 1
+    build.count(LAUNCHES, "exp")
     return y

@@ -91,6 +91,6 @@ def fft_cuda(x_re, x_im):
             else:
                 err = lib.repro_fft_local(code, *ptrs, step[1], stream)
             build.check(lib, err, what)
-            LAUNCHES["fft"] += 1
+            build.count(LAUNCHES, "fft")
             src, code = dst, _DTYPE_CODE[torch.float32]
     return out[0], out[1]

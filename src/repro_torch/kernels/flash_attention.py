@@ -114,8 +114,9 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # limits of csrc/flash_attention.cu's fp32 kernel: one PV column a thread
-# (128 threads), at most 64 query rows (g * bq) a thread block, 64-key
-# tiles (the head dim and g limits hold for both routes)
+# (128 threads), at most 64 query rows (g * bq) a thread block, a larger
+# group cut into blocks of 64 q-heads (:func:`group_blocks`), 64-key tiles
+# (the head dim limit holds for both routes)
 _MAX_HEAD_DIM, _MAX_ROWS, _TILE_KEYS = 128, 64, 64
 _MAX_SMEM = 227 * 1024
 # head dims the tensor-core kernel is built for; a head dim between two is
@@ -137,6 +138,13 @@ def route(dtype, d: int) -> tuple[str, int]:
     if dtype == torch.float32:
         return "simt", d
     return "mma", next(t for t in HEAD_DIM_TEMPLATES if t >= d)
+
+
+def group_blocks(g: int) -> int:
+    """Blocks the fp32 route cuts a kv head's group of ``g`` q-heads into:
+    at most 64 q-heads a block (64 query rows), so ceil(g / 64).  The bf16
+    route runs a block per q-head and 64 queries whatever g is."""
+    return -(-g // _MAX_ROWS)
 
 
 def _check(q, k, v, window) -> None:
@@ -166,16 +174,16 @@ def _check(q, k, v, window) -> None:
         raise ValueError(f"{what}: q {tuple(q.shape)} vs k / v "
                          f"{tuple(k.shape)} (need equal B and D, Sk >= 1 and "
                          "Hq % Hkv == 0)")
-    g = hq // hkv
     kind, _ = route(q.dtype, d)
-    if g > _MAX_ROWS:
-        raise ValueError(f"{what}: Hq / Hkv = {g} must be at most "
-                         f"{_MAX_ROWS}")
     if window is not None and window < 1:
         raise ValueError(f"{what}: window {window} must be >= 1 (or None)")
     if kind == "mma":
         return                  # 5 tiles of 64 x (128 + 8) bf16 at most
-    rows = g * (_MAX_ROWS // g)
+    if b * hkv * group_blocks(hq // hkv) > 65535:
+        raise ValueError(f"{what}: B * Hkv * ceil(g / {_MAX_ROWS}) must be at "
+                         "most 65535 (the grid's y dimension)")
+    gh = min(hq // hkv, _MAX_ROWS)
+    rows = gh * (_MAX_ROWS // gh)
     ld = d + 16 // q.element_size()
     smem = (4 * _TILE_KEYS * ld * q.element_size()
             + (rows * d + rows * _TILE_KEYS + 3 * rows) * 4)
@@ -208,6 +216,5 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, scale=None):
                 _DTYPE_CODE[q.dtype], *ptrs, b, hkv, hq // hkv, sq, sk, d,
                 *tail)
     build.check(lib, err, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
-    ROUTES[kind] += 1
+    build.count(LAUNCHES, "flash_attention", 1, ROUTES, kind)
     return out

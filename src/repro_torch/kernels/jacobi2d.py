@@ -75,5 +75,5 @@ def jacobi2d_cuda(x, steps=1):
             None if scratch is None else scratch.data_ptr(), h, w, steps,
             stream)
     build.check(lib, err, what)
-    LAUNCHES["jacobi2d"] += steps
+    build.count(LAUNCHES, "jacobi2d", steps)
     return out

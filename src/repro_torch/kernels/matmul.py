@@ -85,8 +85,7 @@ def matmul_cuda(x, w, *, out_dtype=None):
         return out              # nothing to launch
     kind = route(x.dtype, k, n, aligned=_aligned(x, w))
     _launch(kind, x, w, out)
-    LAUNCHES["matmul"] += KERNELS_PER_CALL
-    ROUTES[kind] += 1
+    build.count(LAUNCHES, "matmul", KERNELS_PER_CALL, ROUTES, kind)
     return out
 
 

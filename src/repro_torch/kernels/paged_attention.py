@@ -32,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -251,17 +252,26 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# per CUDA device, the arrival counters of the split kernels' combine:
-# zeroed once, and every launch leaves them zero
-_COUNTERS: dict[int, torch.Tensor] = {}
+# The arrival counters of the split kernels' combine, one buffer per
+# (device, stream): zeroed once, and every launch leaves its words zero.
+# Launches on one stream run in order, so they may share a buffer; two
+# streams never share one, so split launches on concurrent streams (the
+# serving cluster's threaded driver) never read each other's arrivals.  A
+# buffer is allocated while its stream is current: when it grows, the old
+# one returns to that stream's pool in PyTorch's caching allocator, which
+# hands it out again only to later work on the same stream.
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+_COUNTERS_LOCK = threading.Lock()
 
 
 def _counters(dev: torch.device, n: int) -> torch.Tensor:
-    have = _COUNTERS.get(dev.index)
-    if have is None or have.numel() < n:
-        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-        _COUNTERS[dev.index] = have
-    return have
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    with _COUNTERS_LOCK:
+        have = _COUNTERS.get(key)
+        if have is None or have.numel() < n:
+            have = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+            _COUNTERS[key] = have
+        return have
 
 
 def _launch(what, q, k_pool, v_pool, block_table, lens, scale, decode):
@@ -297,8 +307,7 @@ def _launch(what, q, k_pool, v_pool, block_table, lens, scale, decode):
                 _ptr(lens), _ptr(out), b, hkv, g, sq, d, bs, m, int(decode),
                 _scale(scale, d), _stream(q))
     build.check(lib, err, what)
-    LAUNCHES[what] += 1
-    ROUTE_COUNTS[what][kind] += 1
+    build.count(LAUNCHES, what, 1, ROUTE_COUNTS[what], kind)
     return out
 
 

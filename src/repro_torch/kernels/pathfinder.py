@@ -75,5 +75,5 @@ def pathfinder_cuda(w):
             None if scratch is None else scratch.data_ptr(), rows, cols,
             HEIGHT, stream)
     build.check(lib, err, what)
-    LAUNCHES["pathfinder"] += launches
+    build.count(LAUNCHES, "pathfinder", launches)
     return out

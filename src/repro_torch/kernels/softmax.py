@@ -61,5 +61,5 @@ def softmax_cuda(x):
             _DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(), rows, cols,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, what)
-    LAUNCHES["softmax"] += KERNELS_PER_CALL
+    build.count(LAUNCHES, "softmax", KERNELS_PER_CALL)
     return y

@@ -258,6 +258,5 @@ def ssd_cuda(x, dt, a_log, b_mat, c_mat, *, d_skip=None, h0=None):
                                          q, stream)
     build.check(lib, err, "ssd_scan")
     k = kernels_per_call(s, x.dtype)
-    LAUNCHES["ssd_scan"] += k
-    ROUTES[rt] += k
+    build.count(LAUNCHES, "ssd_scan", k, ROUTES, rt)
     return y, h_out

@@ -8,11 +8,17 @@ The flags are those of ``repro.launch.serve``: ``--mode`` picks the
 scheduler (continuous / lockstep), ``--kv-layout`` the cache layout (dense,
 the default, or paged), ``--bucket`` the dense prefill bucketing and
 ``--temperature`` sampled decoding (JAX's threefry streams under the
-reference's default key, seed 0; see ``repro_torch.serving.sampling``).  ``--device``
-(default ``cuda``) picks the device; ``--device cpu --smoke`` runs the
-plain PyTorch path at the smoke size.  Weights are seeded random
-(``--seed``).  The flags of parts not ported yet — ``--replicas > 1``,
-``--driver threaded`` and ``--attribution`` — stop with "not yet ported".
+reference's default key, seed 0; see ``repro_torch.serving.sampling``), and
+``--replicas N`` (N > 1) serves through the multi-replica cluster instead:
+N narrow engines behind a ``--router`` policy, sharing one KV block pool
+with preemption under pool pressure for the dense family (per-replica slot
+state for the hybrid family; ``repro_torch.serving.cluster``), stepped in
+one loop or, with ``--driver threaded``, a replica a thread (on the card a
+CUDA stream each; the same tokens), with ``--hysteresis`` the preemption
+cool-down.  ``--device`` (default ``cuda``) picks the device; ``--device
+cpu --smoke`` runs the plain PyTorch path at the smoke size.  Weights are
+seeded random (``--seed``).  ``--attribution``, not ported yet, stops with
+"not yet ported".
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ import torch
 from .. import resolve_device
 from ..configs import get_config, list_archs, smoke_config
 from ..models import build_model
-from ..serving import POLICIES, Request, ServeEngine, Tracer
+from ..serving import (DRIVERS, POLICIES, ROUTER_POLICIES, ClusterEngine,
+                       Request, ServeEngine, Tracer)
 
 
 def main(argv=None):
@@ -40,15 +47,18 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--cache-len", type=int, default=256)
-    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="decode slots (with --replicas > 1: the cluster's "
+                         "total)")
     ap.add_argument("--mode", default="auto",
                     choices=["auto", "continuous", "lockstep"])
     ap.add_argument("--kv-layout", default="dense",
                     choices=["dense", "paged"])
-    ap.add_argument("--admission", default="reserve",
+    ap.add_argument("--admission", default=None,
                     choices=["reserve", "overcommit"],
                     help="paged admission: worst-case reservation vs "
-                         "first-chunk overcommit")
+                         "first-chunk overcommit (default: reserve, a "
+                         "cluster overcommit)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="KV positions per pool block")
     ap.add_argument("--n-blocks", type=int, default=None,
@@ -61,16 +71,23 @@ def main(argv=None):
                     help="admit shared prompt prefixes by referencing "
                          "resident pool blocks (refcounted, "
                          "copy-on-write)")
-    ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--router", default="round_robin")
-    ap.add_argument("--driver", default="sequential",
-                    choices=["sequential", "threaded"])
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through a cluster of this many replicas "
+                         "sharing one KV pool")
+    ap.add_argument("--router", default="round_robin",
+                    choices=list(ROUTER_POLICIES),
+                    help="cluster routing policy (--replicas > 1)")
+    ap.add_argument("--driver", default="sequential", choices=list(DRIVERS),
+                    help="cluster driver (--replicas > 1): one loop, or a "
+                         "replica a thread (the same tokens)")
     ap.add_argument("--policy", default="fifo", choices=list(POLICIES))
     ap.add_argument("--slo-ttft", type=float, default=None, metavar="MS")
     ap.add_argument("--slo-tpot", type=float, default=None, metavar="MS")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are sampled")
-    ap.add_argument("--hysteresis", type=int, default=4)
+    ap.add_argument("--hysteresis", type=int, default=4,
+                    help="cluster: rounds a preempted request waits before "
+                         "re-admission (--replicas > 1)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="write a Chrome-trace-event JSON of the run")
     ap.add_argument("--metrics", nargs="?", const=True, default=None,
@@ -81,14 +98,17 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    not_ported = [
-        ("--replicas > 1", args.replicas > 1),
-        ("--driver threaded", args.driver != "sequential"),
-        ("--attribution", args.attribution),
-    ]
-    for flag, asked in not_ported:
-        if asked:
-            ap.error(f"{flag}: not yet ported to repro_torch")
+    if args.attribution:
+        ap.error("--attribution: not yet ported to repro_torch")
+    if args.replicas > 1:
+        if args.mode != "auto" or args.kv_layout != "dense":
+            ap.error("--replicas > 1 always serves continuous and resolves "
+                     "the KV layout per family (paged for the dense family, "
+                     "slot state for the hybrid family); drop "
+                     "--mode/--kv-layout")
+    elif args.driver != "sequential":
+        ap.error("--driver threaded needs a cluster (--replicas > 1); a "
+                 "single engine has nothing to overlap")
     if args.stream and args.mode == "lockstep":
         ap.error("--stream needs the continuous scheduler (tokens only "
                  "exist one group at a time under lockstep)")
@@ -104,13 +124,26 @@ def main(argv=None):
     model = build_model(cfg)
     params = model.init(args.seed, device=device)
     tracer = Tracer() if (args.trace or args.metrics) else None
-    eng = ServeEngine(model, params, max_batch=args.max_batch,
-                      cache_len=args.cache_len, mode=args.mode,
-                      kv_layout=args.kv_layout, bucket=bucket,
-                      block_size=args.block_size,
-                      n_blocks=args.n_blocks, admission=args.admission,
-                      prefix_cache=args.prefix_cache, policy=args.policy,
-                      tracer=tracer)
+    if args.replicas > 1:
+        eng = ClusterEngine(model, params, replicas=args.replicas,
+                            total_slots=args.max_batch,
+                            cache_len=args.cache_len, router=args.router,
+                            block_size=args.block_size,
+                            n_blocks=args.n_blocks, bucket=bucket,
+                            admission=args.admission or "overcommit",
+                            preempt_hysteresis=args.hysteresis,
+                            prefix_cache=args.prefix_cache,
+                            driver=args.driver, policy=args.policy,
+                            tracer=tracer)
+    else:
+        eng = ServeEngine(model, params, max_batch=args.max_batch,
+                          cache_len=args.cache_len, mode=args.mode,
+                          kv_layout=args.kv_layout, bucket=bucket,
+                          block_size=args.block_size,
+                          n_blocks=args.n_blocks,
+                          admission=args.admission or "reserve",
+                          prefix_cache=args.prefix_cache, policy=args.policy,
+                          tracer=tracer)
     reqs = [Request([int(t) % cfg.vocab_size for t in p.split()],
                     args.max_new, args.temperature, rid=i,
                     slo_ttft_ms=args.slo_ttft, slo_tpot_ms=args.slo_tpot)
@@ -133,7 +166,11 @@ def main(argv=None):
              else str(device))
     extra = (f" block_util_peak={s.block_util_peak:.2f}"
              f" preempted={s.preempted} requeued={s.requeued}"
-             if args.kv_layout == "paged" else "")
+             if s.kv_layout == "paged" else "")
+    if s.router_policy:
+        extra += (f" router={s.router_policy} replicas={args.replicas}"
+                  f" driver={args.driver}"
+                  f" pool_bytes={eng.last_pool_bytes}")
     if args.prefix_cache:
         extra += (f" prefix_hits={s.prefix_hits}"
                   f" prefix_reused={s.prefix_tokens_reused}")

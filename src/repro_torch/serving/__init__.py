@@ -1,6 +1,9 @@
-"""The port's serving stack: the paged continuous-batching engine, the
-block allocator, scheduling policies and telemetry (see the counterparts
-in ``repro/serving``)."""
+"""The port's serving stack: the continuous-batching engine (dense and
+paged), the multi-replica cluster (``ClusterEngine``: a router, one shared
+block pool, preemption, sequential and threaded drivers), the block
+allocator, scheduling policies and telemetry (see the counterparts in
+``repro/serving``)."""
+from .cluster import DRIVERS, ROUTER_POLICIES, ClusterEngine
 from .engine import EngineStats, Request, Result, ServeEngine, TokenEvent
 from .kvcache import (BlockAllocator, BlockPoolStats, PoolPressure,
                       blocks_needed, prefix_chain_keys)
@@ -9,7 +12,7 @@ from .telemetry import (MONOTONIC, NULL_TRACER, FakeClock, MetricsRegistry,
                         MonotonicClock, NullTracer, Tracer,
                         validate_lifecycle)
 
-__all__ = ["EngineStats", "Request", "Result", "ServeEngine", "TokenEvent",
+__all__ = ["ClusterEngine", "DRIVERS", "ROUTER_POLICIES", "EngineStats", "Request", "Result", "ServeEngine", "TokenEvent",
            "BlockAllocator", "BlockPoolStats", "PoolPressure",
            "blocks_needed", "prefix_chain_keys", "POLICIES", "SchedPolicy",
            "make_policy", "MONOTONIC", "NULL_TRACER", "FakeClock",

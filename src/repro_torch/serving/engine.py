@@ -33,7 +33,14 @@ worst case at admit time, so lazy growth never fails; ``overcommit`` admits
 when one block is free, and growth that finds the pool empty raises
 :class:`~repro_torch.serving.kvcache.PoolPressure` out of ``session_step``
 so an outer scheduler can ``session_preempt`` a victim (its generated
-prefix rides in ``Request.done`` for re-prefill) and retry.
+prefix rides in ``Request.done``) and retry.  A re-admitted paged request
+prefills its prompt in chunks and then *replays* ``done`` through the
+decode step at the engine's full width (``_replay_paged``), as the
+uninterrupted run computed those positions: a chunked prefill of prompt +
+done is the same function in other GEMM shapes and another key split, and
+on the card it rounds differently, so the resumed stream would part from
+the uninterrupted one at a near-tie (the reference prefills prompt +
+done).
 
 Prefix caching (``prefix_cache=True``): full ``block_size`` spans of a
 finished prefill are registered in the allocator's index under exact chain
@@ -167,7 +174,7 @@ class EngineStats:
     wall_s: float
     generated_tokens: int
     tokens_per_s: float
-    decode_steps: int              # decode launches
+    decode_steps: int              # decode launches (cluster: summed)
     occupancy: float               # busy slot-steps / (max_batch * steps)
     ttft_ms_mean: float            # mean time-to-first-token
     kv_layout: str = "dense"
@@ -175,6 +182,7 @@ class EngineStats:
     block_util_peak: float = 0.0   # paged: peak live blocks / pool capacity
     preempted: int = 0             # requests evicted under pool pressure
     requeued: int = 0              # re-admissions of preempted requests
+    router_policy: str = ""        # cluster-level: routing policy used
     prefix_hits: int = 0           # prompt blocks admitted by reference
     prefix_tokens_reused: int = 0  # prefill positions skipped via hits
     ttft_ms_p50: float = 0.0
@@ -192,12 +200,15 @@ class EngineStats:
     slo_tpot_total: int = 0
     slo_tpot_attained: int = 0
     slo_attainment: float = 1.0
+    slo_starve_preempts: int = 0   # cluster: starvation-pressure evictions
 
     @classmethod
     def from_registry(cls, m: MetricsRegistry, *, mode: str, wall_s: float,
                       kv_layout: str = "dense", prefill_compiles: int = 0,
-                      block_util_peak: float = 0.0,
+                      block_util_peak: float = 0.0, router_policy: str = "",
                       sched_policy: str = "") -> "EngineStats":
+        """Derive the stats view from a registry (one engine session's,
+        or several replicas' registries merged)."""
         ttft = m.histogram("ttft_ms")
         tpot = m.histogram("tpot_ms")
         qage = m.histogram("queue_age_ms")
@@ -215,6 +226,7 @@ class EngineStats:
             block_util_peak=block_util_peak,
             preempted=m.counter("preempted").n,
             requeued=m.counter("requeued").n,
+            router_policy=router_policy,
             prefix_hits=m.counter("prefix_hits").n,
             prefix_tokens_reused=m.counter("prefix_tokens_reused").n,
             ttft_ms_p50=ttft.percentile(50),
@@ -230,7 +242,8 @@ class EngineStats:
             slo_ttft_total=slo_tt, slo_ttft_attained=slo_ta,
             slo_tpot_total=slo_pt, slo_tpot_attained=slo_pa,
             slo_attainment=((slo_ta + slo_pa) / (slo_tt + slo_pt)
-                            if slo_tt + slo_pt else 1.0))
+                            if slo_tt + slo_pt else 1.0),
+            slo_starve_preempts=m.counter("slo_starve_preempts").n)
 
 
 @dataclasses.dataclass
@@ -251,6 +264,7 @@ class _Slot:
     # prefix cache: blocks[:shared_until] are referenced from the prefix
     # index (refcounted, read-only for this slot until copy-on-write)
     shared_until: int = 0
+    replayed: int = 0              # paged: ``done`` tokens replayed so far
     admit_t: float = 0.0           # clock time of the *first* admission
     enqueue_t: float | None = None  # clock time the request was queued
     span_t0: float = 0.0           # clock time of *this* admission
@@ -387,6 +401,10 @@ class ServeEngine:
         self._sess: _Session | None = None
         self._prefill_shapes: set[int] = set()   # prefill lengths run
         self._owns_pool = False
+        # called just before a step's sampled tokens are read back to the
+        # host (the read waits for the device): the cluster's threaded
+        # driver lets other replicas dispatch meanwhile
+        self.await_device = None
         if kv_layout == "paged":
             self._init_pool(allocator, block_size, n_blocks, admission)
         self._decode = (model.decode_paged if kv_layout == "paged"
@@ -532,20 +550,28 @@ class ServeEngine:
                   + max(r.max_new_tokens - len(r.done) - 1, 0))
         return blocks_needed(writes, self.block_size)
 
+    def _prefill_seq(self, r: Request) -> list:
+        """The tokens a paged admission prefills in chunks: the prompt (a
+        re-admission's ``done`` is replayed through decode instead)."""
+        return list(r.prompt)
+
     def _prefix_hits(self, r: Request) -> tuple[list, bool]:
         """The longest run of resident full prefix blocks of the request's
-        prefill (prompt + done), as ``([(chain_key, block_id), ...],
-        full_boundary)``.  Pure: no refcount moves until admission."""
+        chunked prefill (its prompt), as ``([(chain_key, block_id), ...],
+        full_boundary)``; a full boundary needs the final chunk re-run for
+        its logits unless ``done`` is replayed after it.  Pure: no refcount
+        moves until admission."""
         if not self.prefix_cache:
             return [], False
-        seq = list(r.prompt) + list(r.done)
+        seq = self._prefill_seq(r)
         hits = []
         for key in kvcache.prefix_chain_keys(seq, self.block_size):
             blk = self.allocator.lookup(key, self.owner)
             if blk is None:
                 break
             hits.append((key, blk))
-        boundary = bool(hits) and len(hits) * self.block_size == len(seq)
+        boundary = (bool(hits) and not r.done
+                    and len(hits) * self.block_size == len(seq))
         return hits, boundary
 
     def _admit_block_need(self, r: Request) -> int:
@@ -619,6 +645,13 @@ class ServeEngine:
         """Outstanding decode tokens across live slots."""
         return sum(s.req.max_new_tokens - len(s.req.done) - len(s.tokens)
                    for _, s in self.session_slots())
+
+    def session_slot_steps(self) -> tuple[int, int]:
+        """(busy, offered) slot-steps of the open session - offered counts
+        max_batch lanes per launched decode step (cluster occupancy)."""
+        m = self._require_session().metrics
+        return (m.counter("busy_slot_steps").n,
+                m.counter("offered_slot_steps").n)
 
     def session_can_admit(self, r: Request) -> bool:
         """Pool-side admission test (always true for the dense layout,
@@ -766,6 +799,10 @@ class ServeEngine:
         sess.rids[slot] = r.rid
         return None
 
+    def _await_device(self) -> None:
+        if self.await_device is not None:
+            self.await_device()
+
     def _replay_done(self, sub, done):
         """Rebuild a preempted scan-family request's state from its
         prompt-only prefill cache ``sub`` by feeding each ``done`` token
@@ -823,6 +860,7 @@ class ServeEngine:
         sess.cache = self.model.cache_slot_write(sess.cache, sub, slot)
         # the request's t-th token always uses stream index t, so a
         # re-admitted (preempted) request resumes its stream at len(done)
+        self._await_device()
         tok = int(_sample_rows(logits, np.asarray([r.temperature],
                                                   np.float32),
                                sess.key, np.asarray([r.rid]),
@@ -899,6 +937,7 @@ class ServeEngine:
         # [t0, t_disp] is host dispatch; sampling below waits for the
         # device, so [t_disp, t1] is device time + sampling + transfer
         t_disp = self.clock.now()
+        self._await_device()
         nxt = _sample_rows(logits, sess.temps, sess.key, sess.rids,
                            sess.tok_idx)
         t1 = self.clock.now()
@@ -979,10 +1018,10 @@ class ServeEngine:
 
     def _chunk_tokens(self, r: Request, chunk: int) -> torch.Tensor:
         """(1, block_size) token feed for positions ``[chunk*bs,
-        (chunk+1)*bs)``: prompt + done ids, 0 past them (right pad, masked
+        (chunk+1)*bs)``: prompt ids, 0 past them (right pad, masked
         causally and overwritten as decode proceeds)."""
         bs = self.block_size
-        seq = list(r.prompt) + list(r.done)
+        seq = self._prefill_seq(r)
         toks = np.zeros((1, bs), np.int32)
         lo, hi = chunk * bs, min((chunk + 1) * bs, len(seq))
         if hi > lo:
@@ -991,13 +1030,15 @@ class ServeEngine:
 
     def _advance_prefill(self, sess: _Session, i: int,
                          s: _Slot) -> Result | None:
-        """Run slot ``i``'s remaining prefill chunks, allocating each
-        chunk's block just before computing it (resumable after
-        PoolPressure).  On completion samples the request's first token;
-        returns the finished Result when the token budget is satisfied by
-        the prefill itself, else None."""
+        """Run slot ``i``'s remaining prefill chunks (the prompt), then
+        replay a re-admission's ``done`` through decode, allocating each
+        block just before it is written (resumable after PoolPressure).
+        On completion samples the request's next token; returns the
+        finished Result when the token budget is satisfied by the prefill
+        itself, else None."""
         r = s.req
-        n_chunks = blocks_needed(s.prefill_pos, self.block_size)
+        plen = len(self._prefill_seq(r))
+        n_chunks = blocks_needed(plen, self.block_size)
         logits = None
         while s.chunks_done < n_chunks:
             c = s.chunks_done
@@ -1009,15 +1050,24 @@ class ServeEngine:
             with self.tracer.span(self._slot_track(i), "chunk",
                                   rid=r.rid, chunk=c):
                 logits, sess.cache = self.model.prefill_paged(
-                    self.params, sess.cache, batch, i, c, s.prefill_pos)
+                    self.params, sess.cache, batch, i, c, plen)
             s.chunks_done += 1
+        while s.replayed < len(r.done):
+            pos = plen + s.replayed
+            while len(s.blocks) * self.block_size <= pos:
+                self._grow_slot(sess, i, s)     # may raise PoolPressure
+            logits = self._replay_paged(sess, i, r.done[s.replayed], pos)
+            s.replayed += 1
+            # counted as it runs: a request preempted mid-replay replays
+            # again on its next admission
+            sess.metrics.counter("resume_replay_tokens").inc()
         if self.prefix_cache:
-            # publish every full prompt-prefix block; decode writes always
-            # land past prefill_pos, so registered bytes are prefill output
-            seq = list(r.prompt) + list(r.done)
-            for c, key in enumerate(
-                    kvcache.prefix_chain_keys(seq, self.block_size)):
+            # publish every full prompt block; decode writes always land
+            # past the prompt, so registered bytes are prefill output
+            for c, key in enumerate(kvcache.prefix_chain_keys(
+                    self._prefill_seq(r), self.block_size)):
                 self.allocator.register(key, s.blocks[c], self.owner)
+        self._await_device()
         tok = int(_sample_rows(logits, np.asarray([r.temperature]),
                                sess.key, np.asarray([r.rid]),
                                np.asarray([len(r.done)]))[0])
@@ -1042,6 +1092,28 @@ class ServeEngine:
         sess.toks[i, 0] = tok
         sess.tok_idx[i] = len(r.done) + 1
         return None
+
+    def _replay_paged(self, sess: _Session, i: int, tok: int, pos: int):
+        """Decode ``tok`` at position ``pos`` for slot ``i`` alone, as the
+        uninterrupted run did: a full-width step (the engine's
+        ``max_batch`` rows, slot ``i`` at its own row, every other row on
+        the null block at position 0) over the shared pools, so every GEMM
+        and attention launch has the shapes that run's decode had and the
+        slot's row gets the same bits.  Writes the position's K/V into the
+        slot's block; returns the (1, V) logits."""
+        pc = sess.cache
+        bt = torch.full_like(pc["bt"], kvcache.NULL_BLOCK)
+        bt[i] = pc["bt"][i]
+        positions = torch.zeros_like(pc["pos"])
+        positions[i] = pos
+        feed = torch.zeros((self.max_batch, 1), dtype=torch.int32,
+                           device=self.device)
+        feed[i, 0] = tok
+        view = dict(pc, bt=bt, pos=positions)
+        with self.tracer.span(self._slot_track(i), "replay", pos=pos):
+            logits, _ = self.model.decode_paged(self.params, view, feed)
+        pc["pos"][i] = pos + 1
+        return logits[i:i + 1]
 
     def session_preempt(self, slot: int) -> tuple[int, Request]:
         """Evict the request in ``slot``: free its blocks and return

@@ -3,8 +3,8 @@ starvation pressure from per-request latency budgets.
 
 A pure-Python copy of the reference's ``repro/serving/slo.py`` (the
 reference's ``serving`` package imports JAX, so the port keeps its own).
-The cluster named below is not ported yet; the port's ``ServeEngine``
-uses the admission order and the victim ranking.
+The port's ``ServeEngine`` uses the admission order and the victim
+ranking, and its ``ClusterEngine`` the routing and starvation signal too.
 
 Every knob the scheduler had before this module was static: admission
 was strictly FIFO, preemption victims were picked by (priority,

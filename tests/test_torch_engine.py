@@ -284,8 +284,10 @@ def test_stream_and_not_ported_paths(weights):
 
 def test_serve_cli_on_cpu():
     """The launcher serves paged (prefix cache, metrics) and, by default,
-    dense: continuous, lockstep, bucketed and sampled.  Only the cluster,
-    its threaded driver and attribution still stop."""
+    dense: continuous, lockstep, bucketed and sampled.  Attribution still
+    stops, and so do a threaded driver without a cluster and a cluster
+    asked for a scheduler (``tests/test_torch_cluster.py`` serves the
+    cluster)."""
     prompts = ["--prompts", "1 2 3", "4 5 6 7 8 9 10 11 12 13 14 15 16 17 18",
                "--max-new", "4"]
     for flags, want in (
@@ -300,8 +302,9 @@ def test_serve_cli_on_cpu():
             serve_cli.main(["--smoke", "--device", "cpu", *prompts, *flags])
         text = out.getvalue()
         assert text.count("[serve] rid=") == 2 and want in text, text
-    for flags in (["--replicas", "2"], ["--driver", "threaded"],
-                  ["--attribution"], ["--bucket", "x"]):
+    for flags in (["--replicas", "2", "--mode", "lockstep"],
+                  ["--driver", "threaded"], ["--attribution"],
+                  ["--bucket", "x"]):
         err = io.StringIO()
         with pytest.raises(SystemExit), contextlib.redirect_stderr(err):
             serve_cli.main(["--smoke", "--device", "cpu", *flags])

@@ -171,3 +171,32 @@ def test_routes_count_each_route_and_reset_with_the_launches():
     finally:
         fa.LAUNCHES.update(saved[0])
         fa.ROUTES.update(saved[1])
+
+
+@pytest.mark.parametrize("g,blocks", [(1, 1), (8, 1), (64, 1), (65, 2),
+                                      (128, 2), (129, 3), (300, 5)])
+def test_group_blocks_cover_any_group(g, blocks):
+    """The fp32 route cuts a kv head's group of g q-heads into blocks of
+    at most 64 (its rows a block): ceil(g / 64) blocks, which cover the
+    group once; the reference's kernel has no cap on g, and neither has
+    the wrapper."""
+    assert fa.group_blocks(g) == blocks
+    gh = min(g, 64)
+    heads = [h for b in range(blocks) for h in range(b * gh,
+                                                     min(g, (b + 1) * gh))]
+    assert heads == list(range(g))
+
+
+@pytest.mark.parametrize("g", [65, 128])
+def test_plain_version_takes_groups_past_64(g):
+    """The plain version, the CPU's path, on a group past 64 q-heads:
+    every q-head equals the same head run as a group of one."""
+    rng = np.random.default_rng(g)
+    q = torch.from_numpy(rng.standard_normal((1, g, 9, 16), np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 1, 9, 16), np.float32))
+            for _ in range(2))
+    got = ops.attention(q, k, v, causal=True, window=4)
+    for h in (0, 63, 64, g - 1):
+        want = ops.attention(q[:, h:h + 1], k, v, causal=True, window=4)
+        torch.testing.assert_close(got[:, h:h + 1], want, rtol=1e-6,
+                                   atol=1e-6)

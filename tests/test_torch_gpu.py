@@ -195,6 +195,67 @@ def test_prefill_tensor_cores_repeat_bit_identical(cuda):
         assert torch.equal(pa.paged_prefill_attention_cuda(*args), first)
 
 
+def test_paged_kernels_concurrent_streams_bit_identical(cuda):
+    """Split decodes and prefills (B = 8, qwen3's heads, a 64-block table
+    of 16, kv_len and q_start up to 1024, so every launch splits its keys
+    and combines through the arrival counters) launched from two threads
+    on two streams, 200 times each, as the cluster's threaded driver does:
+    every output bit-identical to the same launch run alone, and the
+    launch counts exact."""
+    import threading
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pa.decode_plan(8, 2, 16, 64, sms)[1] > 1
+    assert pa.prefill_plan(8, 2 * 16, 16, 64, sms)[1] > 1
+    cases = []
+    for t in range(2):
+        rng = np.random.default_rng(40 + t)
+        lens = rng.integers(900, 1025, 8).tolist()
+        dec = _decode_nan_case(40 + t, lens, hq=16, hkv=8, d=128, bs=16,
+                               m=64, dtype=torch.bfloat16, dev=cuda)
+        starts = (rng.integers(50, 63, 8) * 16).tolist()
+        pre = _prefill_nan_case(50 + t, starts, hq=16, hkv=8, d=128, bs=16,
+                                m=64, dtype=torch.bfloat16, dev=cuda)
+        cases.append((dec, pre))
+    want = [(pa.paged_decode_attention_cuda(*dec),
+             pa.paged_prefill_attention_cuda(*pre)) for dec, pre in cases]
+    torch.cuda.synchronize()
+    n0 = dict(pa.LAUNCHES)
+    d0, p0 = pa.DECODE_ROUTES["mma"], pa.ROUTES["mma"]
+    reps = 200
+    outs = [[] for _ in cases]
+    errors = []
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+
+    def run(t):
+        try:
+            with torch.cuda.stream(streams[t]):
+                dec, pre = cases[t]
+                for _ in range(reps):
+                    outs[t].append((pa.paged_decode_attention_cuda(*dec),
+                                    pa.paged_prefill_attention_cuda(*pre)))
+            streams[t].synchronize()
+        except BaseException as e:          # re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    assert pa.LAUNCHES == {
+        "paged_decode_attention": n0["paged_decode_attention"] + 2 * reps,
+        "paged_prefill_attention": n0["paged_prefill_attention"] + 2 * reps}
+    assert pa.DECODE_ROUTES["mma"] == d0 + 2 * reps
+    assert pa.ROUTES["mma"] == p0 + 2 * reps
+    for t, (wd, wp) in enumerate(want):
+        bad = [i for i, (d, p) in enumerate(outs[t])
+               if not (torch.equal(d, wd) and torch.equal(p, wp))]
+        assert not bad, (t, len(bad), bad[:5])
+
+
 def _decode_nan_case(seed, lens, *, hq, hkv, d, bs, m, dtype, dev):
     """A decode batch on a shuffled table (each row its own blocks), NaN at
     every pool position at or past each row's kv_len (none for a kv_len past
@@ -465,6 +526,30 @@ def test_flash_tolerance_rejects_dropped_keys(cuda):
     planted = flash_dropping_last_keys(q, k, v)
     assert not torch.allclose(got.float(), planted.float(), rtol=1e-2,
                               atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("g", [65, 128])
+def test_flash_kernel_takes_any_group(cuda, g, dtype, tol):
+    """Groups past 64 q-heads a kv head (the reference's kernel has no
+    cap): the fp32 route cuts a group into ceil(g / 64) blocks of at most
+    64 q-heads, the bf16 route runs a block a q-head as always; D 64, S
+    256, causal and windowed, against the plain version (fp32 1e-4, bf16
+    1e-2), each call on its route."""
+    kind = "simt" if dtype == torch.float32 else "mma"
+    q, k, v = _flash_qkv(10 + g, cuda, dtype, b=1, hq=2 * g, g=g, sq=256,
+                         sk=256, d=64)
+    for window in (None, 48):
+        n0, r0 = fa.LAUNCHES["flash_attention"], fa.ROUTES[kind]
+        got = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
+        assert fa.LAUNCHES["flash_attention"] == n0 + 1
+        assert fa.ROUTES[kind] == r0 + 1
+        want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
@@ -912,22 +997,68 @@ def test_pool_conv2d_simt_is_the_fmaf_chain(cuda, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pool_conv2d_largest_filter(cuda, dtype):
-    """k = MAX_K (61: five K-steps of the banded product, 220 KB of shared
-    memory for simt) against the exact fp64 sum: 3721 taps an output, so
-    the sum's order moves it by up to ~1e-7 of sum |w x| (the pool's
-    tolerance is for k 7); held to 1e-6 of sum |w x| plus one bf16 step
-    (2^-8) of the value in bf16.  k = 62 raises."""
-    k = k_conv2d.MAX_K
-    x, w = _randn(3, cuda, dtype, (1, k + 63, 200), (1, k, k))
-    got = _conv2d_routed(x, w).double()
+    """k = 61, the largest filter the first kernel took (five K-steps of the
+    banded product, 190 KB of shared memory for simt), against the exact
+    fp64 sum: 3721 taps an output, so the sum's order moves it by up to
+    ~1e-7 of sum |w x| (the pool's tolerance is for k 7); held to 1e-6 of
+    sum |w x| plus one bf16 step (2^-8) of the value in bf16.  k = 62, which
+    raised until the kernels walked large filters in bands, runs and is held
+    the same way."""
+    for k in (61, 62):
+        x, w = _randn(3, cuda, dtype, (1, k + 63, 200), (1, k, k))
+        got = _conv2d_routed(x, w).double()
+        _conv2d_within_fp64(got, x, w)
+
+
+def _conv2d_within_fp64(got, x, w):
+    """``got`` within 1e-6 of sum |w x| (plus, in bf16, one bf16 step 2^-8
+    of the value) of the exact fp64 convolution; finite."""
     exact = _conv2d_fp64(x, w)
     mass = _conv2d_fp64(x.abs(), w.abs())
-    rel = 0.0 if dtype == torch.float32 else 2.0 ** -8
+    rel = 0.0 if x.dtype == torch.float32 else 2.0 ** -8
+    assert torch.isfinite(got).all()
     assert ((got - exact).abs() <= 1e-6 * mass + rel * exact.abs()).all()
-    with pytest.raises(ValueError, match="largest"):
-        k_conv2d.conv2d_cuda(x[:, :k + 1, :k + 1].contiguous(),
-                             torch.ones((1, k + 1, k + 1), dtype=dtype,
-                                        device=cuda))
+
+
+# (C, H, W, k): filters past one stage.  k 61 and 62 take one band; k 97
+# two bands of filter rows in fp32 (one in bf16); k 200 one filter row a
+# band in bands of columns on both routes.  W on 16 bytes (TMA) and off it
+# (element copies), and two output tiles each way
+BANDED = [(2, 61 + 64, 61 + 130, 61), (1, 62 + 65, 62 + 129, 62),
+          (2, 97 + 64, 97 + 131, 97), (1, 97 + 70, 97 + 127, 97),
+          (1, 200 + 64, 200 + 132, 200)]
+
+
+@pytest.mark.parametrize("c,h,wd,k", BANDED)
+def test_pool_conv2d_banded_filters(cuda, c, h, wd, k):
+    """Filters larger than one stage holds (``conv2d.bands``): fp32 (simt)
+    bit for bit the fmaf chain over ci, ki, kj, so the bands keep the
+    first kernel's order; bf16 (mma) within 1e-6 of sum |w x| plus one
+    bf16 step of the exact fp64 value, with NaN and inf planted reaching
+    exactly the outputs whose window covers them.  Each call on its
+    route."""
+    x, w = _randn(4, cuda, torch.float32, (c, h, wd), (c, k, k))
+    assert torch.equal(_conv2d_routed(x, w), _conv2d_fmaf_chain(x, w))
+    xb, wb = x.bfloat16(), w.bfloat16()
+    _conv2d_within_fp64(_conv2d_routed(xb, wb).double(), xb, wb)
+    xb[0, 10, 5] = math.nan
+    xb[c - 1, h - 1, wd - 1] = math.inf
+    got = _conv2d_routed(xb, wb)
+    hit = torch.zeros((h, wd), dtype=torch.bool, device=cuda)
+    hit[10, 5] = hit[h - 1, wd - 1] = True
+    covered = torch.nn.functional.max_pool2d(
+        hit[None, None].float(), k, stride=1)[0, 0].bool()
+    assert torch.equal(~torch.isfinite(got.float()), covered)
+    want = k_conv2d.conv2d_plain(xb, wb)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = ~covered              # the others: as without the plants
+    clean = xb.clone()
+    clean[0, 10, 5] = 0.0
+    clean[c - 1, h - 1, wd - 1] = 0.0
+    exact = _conv2d_fp64(clean, wb)[fin]
+    mass = _conv2d_fp64(clean.abs(), wb.abs())[fin]
+    assert ((got.double()[fin] - exact).abs()
+            <= 1e-6 * mass + 2.0 ** -8 * exact.abs()).all()
 
 
 def _conv2d_fp64(x, w):

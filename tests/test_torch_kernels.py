@@ -342,3 +342,52 @@ def test_ops_dispatch_by_device():
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_prefill_attention_cuda(*tp)
     assert pa.LAUNCHES == before and pa.ROUTES == routes
+
+
+def test_launch_counts_and_first_builds_hold_across_threads(monkeypatch):
+    """The cluster's threaded driver launches kernels from several threads
+    at once: ``build.count`` loses no update (16 threads, a forced switch
+    interval of 1 us), and 16 threads asking ``build.library`` for a source
+    not yet built run one build and share its library."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import build
+    launches, routes = {"k": 0}, {"mma": 0, "simt": 0}
+    builds = []
+
+    class FakeFn:
+        pass
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return self.__dict__.setdefault(name, FakeFn())
+
+    def fake_compile(source):
+        builds.append(source)
+        threading.Event().wait(0.05)      # a build takes a while
+        return source
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_compile", fake_compile)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: FakeLib())
+    libs = []
+
+    def work(t):
+        libs.append(build.library("fft.cu"))
+        for _ in range(2000):
+            build.count(launches, "k", 2, routes, "mma" if t % 2 else "simt")
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert launches == {"k": 16 * 2000 * 2}
+    assert routes == {"mma": 8 * 2000 * 2, "simt": 8 * 2000 * 2}
+    assert builds == ["fft.cu"] and len({id(lib) for lib in libs}) == 1

@@ -343,19 +343,20 @@ def test_conv2d_banded_tolerance_has_teeth(k, shifted):
 
 def test_conv2d_routes_and_counts():
     """bf16 takes the tensor cores (``mma``), fp32 the CUDA cores
-    (``simt``), for every k up to MAX_K; other dtypes and filters raise;
-    the band spans k + 7 columns, so k up to 9 takes one K-step;
-    ``reset_launches`` zeroes both counts."""
-    for k in (1, 7, 9, 11, k_conv2d.MAX_K):
+    (``simt``), for every k (the kernels walk a large filter in bands);
+    other dtypes and k < 1 raise; the band spans k + 7 columns, so k up to
+    9 takes one K-step; ``reset_launches`` zeroes both counts."""
+    for k in (1, 7, 9, 11, 61, 62, 97, 200):
         assert k_conv2d.route(torch.bfloat16, k) == "mma"
         assert k_conv2d.route(torch.float32, k) == "simt"
     with pytest.raises(TypeError):
         k_conv2d.route(torch.float16, 7)
-    for k in (0, k_conv2d.MAX_K + 1):
+    for k in (0, -1):
         with pytest.raises(ValueError):
             k_conv2d.route(torch.float32, k)
     assert [_k_steps(k) for k in (1, 9, 10, 25, 26, 61)] == \
         [1, 1, 2, 2, 3, 5]
+    assert all(k_conv2d.k_steps(k) == _k_steps(k) for k in range(1, 300))
     assert set(k_conv2d.ROUTES) == {"mma", "simt"}
     k_conv2d.LAUNCHES["conv2d"] += 3
     k_conv2d.ROUTES["mma"] += 2
@@ -364,6 +365,34 @@ def test_conv2d_routes_and_counts():
     assert k_conv2d.LAUNCHES == {"conv2d": 0}
     assert k_conv2d.ROUTES == {"mma": 0, "simt": 0}
     assert k_conv2d.kernels_per_call((3, 64, 64), (3, 7, 7)) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,c", [(1, 3), (7, 3), (61, 1), (61, 3), (62, 3),
+                                 (97, 1), (121, 2), (122, 1), (200, 3),
+                                 (513, 1)])
+def test_conv2d_bands_walk_every_tap_once(dtype, k, c):
+    """The kernel's band plan (``conv2d.bands``): a filter that fits (every
+    k up to 62, the largest the first kernel took and one past it) takes
+    one band, the kernel unchanged; any plan fits the card's 227 KB of
+    shared memory and a TMA box of 256 a side; and the kernel's item order
+    (channel, row band, column band) visits every filter tap of the route
+    (simt: (ki, kj); mma: (ki, K-step)) exactly once, the simt route's in
+    the fmaf order ki, kj."""
+    kind = k_conv2d.route(dtype, k)
+    units = k if kind == "simt" else k_conv2d.k_steps(k)
+    kb, kw = k_conv2d.bands(dtype, k, c)
+    if k <= 62:
+        assert (kb, kw) == (k, units)
+    assert k_conv2d.smem_bytes(kind, c, k, kb, kw) <= 227 * 1024
+    assert 64 + kb - 1 <= 256 and k_conv2d._pitch(kind, kw) <= 256
+    assert kw == units or kb == 1
+    taps = [(ki, u) for rb in range(-(-k // kb)) for cb in range(-(-units // kw))
+            for ki in range(rb * kb, min((rb + 1) * kb, k))
+            for u in range(cb * kw, min((cb + 1) * kw, units))]
+    assert sorted(taps) == [(ki, u) for ki in range(k) for u in range(units)]
+    if kind == "simt":
+        assert taps == sorted(taps)
 
 
 # ---------------------------------------------------------------------------
