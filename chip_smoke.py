@@ -106,6 +106,18 @@ Phases, each of which exits non-zero on failure:
               logged per run, 8x1 threaded against 1x8 on one line, and
               the rids where 8x1 and 2x4 part from the single engine with
               their top-2 logit gaps;
+8c. attribution - utilization attribution on phases 7, 8 and 8b's paths
+              (paged, dense continuous, cluster 1x8 and 8x1 sequential
+              and threaded), one ``Attributor`` with the card's spec, the
+              counts zeroed before each run and read after: the tokens
+              byte-identical to the same path's run without attribution,
+              every decode step one verdict, FU utilization in (0, 1],
+              achieved bytes/s at most the card's bandwidth; the verdict
+              counts, decode and ridge intensities and FU utilization
+              logged with the card's name and power limit; then 8
+              attributed decode steps of each layout under torch.profiler,
+              whose CUDA-event busy time must be at least the profiler's
+              device time over the same steps;
 9. hybrid   - zamba2-1.2b at full width on seeded random bf16 weights:
               8 requests (prompts of 7 to 960 tokens) served continuous
               twice (token-identical, 38 SSD calls of kernels_per_call
@@ -115,7 +127,8 @@ Phases, each of which exits non-zero on failure:
               tokens, one sampled row preempted after 5 decode steps and
               resumed by replay (its tokens unchanged, every replayed
               token counted), and every freed slot's state zero after the
-              drain;
+              drain; then the continuous trace with attribution on, held
+              as in 8c;
 10. profile - wall and device time of one full-width decode step and one
               prefill (chunk) of each path, with the top kernels and the
               port's own outside them (torch.profiler);
@@ -1310,7 +1323,8 @@ def phase_dense(torch, serving, kmods, model, params, paged, dev, name):
     serving of the serve trace, each twice; the rids whose bf16 tokens
     part from the paged run's (``paged``), logged with their logit gaps;
     dense vs paged first-token logits; then the sampled trace.  Returns
-    the flash launches of the default (continuous, unbucketed) run."""
+    the launches and the tokens of the default (continuous, unbucketed)
+    run."""
     cfg = model.cfg
     prompts = serve_prompts(cfg.vocab_size)
     n = len(prompts)
@@ -1399,7 +1413,7 @@ def phase_dense(torch, serving, kmods, model, params, paged, dev, name):
     log(f"dense sampled: threefry sampling of 8 rows x {cfg.vocab_size} "
         f"logits, host wall ms per step (to tokens on the host): "
         f"{(time.perf_counter() - t0) / 10 * 1e3:.3f}")
-    return main_launches
+    return main_launches, greedy
 
 
 def _cluster_run(torch, kmods, cl, reqs, label, name, route):
@@ -1451,6 +1465,8 @@ def _cluster_run(torch, kmods, cl, reqs, label, name, route):
             f"cluster {label}: decode launches {launches} != "
             f"{cfg.n_layers} x ({s.decode_steps} steps + {replayed} "
             "replayed)")
+    if cl.engines[0].attr.enabled:
+        _attribution_split(f"cluster {label}", cl.last_metrics)
     want = cfg.n_layers * chunks
     require(launches["paged_prefill_attention"] == want if not s.preempted
             else launches["paged_prefill_attention"] >= want,
@@ -1497,7 +1513,8 @@ def phase_cluster(torch, serving, kmods, model, params, single, dev, name):
     (``CLUSTER_PRESSURE_BLOCKS``, cool-down ``CLUSTER_HYSTERESIS``),
     sequential and threaded (equal, at least one preemption each run).  8x1 and 2x4 against the single engine: the
     rids that part are logged with their first differing token and top-2
-    logit gap (replicas of width 1 or 4 run other GEMM shapes)."""
+    logit gap (replicas of width 1 or 4 run other GEMM shapes).  Returns
+    the tokens of 1x8 and of 8x1 (round_robin, both drivers)."""
     t0 = time.perf_counter()
     prompts = serve_prompts(model.cfg.vocab_size)
 
@@ -1544,6 +1561,7 @@ def phase_cluster(torch, serving, kmods, model, params, single, dev, name):
         f"tpot_ms p50 {threaded[1].tpot_ms_p50:.2f} vs "
         f"{wide[1].tpot_ms_p50:.2f} (8 narrow replicas against 1 wide)")
     log(f"cluster phase: {time.perf_counter() - t0:.1f} s")
+    return {"1x8": wide[0], "8x1": narrow[0]}
 
 
 def phase_cluster_fp32(torch, serving, kmods, model, params, single, dev,
@@ -1692,7 +1710,7 @@ def _drain_session(torch, eng, reqs, preempt=None):
 
 def phase_hybrid(torch, cfgs, build_model, serving, kmods, dev, name):
     """zamba2-1.2b served at full width; returns (the launches of its
-    continuous run, model, params)."""
+    continuous run, model, params, its tokens)."""
     import numpy as np
 
     from repro_torch.kernels import ssd_scan as ss
@@ -1777,7 +1795,168 @@ def phase_hybrid(torch, cfgs, build_model, serving, kmods, dev, name):
                               "from the uninterrupted run")
     log("hybrid preempt + replay: every row token-identical to the "
         "uninterrupted run")
-    return runs[0][1], model, params
+    return runs[0][1], model, params, runs[0][0]
+
+
+# ---------------------------------------------------------------------------
+# Utilization attribution.
+# ---------------------------------------------------------------------------
+
+ATTR_PROFILED_STEPS = 8   # decode steps timed by events and the profiler
+
+
+def _attribution_log(label, s, at, name):
+    """Log one attributed run's rollup and hold it to the machine: every
+    decode step one verdict, FU utilization in (0, 1], achieved bytes/s
+    at most the card's bandwidth."""
+    spec = at.spec
+    issue = s.verdict_counts.get("issue", 0)
+    log(f"attribution {label} on {name} [{spec.name}]: "
+        f"verdicts={s.verdict_counts} issue_share="
+        f"{issue / max(s.decode_steps, 1):.3f} bottleneck={s.bottleneck} "
+        f"prefill={s.prefill_bottleneck} decode_ai={s.decode_ai:.3f} "
+        f"ridge={s.ridge_ai:.1f} fu_utilization={s.fu_utilization:.4e} "
+        f"achieved_flops_per_s={s.achieved_flops_per_s:.4e} "
+        f"achieved_bytes_per_s={s.achieved_bytes_per_s:.4e} "
+        f"tokens_per_s={s.tokens_per_s:.1f} decode_steps={s.decode_steps}")
+    require(sum(s.verdict_counts.values()) == s.decode_steps > 0,
+            f"attribution {label}: verdicts {s.verdict_counts} against "
+            f"{s.decode_steps} decode steps")
+    require(0.0 < s.fu_utilization <= 1.0,
+            f"attribution {label}: fu_utilization {s.fu_utilization}")
+    require(0.0 < s.achieved_bytes_per_s <= spec.mem_bw,
+            f"attribution {label}: achieved bytes/s "
+            f"{s.achieved_bytes_per_s:.4e} past the card's {spec.mem_bw:.4e}")
+
+
+def _attribution_split(label, metrics):
+    """Mean ms a decode step of host issue, of event-timed device time and
+    (threaded driver) of waiting for the dispatch lock; mean event ms and
+    host ms a prefill launch."""
+    def mean(h):
+        v = metrics.histogram(h).values()
+        return sum(v) / max(len(v), 1)
+    lock = metrics.histogram("attr_contention_ms").count
+    log(f"attribution {label}: per decode step issue_ms="
+        f"{mean('attr_dispatch_ms'):.3f} event_busy_ms="
+        f"{mean('attr_device_ms'):.3f}"
+        + (f" lock_wait_ms={mean('attr_contention_ms'):.3f}" if lock else "")
+        + f"; per prefill launch event_busy_ms="
+        f"{mean('attr_prefill_ms'):.3f} host_ms="
+        f"{mean('attr_prefill_issue_ms'):.3f}")
+
+
+def _attribution_profiled(torch, eng, reqs, label, name):
+    """``ATTR_PROFILED_STEPS`` attributed decode steps of ``eng`` under
+    torch.profiler (after the step that runs every admission's prefill):
+    their event spans summed must be at least the profiler's device time
+    over the same steps (kernels and the token copies)."""
+    eng.begin_session()
+    for i, r in enumerate(reqs):
+        eng.session_admit(r, tag=i)
+    eng.session_step()
+    m = eng._sess.metrics
+    k = m.histogram("attr_device_ms").count
+    kernel_ms, _ = _profile(torch, lambda: [
+        eng.session_step() for _ in range(ATTR_PROFILED_STEPS)], 1)
+    event_ms = sum(m.histogram("attr_device_ms").values()[k:])
+    while eng.session_active:
+        eng.session_step()
+    eng.end_session()
+    log(f"attribution {label} on {name}: {ATTR_PROFILED_STEPS} decode steps,"
+        f" event_busy_ms={event_ms:.3f} profiler_device_ms="
+        f"{_ms(kernel_ms)} ratio="
+        f"{event_ms / kernel_ms if kernel_ms else float('nan'):.2f}")
+    require(kernel_ms is not None and event_ms >= kernel_ms > 0,
+            f"attribution {label}: event busy {event_ms} ms below the "
+            f"profiler's device time {kernel_ms} ms")
+
+
+def phase_attribution(torch, serving, kmods, model, params, off, dev,
+                      name):
+    """Utilization attribution on the full-width qwen3-0.6b main path in
+    bf16, one ``Attributor`` (the card's spec) across every run: the serve
+    trace on the paged and the dense layout, and the cluster at 1x8 and
+    8x1 (round_robin; 8x1 under both drivers), the counts zeroed just
+    before each run and read just after.  Each run's tokens byte-identical
+    to the same path's run without attribution (``off``, from the earlier
+    phases); every decode step one verdict; FU utilization at most 1 and
+    achieved bytes/s at most the card's bandwidth; then eight attributed
+    decode steps of each layout whose event-timed busy time is at least
+    the profiler's device time over the same steps."""
+    t0 = time.perf_counter()
+    at = serving.Attributor(serving.MachineSpec.detect(
+        dev, params["embed"]["embedding"].dtype))
+    prompts = serve_prompts(model.cfg.vocab_size)
+
+    def reqs():
+        return [serving.Request(p, SERVE_MAX_NEW, rid=i)
+                for i, p in enumerate(prompts)]
+    for layout in ("paged", "dense"):
+        kw = dict(kv_layout="paged", block_size=BS) if layout == "paged" \
+            else {}
+        eng = serving.ServeEngine(model, params, max_batch=8,
+                                  cache_len=1024, attribution=at, **kw)
+        toks, launches = _serve_run(torch, kmods, eng, reqs(),
+                                    f"attribution {layout}", name)
+        kernels = (("paged_decode_attention", "paged_prefill_attention")
+                   if layout == "paged" else ("flash_attention",))
+        require(all(launches[k] > 0 for k in kernels),
+                f"attribution {layout}: launches {launches}")
+        require(toks == off[layout], f"attribution {layout}: the tokens "
+                                     "moved with attribution on")
+        _attribution_log(layout, eng.last_stats, at, name)
+        _attribution_split(layout, eng.last_metrics)
+        _attribution_profiled(torch, eng, reqs(), layout, name)
+    for label, kw in (("1x8", dict(replicas=1)),
+                      ("8x1", dict(replicas=8)),
+                      ("8x1 threaded", dict(replicas=8, driver="threaded"))):
+        got = _cluster_cell(torch, serving, kmods, model, params,
+                            f"attribution {label}", name, "mma", runs=1,
+                            attribution=at, **kw)
+        require(got[0] == off[label.split()[0]],
+                f"attribution {label}: the tokens moved with attribution on")
+        _attribution_log(f"cluster {label}", got[1], at, name)
+    log(f"attribution: tokens byte-identical on and off on every path; "
+        f"memo keys {sorted(at._costs)}")
+    for key, c in sorted(at._costs.items()):
+        if key[0] == "decode" or key[0] == "prefill_chunk":
+            log(f"attribution cost {key}: flops={c.flops:.6e} "
+                f"bytes={c.mem_bytes:.6e} ai={c.ai:.3f}")
+    log(f"attribution phase: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_hybrid_attribution(torch, serving, kmods, model, params, off, dev,
+                             name):
+    """zamba2-1.2b's hybrid path with attribution on: the serve trace of
+    phase 9 (continuous), its tokens byte-identical to phase 9's run
+    without attribution, the same rollup checks, and eight profiled decode
+    steps (event busy time at least the profiler's device time)."""
+    import numpy as np
+    cfg = model.cfg
+    at = serving.Attributor(serving.MachineSpec.detect(
+        dev, params["embed"]["embedding"].dtype))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in HYBRID_PROMPT_LENS]
+
+    def reqs():
+        return [serving.Request(p, SERVE_MAX_NEW, rid=i)
+                for i, p in enumerate(prompts)]
+    eng = serving.ServeEngine(model, params, max_batch=8, cache_len=1024,
+                              attribution=at)
+    toks, launches = _serve_run(torch, kmods, eng, reqs(),
+                                "attribution hybrid", name)
+    require(launches["ssd_scan"] > 0 and launches["flash_attention"] > 0,
+            f"attribution hybrid: launches {launches}")
+    require(toks == off, "attribution hybrid: the tokens moved with "
+                         "attribution on")
+    _attribution_log("hybrid", eng.last_stats, at, name)
+    _attribution_split("hybrid", eng.last_metrics)
+    _attribution_profiled(torch, eng, reqs(), "hybrid", name)
+    c = at._costs[("decode", "dense", cfg.name, 8)]
+    log(f"attribution cost hybrid decode B=8: flops={c.flops:.6e} "
+        f"bytes={c.mem_bytes:.6e} ai={c.ai:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -2425,11 +2604,14 @@ def main() -> int:
         launches, model, params, paged = phase_serve(
             torch, cfgs.get_config("qwen3-0.6b"), build_model, serving,
             kmods, dev, name)
-        launches["flash_attention"] = phase_dense(
-            torch, serving, kmods, model, params, paged, dev, name)[
-                "flash_attention"]
-        phase_cluster(torch, serving, kmods, model, params, paged, dev,
-                      f"{name} ({smi})")
+        dense_launches, dense = phase_dense(
+            torch, serving, kmods, model, params, paged, dev, name)
+        launches["flash_attention"] = dense_launches["flash_attention"]
+        clustered = phase_cluster(torch, serving, kmods, model, params,
+                                  paged, dev, f"{name} ({smi})")
+        phase_attribution(torch, serving, kmods, model, params,
+                          {"paged": paged, "dense": dense, **clustered},
+                          dev, f"{name} ({smi})")
         phase_profile(torch, model, params, dev)
         del params
         torch.cuda.empty_cache()
@@ -2441,9 +2623,11 @@ def main() -> int:
             phase_serve(torch, cfg25, build_model, serving, kmods, dev, name,
                         bs)
             torch.cuda.empty_cache()
-        hybrid_launches, hmodel, hparams = phase_hybrid(
+        hybrid_launches, hmodel, hparams, hybrid = phase_hybrid(
             torch, cfgs, build_model, serving, kmods, dev, name)
         launches["ssd_scan"] = hybrid_launches["ssd_scan"]
+        phase_hybrid_attribution(torch, serving, kmods, hmodel, hparams,
+                                 hybrid, dev, f"{name} ({smi})")
         phase_hybrid_profile(torch, hmodel, hparams, dev)
         del hparams
         torch.cuda.empty_cache()

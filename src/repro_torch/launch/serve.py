@@ -17,8 +17,12 @@ one loop or, with ``--driver threaded``, a replica a thread (on the card a
 CUDA stream each; the same tokens), with ``--hysteresis`` the preemption
 cool-down.  ``--device`` (default ``cuda``) picks the device; ``--device
 cpu --smoke`` runs the plain PyTorch path at the smoke size.  Weights are
-seeded random (``--seed``).  ``--attribution``, not ported yet, stops with
-"not yet ported".
+seeded random (``--seed``).  ``--attribution`` attaches a utilization
+attributor (``repro_torch.serving.attribution``) with the device's spec (the
+H100 SXM's peaks on that card) and prints its ``[metrics] attribution``
+line: FU utilization, achieved FLOP/s and bytes/s, the decode phase's
+arithmetic intensity against the ridge, and the verdict counts (the
+reference prints that line only beside ``--metrics``).
 """
 from __future__ import annotations
 
@@ -31,8 +35,9 @@ import torch
 from .. import resolve_device
 from ..configs import get_config, list_archs, smoke_config
 from ..models import build_model
-from ..serving import (DRIVERS, POLICIES, ROUTER_POLICIES, ClusterEngine,
-                       Request, ServeEngine, Tracer)
+from ..serving import (DRIVERS, POLICIES, ROUTER_POLICIES, Attributor,
+                       ClusterEngine, MachineSpec, Request, ServeEngine,
+                       Tracer)
 
 
 def main(argv=None):
@@ -94,12 +99,13 @@ def main(argv=None):
                     metavar="OUT.json",
                     help="print the metrics-registry summary; with a file "
                          "argument, also write stats + snapshot as JSON")
-    ap.add_argument("--attribution", action="store_true")
+    ap.add_argument("--attribution", action="store_true",
+                    help="attach a utilization attributor: roofline "
+                         "verdicts per decode launch and the FU-utilization "
+                         "rollup")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.attribution:
-        ap.error("--attribution: not yet ported to repro_torch")
     if args.replicas > 1:
         if args.mode != "auto" or args.kv_layout != "dense":
             ap.error("--replicas > 1 always serves continuous and resolves "
@@ -124,6 +130,9 @@ def main(argv=None):
     model = build_model(cfg)
     params = model.init(args.seed, device=device)
     tracer = Tracer() if (args.trace or args.metrics) else None
+    attribution = (Attributor(MachineSpec.detect(
+        device, params["embed"]["embedding"].dtype))
+        if args.attribution else None)
     if args.replicas > 1:
         eng = ClusterEngine(model, params, replicas=args.replicas,
                             total_slots=args.max_batch,
@@ -134,7 +143,7 @@ def main(argv=None):
                             preempt_hysteresis=args.hysteresis,
                             prefix_cache=args.prefix_cache,
                             driver=args.driver, policy=args.policy,
-                            tracer=tracer)
+                            tracer=tracer, attribution=attribution)
     else:
         eng = ServeEngine(model, params, max_batch=args.max_batch,
                           cache_len=args.cache_len, mode=args.mode,
@@ -143,7 +152,7 @@ def main(argv=None):
                           n_blocks=args.n_blocks,
                           admission=args.admission or "reserve",
                           prefix_cache=args.prefix_cache, policy=args.policy,
-                          tracer=tracer)
+                          tracer=tracer, attribution=attribution)
     reqs = [Request([int(t) % cfg.vocab_size for t in p.split()],
                     args.max_new, args.temperature, rid=i,
                     slo_ttft_ms=args.slo_ttft, slo_tpot_ms=args.slo_tpot)
@@ -184,6 +193,15 @@ def main(argv=None):
           f"generated={s.generated_tokens} steps={s.decode_steps} "
           f"occupancy={s.occupancy:.2f} ttft_mean={s.ttft_ms_mean:.1f}ms "
           f"prefill_compiles={s.prefill_compiles}{extra}")
+    if args.attribution:
+        print(f"[metrics] attribution fu_utilization="
+              f"{s.fu_utilization:.3e} "
+              f"achieved_flops/s={s.achieved_flops_per_s:.3e} "
+              f"achieved_bytes/s={s.achieved_bytes_per_s:.3e} "
+              f"decode_ai={s.decode_ai:.2f} ridge={s.ridge_ai:.2f} "
+              f"bottleneck={s.bottleneck or '-'} "
+              f"prefill={s.prefill_bottleneck or '-'} "
+              f"verdicts={s.verdict_counts} spec={attribution.spec.name}")
     if args.metrics:
         print(f"[metrics] ttft_ms p50={s.ttft_ms_p50:.1f} "
               f"p90={s.ttft_ms_p90:.1f} p99={s.ttft_ms_p99:.1f} "

@@ -68,8 +68,13 @@ Device memory: each replica's device pool is sized to the whole shared
 pool (``n_blocks``), so the shared allocator's block ids index it
 directly, as in the reference; ``last_pool_bytes`` reports the sum.
 
-Not ported yet: utilization attribution (``attribution=`` /
-``set_attributor``) and ``extra_inputs`` (vlm / encdec).
+Utilization attribution (``attribution=`` / ``set_attributor``): one
+attributor is shared by every replica; its cost memo is shape-keyed (and
+locked, for the threaded driver), each replica records into its own
+registry, and ``_aggregate``'s merge derives the cluster's figures from the
+union.
+
+Not ported yet: ``extra_inputs`` (vlm / encdec).
 """
 from __future__ import annotations
 
@@ -136,6 +141,7 @@ class ClusterEngine:
     replica's EngineStats.  tracer / clock: telemetry, cascaded to every
     replica (track ``replica{i}``) and the shared pool; routing, victim
     picks, requeues and hysteresis waits land on the ``cluster`` track.
+    attribution: one ``serving.attribution.Attributor`` for every replica.
     The device is the parameters' device.
     """
 
@@ -150,7 +156,7 @@ class ClusterEngine:
                  prefix_cache: bool = False,
                  driver: str = "sequential",
                  policy="fifo", slo_guard_ms: float = 50.0,
-                 tracer=None, clock=None):
+                 tracer=None, clock=None, attribution=None):
         if router not in ROUTER_POLICIES:
             raise ValueError(f"router={router!r}: pick one of "
                              f"{ROUTER_POLICIES}")
@@ -219,6 +225,8 @@ class ClusterEngine:
             self.clock = clock
             for e in self.engines:
                 e.clock = clock
+        if attribution is not None:
+            self.set_attributor(attribution)
 
     def _session_cache_bytes(self) -> int:
         """Device bytes of the open sessions' caches: each paged replica's
@@ -228,6 +236,16 @@ class ClusterEngine:
                    for e in self.engines if e._sess is not None
                    for t in (e._sess.cache or {}).values()
                    if isinstance(t, torch.Tensor))
+
+    def set_attributor(self, attributor) -> None:
+        """Attach (or detach, with None) one utilization attributor to every
+        replica (``ServeEngine.set_attributor``).  Sharing it is
+        deliberate: N identical replicas fill one memo entry per (phase,
+        shape), and the rollup needs no plumbing - each replica records raw
+        ``attr_*`` samples into its registry and ``_aggregate``'s merge
+        derives the cluster's utilization from the union."""
+        for e in self.engines:
+            e.set_attributor(attributor)
 
     def set_tracer(self, tracer) -> None:
         """Attach (or detach, with None) a tracer, cascading it to every
@@ -842,19 +860,28 @@ class ClusterEngine:
         CPython runs one thread's Python at a time, and eight workers
         trading that lock op by op ran eight replicas' steps slower than
         the sequential loop; with ``dispatch`` one worker dispatches while
-        the others' kernels run.  The stream is synchronized before the
+        the others' kernels run.  ``await_device`` returns the seconds it
+        waited on the stream and those it then waited for the lock (timed
+        only for an attributed replica; attribution counts neither as the
+        replica's issue time).  The stream is synchronized before the
         worker exits."""
         stop = False
         ctx = (torch.cuda.stream(stream) if stream is not None
                else contextlib.nullcontext())
 
         def await_device():
+            timed = engine.attr.enabled
             dispatch.release()
             try:
+                t = engine.clock.now() if timed else 0.0
                 if stream is not None:
                     stream.synchronize()
+                t_dev = engine.clock.now() if timed else 0.0
             finally:
                 dispatch.acquire()
+            if not timed:
+                return 0.0, 0.0
+            return t_dev - t, engine.clock.now() - t_dev
         engine.await_device = await_device
         try:
             with ctx:

@@ -61,8 +61,16 @@ cache tensors in place.  Sampling keeps the reference's request-keyed
 contract (``_sample_rows``): greedy rows take the argmax, sampled rows draw
 JAX's threefry streams bit for bit (``serving.sampling``).
 
-Not ported yet (later slices): ``extra_inputs`` (vlm / encdec) and
-utilization attribution.
+Utilization attribution (``attribution=`` / ``set_attributor``; see
+``serving.attribution``): every decode launch, dense prefill and paged
+prefill chunk of the continuous scheduler is joined with its analytic cost
+(``repro_torch.roofline``) into a roofline verdict and the FU-utilization
+rollup of ``EngineStats``.  The lockstep scheduler is not attributed, as
+in the reference, nor are a resumed paged request's replay steps (the
+reference re-prefills those positions in attributed chunks).  Host-side
+only: the tokens do not depend on it.
+
+Not ported yet (a later slice): ``extra_inputs`` (vlm / encdec).
 """
 from __future__ import annotations
 
@@ -76,7 +84,9 @@ import numpy as np
 import torch
 
 from ..models.model import Model
+from ..roofline import phase_cost
 from . import kvcache, sampling
+from .attribution import NULL_ATTR, VERDICTS, dominant_verdict
 from .kvcache import BlockAllocator, PoolPressure, blocks_needed
 from .slo import make_policy
 from .telemetry import MONOTONIC, NULL_TRACER, MetricsRegistry
@@ -201,6 +211,18 @@ class EngineStats:
     slo_tpot_attained: int = 0
     slo_attainment: float = 1.0
     slo_starve_preempts: int = 0   # cluster: starvation-pressure evictions
+    # -- utilization attribution (serving.attribution) --
+    # All zero / empty unless an Attributor was attached.  fu_utilization:
+    # useful flops (idle slot lanes excluded) per second of device-busy
+    # time, over the machine's peak - the paper's FU-utilization figure.
+    fu_utilization: float = 0.0
+    achieved_flops_per_s: float = 0.0  # useful FLOP/s over busy time
+    achieved_bytes_per_s: float = 0.0  # bytes/s over busy time
+    decode_ai: float = 0.0         # decode phase flops / byte
+    ridge_ai: float = 0.0          # machine ridge point (flops / byte)
+    bottleneck: str = ""           # dominant decode verdict
+    prefill_bottleneck: str = ""   # dominant prefill verdict
+    verdict_counts: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def from_registry(cls, m: MetricsRegistry, *, mode: str, wall_s: float,
@@ -219,6 +241,22 @@ class EngineStats:
         slo_ta = m.counter("slo_ttft_attained").n
         slo_pt = m.counter("slo_tpot_total").n
         slo_pa = m.counter("slo_tpot_attained").n
+        # attribution rollup over raw per-launch samples (replica
+        # registries merge losslessly, so a cluster's figure comes from
+        # the union exactly as a single engine's does)
+        def total(name):
+            return sum(m.histogram(name).values())
+        busy_s = (total("attr_device_ms") + total("attr_prefill_ms")) / 1e3
+        useful = total("attr_step_flops") + total("attr_prefill_flops")
+        moved = total("attr_step_bytes") + total("attr_prefill_bytes")
+        peak = m.gauge("attr_peak_flops").value
+        mem_bw = m.gauge("attr_peak_bytes_s").value
+        verdicts = {v: m.counter(f"attr_verdict_{v}").n for v in VERDICTS}
+        verdicts = {k: n for k, n in verdicts.items() if n}
+        pf_verdicts = {v: m.counter(f"attr_prefill_verdict_{v}").n
+                       for v in VERDICTS}
+        ach_f = useful / busy_s if busy_s > 0 else 0.0
+        ach_b = moved / busy_s if busy_s > 0 else 0.0
         return cls(
             mode, wall_s, gen, gen / max(wall_s, 1e-9),
             m.counter("decode_steps").n, busy / max(offered, 1), ttft.mean,
@@ -243,7 +281,14 @@ class EngineStats:
             slo_tpot_total=slo_pt, slo_tpot_attained=slo_pa,
             slo_attainment=((slo_ta + slo_pa) / (slo_tt + slo_pt)
                             if slo_tt + slo_pt else 1.0),
-            slo_starve_preempts=m.counter("slo_starve_preempts").n)
+            slo_starve_preempts=m.counter("slo_starve_preempts").n,
+            fu_utilization=ach_f / peak if peak > 0 else 0.0,
+            achieved_flops_per_s=ach_f, achieved_bytes_per_s=ach_b,
+            decode_ai=m.gauge("attr_decode_ai").value,
+            ridge_ai=peak / mem_bw if mem_bw > 0 else 0.0,
+            bottleneck=dominant_verdict(verdicts),
+            prefill_bottleneck=dominant_verdict(pf_verdicts),
+            verdict_counts=verdicts)
 
 
 @dataclasses.dataclass
@@ -290,9 +335,18 @@ class _Session:
     # survive a PoolPressure raised later in the same step
     finished_pending: list = dataclasses.field(default_factory=list)
     on_token: Any = None
+    # paged chunks attributed on the card, waiting for a read-back to pass
+    # their device spans: (track, t0, t1, cost, span)
+    attr_pending: list = dataclasses.field(default_factory=list)
 
 
 def _sample_rows(logits, temps, key, rids, tok_idx) -> np.ndarray:
+    """``_pick_rows``'s B tokens read back to the host (the read waits for
+    the device)."""
+    return _pick_rows(logits, temps, key, rids, tok_idx).cpu().numpy()
+
+
+def _pick_rows(logits, temps, key, rids, tok_idx) -> torch.Tensor:
     """Per-row temperature sampling over (B, V) logits, request-keyed as in
     the reference: row ``i`` draws with ``fold_in(fold_in(key, rids[i]),
     tok_idx[i])``, so a stream depends only on (key, rid, token index) -
@@ -300,7 +354,8 @@ def _sample_rows(logits, temps, key, rids, tok_idx) -> np.ndarray:
     take the argmax, the first index on ties as ``jnp.argmax`` does;
     sampled rows draw ``categorical(logits / temperature)`` on JAX's
     threefry streams (``serving.sampling``).  ``temps``, ``rids`` and
-    ``tok_idx`` are host arrays of B entries; returns B tokens."""
+    ``tok_idx`` are host arrays of B entries; returns the B tokens on the
+    logits' device, launched without a sync."""
     out = torch.argmax(logits, dim=-1)
     hot = np.flatnonzero(np.asarray(temps) > 0.0)
     if hot.size:
@@ -313,7 +368,7 @@ def _sample_rows(logits, temps, key, rids, tok_idx) -> np.ndarray:
         safe = torch.clamp_min(rows(temps, np.float32), 1e-6)[:, None]
         idx = torch.from_numpy(hot).to(dev)
         out[idx] = sampling.categorical(keys, logits[idx] / safe)
-    return out.cpu().numpy()
+    return out
 
 
 class ServeEngine:
@@ -335,6 +390,7 @@ class ServeEngine:
     (paged); ``prefix_cache`` is paged only.
     ``policy`` names a scheduling policy of ``serving.slo.POLICIES``.
     ``tracer`` / ``clock`` / ``track``: telemetry, host-side only.
+    ``attribution``: a ``serving.attribution.Attributor`` (host-side).
     The device is the parameters' device.
     """
 
@@ -345,7 +401,8 @@ class ServeEngine:
                  allocator: BlockAllocator | None = None,
                  admission: str = "reserve", owner: Any = 0,
                  prefix_cache: bool = False, policy="fifo",
-                 tracer=None, clock=None, track: str | None = None):
+                 tracer=None, clock=None, track: str | None = None,
+                 attribution=None):
         if mode not in ("auto", "continuous", "lockstep"):
             raise ValueError(f"mode={mode!r}: expected auto, continuous or "
                              "lockstep")
@@ -388,6 +445,7 @@ class ServeEngine:
         self.cache_len = cache_len
         self.owner = owner
         self.tracer = NULL_TRACER
+        self.attr = NULL_ATTR
         self.clock = MONOTONIC
         self.track = track if track is not None else f"engine{owner}"
         self.last_metrics = MetricsRegistry()
@@ -413,6 +471,8 @@ class ServeEngine:
             self.set_tracer(tracer)
         if clock is not None:
             self.clock = clock
+        if attribution is not None:
+            self.set_attributor(attribution)
 
     def _init_pool(self, allocator, block_size, n_blocks, admission) -> None:
         """The paged layout's block pool: an owned one sized here, or an
@@ -456,6 +516,24 @@ class ServeEngine:
             self.clock = self.tracer.clock
         if self._owns_pool:
             self.allocator.set_tracer(self.tracer)
+
+    def set_attributor(self, attributor) -> None:
+        """Attach (or detach, with None) a utilization attributor
+        (``serving.attribution.Attributor``).  Host-side only: no tensor the
+        engine computes depends on it, so tokens are byte-identical with
+        attribution on and off.  It covers the continuous scheduler's
+        decode launches, dense prefills and paged prefill chunks; one
+        attributor may be shared across a cluster's replicas (its cost
+        memo is shape-keyed)."""
+        self.attr = attributor if attributor is not None else NULL_ATTR
+
+    def _phase_cost(self, key: tuple):
+        """The memoized cost of the phase ``key`` names at this engine's
+        shapes (``roofline.phase_cost``)."""
+        return self.attr.phase_cost(key, lambda: phase_cost(
+            self.model.cfg, key, cache_len=self.cache_len,
+            block_size=getattr(self, "block_size", None),
+            dtype=self.params["embed"]["embedding"].dtype))
 
     def _slot_track(self, i: int) -> str:
         return f"{self.track}/slot{i}"
@@ -799,9 +877,24 @@ class ServeEngine:
         sess.rids[slot] = r.rid
         return None
 
-    def _await_device(self) -> None:
+    def _await_device(self) -> tuple[float, float]:
+        """Let the cluster's threaded driver run other replicas while this
+        one's device works (a step's launches, sampling's included, are
+        issued by then); returns the seconds it waited on the device and
+        those it then waited for the driver's dispatch lock ((0.0, 0.0)
+        with no driver hook: the token read-back waits instead)."""
         if self.await_device is not None:
-            self.await_device()
+            return self.await_device()
+        return 0.0, 0.0
+
+    def _flush_attr(self, sess: _Session) -> None:
+        """Record the paged chunks whose device spans a read-back has
+        passed since they were launched (``_advance_prefill``)."""
+        for track, t0, t1, cost, span in sess.attr_pending:
+            self.attr.record_prefill(sess.metrics, self.tracer, track,
+                                     t0=t0, t1=t1, cost=cost,
+                                     busy_s=span.seconds())
+        sess.attr_pending.clear()
 
     def _replay_done(self, sub, done):
         """Rebuild a preempted scan-family request's state from its
@@ -850,6 +943,8 @@ class ServeEngine:
             batch["prefill_len"] = torch.tensor([plen], dtype=torch.int32,
                                                 device=self.device)
         self._prefill_shapes.add(toks.shape[1])
+        at = self.attr
+        span = at.device_span(self.device) if at.enabled else None
         logits, sub = self.model.prefill(self.params, batch,
                                          cache_len=self.cache_len)
         if replay:
@@ -860,6 +955,8 @@ class ServeEngine:
         sess.cache = self.model.cache_slot_write(sess.cache, sub, slot)
         # the request's t-th token always uses stream index t, so a
         # re-admitted (preempted) request resumes its stream at len(done)
+        if span is not None:
+            span.stop()
         self._await_device()
         tok = int(_sample_rows(logits, np.asarray([r.temperature],
                                                   np.float32),
@@ -870,6 +967,13 @@ class ServeEngine:
         if tr.enabled:
             tr.complete(self._slot_track(slot), "prefill", t0, t1,
                         rid=r.rid, tokens=plen)
+        if at.enabled:
+            self._flush_attr(sess)
+            at.record_prefill(
+                sess.metrics, tr, self._slot_track(slot), t0=t0, t1=t1,
+                cost=self._phase_cost(("prefill", self.model.cfg.name,
+                                       toks.shape[1])),
+                busy_s=None if span is None else span.seconds())
         if r.done or r.requeues:
             sess.metrics.counter("requeued").inc()
         if not r.done:
@@ -931,15 +1035,21 @@ class ServeEngine:
         # dense idle rows are masked by their pos and rewritten on the next
         # admission; paged ones write into the null block, never read)
         tr = self.tracer
+        at = self.attr
         t0 = self.clock.now()
+        span = at.device_span(self.device) if at.enabled else None
         toks = torch.from_numpy(sess.toks).to(self.device)
         logits, sess.cache = self._decode(self.params, sess.cache, toks)
-        # [t0, t_disp] is host dispatch; sampling below waits for the
+        # [t0, t_disp] is host dispatch; the read-back below waits for the
         # device, so [t_disp, t1] is device time + sampling + transfer
         t_disp = self.clock.now()
-        self._await_device()
-        nxt = _sample_rows(logits, sess.temps, sess.key, sess.rids,
-                           sess.tok_idx)
+        picked = _pick_rows(logits, sess.temps, sess.key, sess.rids,
+                            sess.tok_idx)
+        if span is not None:
+            span.stop()
+        waited, contended = self._await_device()
+        t_wait = self.clock.now() if at.enabled else 0.0
+        nxt = picked.cpu().numpy()
         t1 = self.clock.now()
         dt = t1 - t0
         m = sess.metrics
@@ -954,6 +1064,23 @@ class ServeEngine:
             tr.complete(self.track, "step", t0, t1, active=len(active))
             tr.complete(self.track, "dispatch", t0, t_disp)
             tr.complete(self.track, "device", t_disp, t1)
+        if at.enabled:
+            # issue time: on the card every moment of the host's own work
+            # (not the waits for the device: the driver's stream wait and
+            # the read-back); on the CPU, which computes the decode as it
+            # is issued, sampling.  Neither holds the wait for the
+            # threaded driver's dispatch lock (``contention_s``).
+            issue = (t1 - t_disp if span is None
+                     else t_wait - t0 - waited) - contended
+            self._flush_attr(sess)
+            at.record_step(
+                m, tr, self.track, t0=t0, t_disp=t0 + issue, t1=t1,
+                active=len(active), width=bsz,
+                cost=self._phase_cost(("decode", self.kv_layout,
+                                       self.model.cfg.name, bsz)),
+                busy_s=None if span is None else span.seconds(),
+                contention_s=(None if self.await_device is None
+                              else contended))
         for i in active:
             s = sess.slots[i]
             s.tokens.append(int(nxt[i]))
@@ -1047,11 +1174,29 @@ class ServeEngine:
             if len(s.blocks) <= c:
                 self._grow_slot(sess, i, s)     # may raise PoolPressure
             batch = {"tokens": self._chunk_tokens(r, c)}
+            at = self.attr
+            tc0 = self.clock.now() if at.enabled else 0.0
+            span = at.device_span(self.device) if at.enabled else None
             with self.tracer.span(self._slot_track(i), "chunk",
                                   rid=r.rid, chunk=c):
                 logits, sess.cache = self.model.prefill_paged(
                     self.params, sess.cache, batch, i, c, plen)
             s.chunks_done += 1
+            if at.enabled:
+                # no sync: on the card the chunk's busy time is its event
+                # span, read after the next read-back (``_flush_attr``)
+                cost = self._phase_cost(("prefill_chunk",
+                                         self.model.cfg.name,
+                                         self.block_size))
+                tc1 = self.clock.now()
+                if span is None:
+                    at.record_prefill(sess.metrics, self.tracer,
+                                      self._slot_track(i), t0=tc0, t1=tc1,
+                                      cost=cost)
+                else:
+                    span.stop()
+                    sess.attr_pending.append(
+                        (self._slot_track(i), tc0, tc1, cost, span))
         while s.replayed < len(r.done):
             pos = plen + s.replayed
             while len(s.blocks) * self.block_size <= pos:
@@ -1072,6 +1217,7 @@ class ServeEngine:
                                sess.key, np.asarray([r.rid]),
                                np.asarray([len(r.done)]))[0])
         t1 = self.clock.now()
+        self._flush_attr(sess)
         ttft_ms = (t1 - s.admit_t) * 1e3
         if self.tracer.enabled:
             self.tracer.complete(self._slot_track(i), "prefill",
@@ -1181,6 +1327,7 @@ class ServeEngine:
                 "end_session with undelivered finished Results (a "
                 "PoolPressure interrupted their step; call session_step "
                 "once more to collect them)")
+        self._flush_attr(sess)
         wall = self.clock.now() - sess.t_start
         stats = EngineStats.from_registry(
             sess.metrics, mode=self.mode, wall_s=wall,

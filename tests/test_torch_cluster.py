@@ -618,9 +618,9 @@ def _serve(flags):
 
 def test_serve_cli_cluster_on_cpu():
     """``--replicas 2 --router least_loaded --driver threaded`` prints the
-    single engine's tokens and the cluster's stats line; a single engine
-    refuses ``--driver threaded``, a cluster ``--kv-layout``, and
-    ``--attribution`` still stops."""
+    single engine's tokens and the cluster's stats line, and with
+    ``--attribution`` the same tokens and the attribution line; a single
+    engine refuses ``--driver threaded``, a cluster ``--kv-layout``."""
     def tokens(text):
         return [line.split("tokens=")[1] for line in text.splitlines()
                 if line.startswith("[serve] rid=")]
@@ -630,7 +630,11 @@ def test_serve_cli_cluster_on_cpu():
     assert len(tokens(single)) == 3 and tokens(cluster) == tokens(single)
     assert "mode=cluster kv=paged" in cluster
     assert "router=least_loaded replicas=2 driver=threaded" in cluster
-    for flags in (["--driver", "threaded"], ["--attribution"],
+    attributed = _serve(["--replicas", "2", "--router", "least_loaded",
+                         "--driver", "threaded", "--attribution"])
+    assert tokens(attributed) == tokens(single)
+    assert "[metrics] attribution fu_utilization=" in attributed
+    for flags in (["--driver", "threaded"],
                   ["--replicas", "2", "--kv-layout", "paged"]):
         err = io.StringIO()
         with pytest.raises(SystemExit), contextlib.redirect_stderr(err):

@@ -284,9 +284,10 @@ def test_stream_and_not_ported_paths(weights):
 
 def test_serve_cli_on_cpu():
     """The launcher serves paged (prefix cache, metrics) and, by default,
-    dense: continuous, lockstep, bucketed and sampled.  Attribution still
-    stops, and so do a threaded driver without a cluster and a cluster
-    asked for a scheduler (``tests/test_torch_cluster.py`` serves the
+    dense: continuous, lockstep, bucketed and sampled, and with
+    ``--attribution`` prints the attribution line beside the same tokens.
+    A threaded driver without a cluster and a cluster asked for a
+    scheduler stop (``tests/test_torch_cluster.py`` serves the
     cluster)."""
     prompts = ["--prompts", "1 2 3", "4 5 6 7 8 9 10 11 12 13 14 15 16 17 18",
                "--max-new", "4"]
@@ -302,9 +303,19 @@ def test_serve_cli_on_cpu():
             serve_cli.main(["--smoke", "--device", "cpu", *prompts, *flags])
         text = out.getvalue()
         assert text.count("[serve] rid=") == 2 and want in text, text
+        attributed = io.StringIO()
+        with contextlib.redirect_stdout(attributed):
+            serve_cli.main(["--smoke", "--device", "cpu", *prompts, *flags,
+                            "--attribution"])
+
+        def rows(t):
+            return [ln.split("tokens=")[1] for ln in t.splitlines()
+                    if ln.startswith("[serve] rid=")]
+        assert rows(attributed.getvalue()) == rows(text)
+        assert "[metrics] attribution fu_utilization=" in \
+            attributed.getvalue()
     for flags in (["--replicas", "2", "--mode", "lockstep"],
-                  ["--driver", "threaded"], ["--attribution"],
-                  ["--bucket", "x"]):
+                  ["--driver", "threaded"], ["--bucket", "x"]):
         err = io.StringIO()
         with pytest.raises(SystemExit), contextlib.redirect_stderr(err):
             serve_cli.main(["--smoke", "--device", "cpu", *flags])

@@ -14,6 +14,9 @@ threaded, and the starved pool with the prefix cache).  Four cells run with
 a live :class:`Tracer`, whose lifecycle must be well-formed and which must
 not change a token.  The hybrid family (zamba2-1.2b, the scan family the
 port has) runs its own matrix: continuous, lockstep, cluster 1xN and Nx1.
+Both matrices run twice, attribution off and on (an :class:`Attributor`
+attached to every cell, the reference cell's too): the tokens must not
+move, and every attributed continuous step gets one verdict.
 
 Hypothesis draws the traces; the reference's seeds on record, 218 and
 53156, are pinned with ``@example`` (ROADMAP §3).  The random examples are
@@ -28,9 +31,9 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.models import build_model
-from repro_torch.serving import (POLICIES, ClusterEngine, Request,
-                                 ServeEngine, Tracer, make_policy,
-                                 validate_lifecycle)
+from repro_torch.serving import (POLICIES, Attributor, ClusterEngine,
+                                 MachineSpec, Request, ServeEngine, Tracer,
+                                 make_policy, validate_lifecycle)
 
 from helpers import HAS_HYPOTHESIS, given, settings, st
 
@@ -50,6 +53,8 @@ PINNED = (218, 53156)                  # the reference's seeds on record
 N_EXAMPLES = 30                        # random traces beside the pinned
 N_SCAN_EXAMPLES = 12
 FALLBACK = PINNED + (1, 2, 3)
+ATTRIBUTION = pytest.mark.parametrize("attributed", [False, True],
+                                      ids=["attr-off", "attr-on"])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -161,7 +166,22 @@ def _assert_drained(pool, what):
     assert pool.n_free == pool.capacity, what
 
 
-def _check_conformance(harness, seed: int):
+def _attributed_run(eng, run):
+    """``run()`` with one Attributor attached to ``eng`` (every replica of
+    a cluster); every decode step of a continuous cell must get exactly one
+    verdict (the lockstep scheduler is not attributed)."""
+    eng.set_attributor(Attributor(MachineSpec.detect("cpu")))
+    try:
+        out = run()
+    finally:
+        eng.set_attributor(None)
+    s = eng.last_stats
+    want = 0 if s.mode == "lockstep" else s.decode_steps
+    assert sum(s.verdict_counts.values()) == want, (s.mode, s.verdict_counts)
+    return out
+
+
+def _check_conformance(harness, seed: int, attributed: bool = False):
     cfg, engines = harness
     reqs, key = _draw_trace(np.random.default_rng(seed), cfg.vocab_size)
     uniform = len({len(r.prompt) for r in reqs}) == 1
@@ -170,13 +190,18 @@ def _check_conformance(harness, seed: int):
     assert [r.rid for r in ref] == [q.rid for q in reqs]
     assert [len(r.tokens) for r in ref] == [q.max_new_tokens for q in reqs]
     for name, eng in engines.items():
-        if eng is ref_eng or (name == "dense-lockstep" and not uniform):
+        if (eng is ref_eng and not attributed) or (
+                name == "dense-lockstep" and not uniform):
             continue
         tracer = Tracer() if name in TRACED_CELLS else None
         if tracer is not None:
             eng.set_tracer(tracer)
         try:
-            got = eng.generate(reqs, key=key)
+            if attributed:
+                got = _attributed_run(eng,
+                                      lambda: eng.generate(reqs, key=key))
+            else:
+                got = eng.generate(reqs, key=key)
         finally:
             if tracer is not None:
                 eng.set_tracer(None)
@@ -193,21 +218,24 @@ def _check_conformance(harness, seed: int):
 @pytest.mark.skipif(not HAS_HYPOTHESIS,
                     reason="hypothesis drives the examples; the seeded "
                            "fallback below covers the no-dep environment")
+@ATTRIBUTION
 @settings(max_examples=N_EXAMPLES, deadline=None)
 @given(st.integers(0, 2 ** 31 - 1))
 @example(PINNED[0])
 @example(PINNED[1])
-def test_serving_conformance_random_traces(harness, seed):
-    """Random traces across every cell of the matrix, the reference's
-    seeds on record pinned (a failure names the seed and the cell)."""
-    _check_conformance(harness, seed)
+def test_serving_conformance_random_traces(harness, attributed, seed):
+    """Random traces across every cell of the matrix, attribution off and
+    on, the reference's seeds on record pinned (a failure names the seed
+    and the cell)."""
+    _check_conformance(harness, seed, attributed)
 
 
 @pytest.mark.skipif(HAS_HYPOTHESIS,
                     reason="hypothesis variant runs the examples")
+@ATTRIBUTION
 @pytest.mark.parametrize("seed", FALLBACK)
-def test_serving_conformance_fallback(harness, seed):
-    _check_conformance(harness, seed)
+def test_serving_conformance_fallback(harness, attributed, seed):
+    _check_conformance(harness, seed, attributed)
 
 
 def test_pressure_cluster_actually_preempts(harness):
@@ -339,16 +367,21 @@ def scan_harness():
     return cfg, engines
 
 
-def _check_scan_conformance(scan_harness, seed: int):
+def _check_scan_conformance(scan_harness, seed: int,
+                            attributed: bool = False):
     cfg, engines = scan_harness
     reqs, key = _draw_trace(np.random.default_rng(seed), cfg.vocab_size)
     uniform = len({len(r.prompt) for r in reqs}) == 1
     ref = engines["continuous"].generate(reqs, key=key)
     assert [len(r.tokens) for r in ref] == [q.max_new_tokens for q in reqs]
     for name, eng in engines.items():
-        if name == "continuous" or (name == "lockstep" and not uniform):
+        if (name == "continuous" and not attributed) or (
+                name == "lockstep" and not uniform):
             continue
-        got = eng.generate(reqs, key=key)
+        if attributed:
+            got = _attributed_run(eng, lambda: eng.generate(reqs, key=key))
+        else:
+            got = eng.generate(reqs, key=key)
         for a, b in zip(ref, got):
             assert a.tokens == b.tokens, (
                 f"hybrid/{name} diverged on rid={a.rid} (seed {seed}): "
@@ -358,18 +391,22 @@ def _check_scan_conformance(scan_harness, seed: int):
 @pytest.mark.skipif(not HAS_HYPOTHESIS,
                     reason="hypothesis drives the examples; the seeded "
                            "fallback below covers the no-dep environment")
+@ATTRIBUTION
 @settings(max_examples=N_SCAN_EXAMPLES, deadline=None)
 @given(st.integers(0, 2 ** 31 - 1))
 @example(PINNED[0])
 @example(PINNED[1])
-def test_scan_family_conformance_random_traces(scan_harness, seed):
+def test_scan_family_conformance_random_traces(scan_harness, attributed,
+                                               seed):
     """hybrid x {continuous, lockstep on uniform lengths} x {single, 1xN,
-    Nx1 sequential and threaded}: byte-identical tokens per trace."""
-    _check_scan_conformance(scan_harness, seed)
+    Nx1 sequential and threaded} x attribution off and on: byte-identical
+    tokens per trace."""
+    _check_scan_conformance(scan_harness, seed, attributed)
 
 
 @pytest.mark.skipif(HAS_HYPOTHESIS,
                     reason="hypothesis variant runs the examples")
+@ATTRIBUTION
 @pytest.mark.parametrize("seed", FALLBACK)
-def test_scan_family_conformance_fallback(scan_harness, seed):
-    _check_scan_conformance(scan_harness, seed)
+def test_scan_family_conformance_fallback(scan_harness, attributed, seed):
+    _check_scan_conformance(scan_harness, seed, attributed)
