@@ -17,12 +17,15 @@ Phases, each of which exits non-zero on failure:
               synthetic g 72 and block sizes 48 and 128, one request, and
               kv_len 0 (returns 0); the prefill also at qwen2.5-3b's group
               of 8 (Hkv 2, 128 query rows a kv head) and at block sizes 64,
-              48 and 128; each on the tensor cores (mma, every call's route
+              48 and 128; both also at the moe and vlm paths' head dims
+              (granite-moe: 16 / 8 heads of 64, bs 16; phi-3-vision: 32 /
+              32 of 96, padded to 128, bs 64); each on the tensor cores (mma, every call's route
               checked) with a repeat bit-identical, and in fp32 (simt).  Flash: bf16 and fp32, g 2 and 8, causal, non-causal and
               window 64, Sq = Sk in {7, 128, 900}, Sq < Sk, and Sq > Sk
               causal (fully masked rows: the mean of V), and the served
               shapes (zamba2's g 1, D 64, S 960; g 2 and 8 at D 128, S 900;
-              D 24 and 72, zero-padded; groups of 65 and 128 q-heads a kv
+              granite-moe's g 2, D 64, S 900; phi-3-vision's g 1, D 96, S
+              576 + 900; D 24 and 72, zero-padded; groups of 65 and 128 q-heads a kv
               head, D 64, S 256, with and without a window of 48, which
               the fp32 route cuts into blocks of 64 q-heads), each call on
               its dtype's route (bf16 on
@@ -39,7 +42,10 @@ Phases, each of which exits non-zero on failure:
               SSD), and the least time the card could take (the bound), ms;
               flash also at zamba2's shape (Hq = Hkv = 32, D 64, S 960),
               the paged prefill also at qwen2.5-3b's group of 8, paged
-              decode also at B = 1 (kv_len 1024), and for
+              decode also at B = 1 (kv_len 1024), all three at the moe and
+              vlm paths' shapes (granite-moe's D 64, phi-3-vision's D 96:
+              decode over the serve trace's kv lengths, the table's last
+              chunk, each path's longest dense prefill), and for
               the attention kernels the kernel's and SDPA's device time
               per call from torch.profiler beside the event timer's (a
               launch shorter than the host's launch cost leaves the timer
@@ -129,6 +135,21 @@ Phases, each of which exits non-zero on failure:
               token counted), and every freed slot's state zero after the
               drain; then the continuous trace with attribution on, held
               as in 8c;
+9b. moe / vlm - granite-moe-1b-a400m at full width (24 layers, 32
+              experts, top-8, dropless routing) on seeded random bf16
+              weights: the serve trace dense continuous twice
+              (token-identical), paged at block size 16 and through a 2x4
+              cluster, every launch counted and on the tensor cores, the
+              rids where paged and the cluster part from dense logged with
+              their top-2 gaps; in fp32 (TF32 off) paged and dense
+              token-identical on all 8 rids; phi-3-vision-4.2b at full
+              width with a seeded (576, 1024) patch row a request, dense
+              and paged at block size 64 (cache_len 2048), every request's
+              first decode at 576 + len(prompt), first-token logits of
+              dense and paged within 4% of their scale (and on fp32
+              weights within 1e-4 for the 900-token prompt); a 2-layer
+              qwen3-moe-235b-a22b copy at full width (128 experts) dense,
+              8 new tokens;
 10. profile - wall and device time of one full-width decode step and one
               prefill (chunk) of each path, with the top kernels and the
               port's own outside them (torch.profiler);
@@ -166,6 +187,7 @@ The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line, and the result line
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -202,6 +224,16 @@ DECODE_WIDE = (("qwen2.5-3b g=8", 16, 2, 128, 16, 64),
                ("g=72", 72, 1, 64, 16, 64),
                ("bs=48", 16, 8, 128, 48, 22),
                ("bs=128", 16, 8, 128, 128, 8))
+# the moe and vlm paths' attention shapes, held and timed beside the
+# above: (label, Hq, Hkv, D, bs, M, prefill chunks); granite-moe-1b-a400m
+# (16 / 8 heads of 64, block size 16, cache_len 1024) and phi-3-vision-4.2b
+# (32 / 32 of 96, padded to the 128 template; block size 64, cache_len
+# 2048: its 576 patch positions, a 900-token prompt and the new tokens)
+HEAD_DIM_CASES = (("granite-moe d=64", 16, 8, 64, 16, 64, (0, 1, 63)),
+                  ("phi-3-vision d=96", 32, 32, 96, 64, 32, (0, 9, 31)))
+# phi-3-vision's longest dense prefill: 576 patches + the 900-token prompt
+VLM_FLASH = (32, 1, 96, 1476)          # (Hq, g, D, S)
+MOE_FLASH = (16, 2, 64, 900)           # granite-moe's longest prompt
 DECODE_B1_LEN = 1024      # timing: one request, its whole table live
 # the paged serve of a qwen2.5-3b copy at full width, cut in depth, at
 # block size 16 and again at 48 (a block size that does not divide the
@@ -219,7 +251,8 @@ FLASH_ZAMBA2 = (32, 1, 64, 960)        # (Hq, g, D, S)
 # qwen3; qwen2.5-3b's g 8) and head dims between two of the tensor-core
 # kernel's templates (zero-padded: 24 to 32, 72 to 128)
 FLASH_SERVED = ((32, 1, 64, 960), (16, 2, 128, 900), (16, 8, 128, 900),
-                (4, 2, 24, 200), (4, 1, 72, 130))       # (Hq, g, D, S)
+                (4, 2, 24, 200), (4, 1, 72, 130), MOE_FLASH,
+                VLM_FLASH)                              # (Hq, g, D, S)
 # groups past 64 q-heads a kv head (the fp32 route cuts them into blocks
 # of 64), causal, B 1, with and without a window of 48
 FLASH_WIDE_GROUPS = ((130, 65, 64, 256), (256, 128, 64, 256))  # (Hq, g, D, S)
@@ -466,14 +499,14 @@ def decode_case(torch, gen, dev, hq=HQ, hkv=HKV, d=D, bs=BS, m=M,
     return (q, kp, vp, bt, kv), (q, kpn, vpn, bt, kv)
 
 
-def prefill_case(torch, gen, dev, chunk, hq=HQ, hkv=HKV, bs=BS, m=M):
+def prefill_case(torch, gen, dev, chunk, hq=HQ, hkv=HKV, bs=BS, m=M, d=D):
     """One prefill chunk (B = 1, Sq = bs) at ``chunk`` on a shuffled table,
     NaN planted in every block past the causal frontier."""
-    kp, vp = _pools(torch, gen, dev, m + 1, hkv, bs)
+    kp, vp = _pools(torch, gen, dev, m + 1, hkv, bs, d)
     bt = (torch.randperm(m, generator=gen, device=dev) + 1).to(
         torch.int32)[None]
     qs = torch.tensor([chunk * bs], dtype=torch.int32, device=dev)
-    q = torch.randn((1, hq, bs, D), generator=gen,
+    q = torch.randn((1, hq, bs, d), generator=gen,
                     device=dev).to(torch.bfloat16)
     kpn, vpn = kp.clone(), vp.clone()
     past = bt[0, chunk + 1:].long()
@@ -507,7 +540,8 @@ def phase_parity(torch, pa, dev):
     gen.manual_seed(0)
     errs = {}
     worst = 0.0
-    cases = [("qwen3", HQ, HKV, D, BS, M), *DECODE_WIDE]
+    cases = [("qwen3", HQ, HKV, D, BS, M), *DECODE_WIDE,
+             *(c[:6] for c in HEAD_DIM_CASES)]
     for label, hq, hkv, d, bs, m in cases:
         lens = DECODE_KV_LENS[:-1] + [m * bs + 16]      # the idle row's
         _, dirty = decode_case(torch, gen, dev, hq, hkv, d, bs, m, lens)
@@ -549,17 +583,20 @@ def phase_parity(torch, pa, dev):
                         "must return 0")
     errs["paged_decode_attention"] = worst
     worst = 0.0
-    cases = [("qwen3", HQ, HKV, BS, M, PREFILL_CHUNKS), *PREFILL_WIDE]
-    for label, hq, hkv, bs, m, chunks in cases:
+    cases = [("qwen3", HQ, HKV, D, BS, M, PREFILL_CHUNKS),
+             *((c[0], c[1], c[2], D, *c[3:]) for c in PREFILL_WIDE),
+             *HEAD_DIM_CASES]
+    for label, hq, hkv, d, bs, m, chunks in cases:
         for chunk in chunks:
-            _, dirty = prefill_case(torch, gen, dev, chunk, hq, hkv, bs, m)
+            _, dirty = prefill_case(torch, gen, dev, chunk, hq, hkv, bs, m,
+                                    d)
             got = _routed(pa, "paged_prefill_attention", "mma",
                           pa.paged_prefill_attention_cuda, dirty)
             want = pa.paged_prefill_attention_plain(*dirty)
             torch.cuda.synchronize()
             worst = max(worst, _compare(
-                torch, f"prefill {label} Hq={hq} Hkv={hkv} bs={bs} M={m} "
-                f"chunk={chunk} bf16 (mma)", got, want))
+                torch, f"prefill {label} Hq={hq} Hkv={hkv} D={d} bs={bs} "
+                f"M={m} chunk={chunk} bf16 (mma)", got, want))
             if label != "qwen3" and chunk == chunks[-1]:
                 # split over the keys, combined in split order: same bits
                 again = pa.paged_prefill_attention_cuda(*dirty)
@@ -825,78 +862,87 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, kconv, kdot, dev):
             gather_device_ms=device_ms(torch, gathered, cases),
             **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))))
 
-    dec = [decode_case(torch, gen, dev)[0] for _ in range(copies)]
-    kv_blocks = sum(min(math.ceil(n / BS), M) for n in DECODE_KV_LENS)
-    kv_pos = sum(min(n, M * BS) for n in DECODE_KV_LENS)
-    q_bytes = B * HQ * D * 2
-    dbytes = kv_blocks * BS * HKV * D * 2 * 2 + 2 * q_bytes \
-        + kv_blocks * 4 + B * 4
-    dflops = 4 * HQ * D * kv_pos
-    paged_row("paged_decode_attention", pa.paged_decode_attention_cuda,
-              pa.paged_decode_attention_plain, dec, False, dbytes, dflops)
+    def decode_row(name, lens, n_sets, hq=HQ, hkv=HKV, d=D, bs=BS, m=M,
+                   idle=IDLE_ROW):
+        """Paged decode over one row a kv length of ``lens``: each live
+        block's K/V, q and the output once, the tables' entries and the
+        lengths; Q.K^T and P.V over the live keys."""
+        dec = [decode_case(torch, gen, dev, hq, hkv, d, bs, m, lens,
+                           idle)[0] for _ in range(n_sets)]
+        blocks = sum(min(math.ceil(n / bs), m) for n in lens)
+        nbytes = (blocks * bs * hkv * d * 2 * 2 + 2 * len(lens) * hq * d * 2
+                  + blocks * 4 + len(lens) * 4)
+        paged_row(name, pa.paged_decode_attention_cuda,
+                  pa.paged_decode_attention_plain, dec, False, nbytes,
+                  4 * hq * d * sum(min(n, m * bs) for n in lens))
+
+    def prefill_row(name, chunk, hq=HQ, hkv=HKV, d=D, bs=BS, m=M):
+        """One paged chunk (Sq = bs) at ``chunk``: the K/V of blocks 0 ..
+        chunk, q and the output once; the causal products."""
+        pre = [prefill_case(torch, gen, dev, chunk, hq, hkv, bs, m, d)[0]
+               for _ in range(copies)]
+        nbytes = ((chunk + 1) * bs * hkv * d * 2 * 2 + 2 * hq * bs * d * 2
+                  + (chunk + 1) * 4 + 4)
+        flops = sum(4 * hq * d * (chunk * bs + i + 1) for i in range(bs))
+        paged_row(name, pa.paged_prefill_attention_cuda,
+                  pa.paged_prefill_attention_plain, pre, True, nbytes, flops)
+
+    fgen = torch.Generator(device=dev)
+    fgen.manual_seed(5)
+
+    def flash_row(name, hq, g, d, s):
+        """A causal bf16 prefill, B = 1: q, k, v and the output once; the
+        causal half of the square."""
+        args = [_flash_inputs(torch, fgen, dev, torch.bfloat16, g, s, s, b=1,
+                              hq=hq, d=d) for _ in range(6)]
+        nbytes = sum(x.numel() for x in args[0]) * 2 + args[0][0].numel() * 2
+
+        def lib(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=g > 1)
+        out[name] = dict(
+            ms=time_ms(torch, fa.flash_attention_cuda, args, 50),
+            plain_ms=time_ms(torch, fa.flash_attention_plain, args, 10),
+            library_ms=time_ms(torch, lib, args, 50),
+            device_ms=device_ms(torch, fa.flash_attention_cuda, args),
+            library_device_ms=device_ms(torch, lib, args),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(nbytes, 4 * hq * d * s * (s + 1) // 2))))
+
+    decode_row("paged_decode_attention", DECODE_KV_LENS, copies)
     # one request with its whole table live (logged, not in the kernels
     # line); 24 pool sets > 50 MB L2
-    n1 = DECODE_B1_LEN
-    dec = [decode_case(torch, gen, dev, lens=[n1], idle=None)[0]
-           for _ in range(24)]
-    paged_row("paged_decode_attention B=1", pa.paged_decode_attention_cuda,
-              pa.paged_decode_attention_plain, dec, False,
-              math.ceil(n1 / BS) * (BS * HKV * D * 2 * 2 + 4) + 4
-              + 2 * HQ * D * 2, 4 * HQ * D * n1)
-
+    decode_row("paged_decode_attention B=1", [DECODE_B1_LEN], 24, idle=None)
     chunk = PREFILL_CHUNKS[-1]
-    pre = [prefill_case(torch, gen, dev, chunk)[0] for _ in range(copies)]
-    q_start = chunk * BS
-    pbytes = (chunk + 1) * BS * HKV * D * 2 * 2 + 2 * HQ * BS * D * 2 \
-        + (chunk + 1) * 4 + 4
-    pflops = sum(4 * HQ * D * (q_start + i + 1) for i in range(BS))
-    paged_row("paged_prefill_attention", pa.paged_prefill_attention_cuda,
-              pa.paged_prefill_attention_plain, pre, True, pbytes, pflops)
+    prefill_row("paged_prefill_attention", chunk)
     # the same chunk at qwen2.5-3b's group of 8 (logged, not in the kernels
     # line, which keeps one row a kernel)
     _, whq, whkv, _, _, _ = PREFILL_WIDE[0]
-    pre = [prefill_case(torch, gen, dev, chunk, whq, whkv)[0]
-           for _ in range(copies)]
-    paged_row("paged_prefill_attention qwen2.5-3b",
-              pa.paged_prefill_attention_cuda,
-              pa.paged_prefill_attention_plain, pre, True,
-              (chunk + 1) * BS * whkv * D * 2 * 2 + 2 * whq * BS * D * 2
-              + (chunk + 1) * 4 + 4, pflops)
+    prefill_row("paged_prefill_attention qwen2.5-3b", chunk, whq, whkv)
     # flash: a 900-token causal prefill, the dense path's longest prompt
-    fgen = torch.Generator(device=dev)
-    fgen.manual_seed(5)
-    fl = [_flash_inputs(torch, fgen, dev, torch.bfloat16, HQ // HKV,
-                        FLASH_S, FLASH_S, b=1) for _ in range(6)]
-    fbytes = sum(x.numel() for x in fl[0]) * 2 + fl[0][0].numel() * 2
-    fflops = 4 * HQ * D * FLASH_S * (FLASH_S + 1) // 2
-    out["flash_attention"] = dict(
-        zip(("ms", "plain_ms", "library_ms"), (
-            time_ms(torch, fa.flash_attention_cuda, fl, 50),
-            time_ms(torch, fa.flash_attention_plain, fl, 10),
-            time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), fl, 50))),
-        **dict(zip(("bound_ms", "bound_by"), bound(fbytes, fflops))))
-    # flash at zamba2's shared block, its longest prompt (logged, not in the
-    # kernels line, which keeps one row a kernel)
+    flash_row("flash_attention", HQ, HQ // HKV, D, FLASH_S)
+    # flash at zamba2's shared block, its longest prompt, and the moe and
+    # vlm paths' shapes (logged, not in the kernels line, which keeps one
+    # row a kernel): each paged kernel over the serve trace's kv lengths
+    # and at the last chunk of its table, flash at each path's longest
+    # dense prefill
     zhq, zg, zd, zs = FLASH_ZAMBA2
-    zl = [_flash_inputs(torch, fgen, dev, torch.bfloat16, zg, zs, zs, b=1,
-                        hq=zhq, d=zd) for _ in range(6)]
-    zbytes = sum(x.numel() for x in zl[0]) * 2 + zl[0][0].numel() * 2
-    zflops = 4 * zhq * zd * zs * (zs + 1) // 2
-    out["flash_attention zamba2"] = dict(
-        zip(("ms", "plain_ms", "library_ms"), (
-            time_ms(torch, fa.flash_attention_cuda, zl, 50),
-            time_ms(torch, fa.flash_attention_plain, zl, 10),
-            time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), zl, 50))),
-        **dict(zip(("bound_ms", "bound_by"), bound(zbytes, zflops))))
-    for name, args, gqa in (("flash_attention", fl, True),
-                            ("flash_attention zamba2", zl, False)):
-        out[name]["device_ms"] = device_ms(torch, fa.flash_attention_cuda,
-                                           args)
-        out[name]["library_device_ms"] = device_ms(
-            torch, lambda q, k, v, gqa=gqa: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=gqa), args)
+    flash_row("flash_attention zamba2", zhq, zg, zd, zs)
+    labels = {}
+    for (label, hq, hkv, d, bs, m, chunks), (fhq, fg, fd, fs) in zip(
+            HEAD_DIM_CASES, (MOE_FLASH, VLM_FLASH)):
+        lens = DECODE_KV_LENS[:-1] + [m * bs + 16]
+        decode_row(f"paged_decode_attention {label}", lens, copies, hq, hkv,
+                   d, bs, m)
+        prefill_row(f"paged_prefill_attention {label}", chunks[-1], hq, hkv,
+                    d, bs, m)
+        flash_row(f"flash_attention {label}", fhq, fg, fd, fs)
+        labels[f"paged_decode_attention {label}"] = (
+            f"B=8 Hq={hq} Hkv={hkv} D={d} bs={bs} kv_len={lens} bf16")
+        labels[f"paged_prefill_attention {label}"] = (
+            f"B=1 Hq={hq} Hkv={hkv} D={d} Sq={bs} chunk={chunks[-1]} bf16")
+        labels[f"flash_attention {label}"] = (
+            f"B=1 Hq={fhq} Hkv={fhq // fg} D={fd} S={fs} causal bf16")
     # fft at 2^24 (the pool's card case, timed by the entry point later):
     # the profiler's device time of its launches and of cuFFT on complex64
     # planes, here where the traces are reliable (logged, not in the
@@ -996,6 +1042,19 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, kconv, kdot, dev):
                 device_ms=dev_ms[0::2], library_device_ms=dev_ms[1::2],
                 bound_ms=None, bound_by=None)
             del xs
+    labels.update({
+        "paged_decode_attention": f"B=8 kv_len={DECODE_KV_LENS}",
+        "paged_decode_attention B=1": f"B=1 kv_len={DECODE_B1_LEN}",
+        "paged_prefill_attention": f"B=1 Hq={HQ} Hkv={HKV} D={D} Sq=16 "
+                                   f"chunk={chunk} bf16",
+        "paged_prefill_attention qwen2.5-3b":
+            f"B=1 Hq={whq} Hkv={whkv} D={D} Sq=16 chunk={chunk} bf16",
+        "flash_attention": f"B=1 Hq={HQ} Hkv={HKV} D={D} S={FLASH_S} "
+                           "causal bf16",
+        "flash_attention zamba2": f"B=1 Hq=Hkv={zhq} D={zd} S={zs} causal "
+                                  "bf16",
+        "ssd_scan": f"B=1 S={SSD_S} H={SSD_H} P={SSD_P} N={SSD_N} G=1 "
+                    "d_skip bf16"})
     for name, t in out.items():
         if "yardstick" in t:             # device times of two turns each
             log(f"timing {name}: kernel_ms={t['ms']:.4f} yardstick_ms="
@@ -1018,20 +1077,7 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, kconv, kdot, dev):
                 f"{_ms(t['device_ms'])} library_device_ms="
                 f"{_ms(t['library_device_ms'])} (profiler)")
             continue
-        shape = {"paged_decode_attention": "B=8 kv_len="
-                 + str(DECODE_KV_LENS),
-                 "paged_decode_attention B=1": f"B=1 kv_len={DECODE_B1_LEN}",
-                 "paged_prefill_attention": f"B=1 Hq={HQ} Hkv={HKV} D={D} "
-                                            f"Sq=16 chunk={chunk} bf16",
-                 "paged_prefill_attention qwen2.5-3b":
-                     f"B=1 Hq={whq} Hkv={whkv} D={D} Sq=16 chunk={chunk} "
-                     "bf16",
-                 "flash_attention": f"B=1 Hq={HQ} Hkv={HKV} D={D} "
-                                    f"S={FLASH_S} causal bf16",
-                 "flash_attention zamba2": f"B=1 Hq=Hkv={zhq} D={zd} "
-                                           f"S={zs} causal bf16",
-                 "ssd_scan": f"B=1 S={SSD_S} H={SSD_H} P={SSD_P} N={SSD_N} "
-                             "G=1 d_skip bf16"}[name]
+        shape = labels[name]
         lib = ("none" if t["library_ms"] is None else
                f"{t['library_ms']:.4f} (SDPA; paged: on pre-gathered dense "
                "K/V, gather excluded)")
@@ -1048,22 +1094,26 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, kconv, kdot, dev):
     return out
 
 
-def _run_path(torch, model, params, pc_kw, prompt, n_decode, dev):
-    """Chunked paged prefill of ``prompt`` into slot 0 of a 2-slot cache,
+def _run_path(torch, model, params, pc_kw, prompt, n_decode, dev,
+              extra=None):
+    """Chunked paged prefill of ``prompt`` into slot 0 of a 2-slot cache
+    (``extra``: a vlm's patch rows, their positions ahead of the prompt),
     then ``n_decode`` greedy steps; returns every logits row."""
     bs = pc_kw["block_size"]
     pc = model.paged_cache_init(batch=2, device=dev,
                                 dtype=model.cache_dtype(params), **pc_kw)
-    n_chunks = -(-len(prompt) // bs)
+    seq = [0] * (model.cfg.n_patches if extra else 0) + list(prompt)
+    n_chunks = -(-len(seq) // bs)
     pc["bt"][0, :n_chunks + 1] = torch.arange(
         1, n_chunks + 2, dtype=torch.int32, device=dev)
     rows = []
     for c in range(n_chunks):
         toks = torch.zeros((1, bs), dtype=torch.int32)
-        seg = prompt[c * bs:(c + 1) * bs]
+        seg = seq[c * bs:(c + 1) * bs]
         toks[0, :len(seg)] = torch.tensor(seg, dtype=torch.int32)
-        logits, pc = model.prefill_paged(params, pc, {"tokens": toks.to(dev)},
-                                         0, c, len(prompt))
+        logits, pc = model.prefill_paged(
+            params, pc, {"tokens": toks.to(dev), **(extra or {})}, 0, c,
+            len(seq))
         rows.append(logits.float().cpu())
     tok = int(rows[-1].argmax())
     for _ in range(n_decode):
@@ -1251,15 +1301,19 @@ def first_diffs(a, b):
             for s, t in zip(a, b)]
 
 
-def log_margins(torch, model, params, prompts, a, b, diffs, label, dev):
+def log_margins(torch, model, params, prompts, a, b, diffs, label, dev,
+                extra=None):
     """For each row where ``a`` and ``b`` part, the dense logits of the
-    common prefix: the two tokens' logits and the top-2 gap there."""
+    common prefix (with the row's ``extra`` inputs, a vlm's patches): the
+    two tokens' logits and the top-2 gap there."""
     for rid, i in enumerate(diffs):
         if i is None:
             continue
         seq = prompts[rid] + a[rid][:i]
-        logits = model.prefill(params, {"tokens": torch.tensor(
-            [seq], dtype=torch.int32, device=dev)}, cache_len=1024)[0]
+        batch = {"tokens": torch.tensor([seq], dtype=torch.int32,
+                                        device=dev),
+                 **{k: v[rid:rid + 1] for k, v in (extra or {}).items()}}
+        logits = model.prefill(params, batch)[0]
         row = logits.float().reshape(-1)
         top = torch.topk(row, 2).values
         log(f"{label} rid={rid} first differs at token {i}: "
@@ -1960,6 +2014,296 @@ def phase_hybrid_attribution(torch, serving, kmods, model, params, off, dev,
 
 
 # ---------------------------------------------------------------------------
+# The moe and vlm families.
+# ---------------------------------------------------------------------------
+
+MOE_SEED, VLM_SEED, QWEN3_MOE_SEED = 11, 12, 13    # one seed a model
+VLM_CACHE_LEN = 2048   # 576 patch positions + the 900-token prompt + 32 new
+VLM_BLOCK_SIZE = 64    # ~104 chunks for the trace, where 16 takes ~416
+QWEN3_MOE_LAYERS = 2   # of 94: the full width in ~12 GB of bf16
+QWEN3_MOE_MAX_NEW = 8
+
+
+@contextlib.contextmanager
+def first_decode_positions(eng):
+    """Record the cache positions the engine's first decode step writes."""
+    seen = []
+    decode = eng._decode
+
+    def spy(params, cache, toks):
+        if not seen:
+            seen.append(cache["pos"].tolist())
+        return decode(params, cache, toks)
+    eng._decode = spy
+    try:
+        yield seen
+    finally:
+        eng._decode = decode
+
+
+def _family_run(torch, kmods, eng, reqs, label, name):
+    """``_serve_run`` of a moe or vlm engine, its launches checked: paged,
+    one decode launch a layer a step and one prefill launch a layer a
+    chunk (the patch prefix counted), all on the tensor cores, no flash,
+    the pool drained; dense continuous, one flash launch a layer a
+    request, on the tensor cores, no paged launch.  Returns (tokens,
+    launches)."""
+    cfg = eng.model.cfg
+    toks, launches = _serve_run(torch, kmods, eng, reqs, label, name)
+    s = eng.last_stats
+    if eng.kv_layout == "paged":
+        chunks = sum(math.ceil((eng._n_prefix() + len(r.prompt))
+                               / eng.block_size) for r in reqs)
+        require(launches["paged_decode_attention"]
+                == launches["paged_decode_attention.mma"]
+                == cfg.n_layers * s.decode_steps > 0,
+                f"{label}: decode launches {launches} != {cfg.n_layers} x "
+                f"{s.decode_steps} steps, all on the tensor cores")
+        require(launches["paged_prefill_attention"]
+                == launches["paged_prefill_attention.mma"]
+                == cfg.n_layers * chunks,
+                f"{label}: prefill launches {launches} != {cfg.n_layers} x "
+                f"{chunks} chunks, all on the tensor cores")
+        require(launches["flash_attention"] == 0,
+                f"{label}: the paged path launched flash ({launches})")
+        eng.allocator.check_integrity()
+        require(eng.allocator.n_live == 0 and eng.allocator.n_reserved == 0,
+                f"{label}: the block pool did not drain")
+    else:
+        require(launches["flash_attention"]
+                == launches["flash_attention.mma"]
+                == cfg.n_layers * len(reqs),
+                f"{label}: flash launches {launches} != {cfg.n_layers} x "
+                f"{len(reqs)} prefills, all on the tensor cores")
+        require(launches["paged_decode_attention"] == 0
+                and launches["paged_prefill_attention"] == 0,
+                f"{label} launched a paged kernel: {launches}")
+    for r, t in zip(reqs, toks):
+        log(f"{label} rid={r.rid} prompt_len={len(r.prompt)} tokens={t}")
+    return toks, launches
+
+
+def phase_moe(torch, cfgs, build_model, serving, kmods, dev, name):
+    """granite-moe-1b-a400m at full width on seeded random bf16 weights,
+    the serve trace (8 slots, 32 new tokens, cache_len 1024): dense
+    continuous twice (the same tokens: the combine has a fixed order),
+    paged at block size 16, and a 2x4 cluster over the paged layout; the
+    rids where bf16 paged and the cluster part from dense, logged with
+    their top-2 gaps (near-ties: not required); then phase 10's profile of
+    its decode steps and prefills.  Returns each path's launches."""
+    cfg = cfgs.get_config("granite-moe-1b-a400m")
+    model = build_model(cfg)
+    params = model.init(MOE_SEED, device=dev)
+    log(f"moe: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} experts="
+        f"{cfg.n_experts} top_k={cfg.top_k} d_ff={cfg.d_ff} vocab="
+        f"{cfg.vocab_size} params={model.n_params} bf16 on {name}")
+    prompts = serve_prompts(cfg.vocab_size)
+
+    def reqs():
+        return [serving.Request(p, SERVE_MAX_NEW, rid=i)
+                for i, p in enumerate(prompts)]
+    eng = serving.ServeEngine(model, params, max_batch=8, cache_len=1024)
+    dense = [_family_run(torch, kmods, eng, reqs(), f"moe dense run {run}",
+                         name) for run in range(2)]
+    require(dense[0][0] == dense[1][0],
+            "moe dense: a repeat run changed the tokens")
+    log("moe dense: repeat run token-identical")
+    eng = serving.ServeEngine(model, params, max_batch=8, cache_len=1024,
+                              kv_layout="paged", block_size=BS)
+    paged = _family_run(torch, kmods, eng, reqs(), "moe paged", name)
+    del eng
+    toks, _, _, _ = _cluster_cell(torch, serving, kmods, model, params,
+                                  "moe 2x4", name, "mma", runs=1,
+                                  replicas=2)
+    for label, other in (("paged", paged[0]), ("cluster 2x4", toks)):
+        diffs = first_diffs(other, dense[0][0])
+        log(f"moe bf16 {label} vs dense: "
+            f"{sum(d is not None for d in diffs)} of {len(prompts)} rids "
+            f"differ, first differing token per rid {diffs}")
+        log_margins(torch, model, params, prompts, other, dense[0][0],
+                    diffs, f"moe bf16 {label} vs dense", dev)
+    phase_profile(torch, model, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    return {"dense": dense[0][1], "paged": paged[1]}
+
+
+def phase_moe_fp32(torch, cfgs, build_model, serving, kmods, dev, name):
+    """granite-moe at full width on seeded random fp32 weights (TF32 off),
+    the serve trace greedy, paged and dense continuous: the same tokens on
+    all 8 rids (the expert products and the combine depend neither on the
+    chunk nor on the batch)."""
+    cfg = cfgs.get_config("granite-moe-1b-a400m")
+    model = build_model(cfg)
+    params = model.init(MOE_SEED, device=dev, dtype=torch.float32)
+    prompts = serve_prompts(cfg.vocab_size)
+    toks = {}
+    for layout, kw in (("paged", dict(kv_layout="paged", block_size=BS)),
+                       ("dense", {})):
+        eng = serving.ServeEngine(model, params, max_batch=8, cache_len=1024,
+                                  **kw)
+        reqs = [serving.Request(p, SERVE_MAX_NEW, rid=i)
+                for i, p in enumerate(prompts)]
+        toks[layout], launches = _serve_run(torch, kmods, eng, reqs,
+                                            f"moe fp32 {layout}", name)
+        for kernel in ("flash_attention", "paged_decode_attention",
+                       "paged_prefill_attention"):
+            require(launches[f"{kernel}.simt"] == launches[kernel]
+                    and launches[f"{kernel}.mma"] == 0,
+                    f"moe fp32 {layout}: {kernel} off its fp32 route "
+                    f"({launches})")
+    diffs = first_diffs(toks["paged"], toks["dense"])
+    log(f"moe fp32 paged vs dense: first differing token per rid {diffs}")
+    log_margins(torch, model, params, prompts, toks["paged"], toks["dense"],
+                diffs, "moe fp32 paged vs dense", dev)
+    require(all(d is None for d in diffs),
+            f"moe fp32 paged and dense tokens differ (first index per rid "
+            f"{diffs})")
+    log("moe fp32 paged vs dense: all 8 rids token-identical")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_vlm(torch, cfgs, build_model, serving, kmods, dev, name):
+    """phi-3-vision-4.2b at full width on seeded random bf16 weights, one
+    seeded normal patch row a request ((576, 1024) bf16), the serve trace
+    (8 slots, 32 new tokens, cache_len 2048): dense continuous and paged
+    at block size 64, every request's first decode at position 576 +
+    len(prompt); the rids where paged parts from dense, logged with their
+    top-2 gaps; first-token logits of dense and paged within 4% of their
+    scale in bf16 and, on fp32 weights (TF32 off), within 1e-4 for the
+    longest prompt; the profile of a dense decode step and of the longest
+    prefill.  Returns each path's launches."""
+    cfg = cfgs.get_config("phi-3-vision-4.2b")
+    model = build_model(cfg)
+    params = model.init(VLM_SEED, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(VLM_SEED)
+    extra = {"patches": torch.randn(
+        (len(SERVE_PROMPT_LENS), cfg.n_patches, cfg.patch_embed_dim),
+        generator=gen, device=dev).to(torch.bfloat16)}
+    log(f"vlm: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} d_ff="
+        f"{cfg.d_ff} vocab={cfg.vocab_size} n_patches={cfg.n_patches} "
+        f"params={model.n_params} bf16 on {name}")
+    prompts = serve_prompts(cfg.vocab_size)
+    want = [cfg.n_patches + len(p) for p in prompts]
+    out = {}
+    for layout, kw in (("dense", {}),
+                       ("paged", dict(kv_layout="paged",
+                                      block_size=VLM_BLOCK_SIZE))):
+        eng = serving.ServeEngine(model, params, max_batch=8,
+                                  cache_len=VLM_CACHE_LEN,
+                                  extra_inputs=extra, **kw)
+        reqs = [serving.Request(p, SERVE_MAX_NEW, rid=i)
+                for i, p in enumerate(prompts)]
+        with first_decode_positions(eng) as seen:
+            out[layout] = _family_run(torch, kmods, eng, reqs,
+                                      f"vlm {layout}", name)
+        require(seen and seen[0] == want,
+                f"vlm {layout}: first decode positions {seen} != {want}")
+        log(f"vlm {layout}: first decode positions {seen[0]} = "
+            f"{cfg.n_patches} + len(prompt)")
+        del eng
+    diffs = first_diffs(out["paged"][0], out["dense"][0])
+    log(f"vlm bf16 paged vs dense: {sum(d is not None for d in diffs)} of "
+        f"{len(prompts)} rids differ, first differing token per rid {diffs}")
+    log_margins(torch, model, params, prompts, out["paged"][0],
+                out["dense"][0], diffs, "vlm bf16 paged vs dense", dev,
+                extra)
+    # dense vs paged first-token logits, the patch prefix on both: other
+    # kernels, bf16 activations -> 4% of the logits' scale (as phase_dense)
+    m = VLM_CACHE_LEN // VLM_BLOCK_SIZE
+    pc_kw = dict(n_blocks=m + 1, block_size=VLM_BLOCK_SIZE, max_blocks=m)
+    for rid in (0, 4, len(prompts) - 1):
+        row = {k: v[rid:rid + 1] for k, v in extra.items()}
+        dense = model.prefill(params, {"tokens": torch.tensor(
+            [prompts[rid]], dtype=torch.int32, device=dev), **row})[0]
+        paged = _run_path(torch, model, params, pc_kw, prompts[rid], 0, dev,
+                          row)[-1:]
+        dense = dense.float().cpu()
+        scale = paged.abs().max().item()
+        err = (dense - paged).abs().max().item()
+        ok = bool(torch.isfinite(dense).all()) and err <= 0.04 * scale
+        log(f"vlm dense vs paged first-token logits, prompt_len="
+            f"{len(prompts[rid])} (+{cfg.n_patches} patches): max_abs_err="
+            f"{err:.3e} (scale {scale:.3e}, atol {0.04 * scale:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        require(ok, "vlm: dense and paged first-token logits disagree")
+    # where a dense decode step (8 slots at the trace's positions) and the
+    # longest prefill (576 patches + 900 tokens) spend their time
+    prompt = {"tokens": torch.zeros((1, SERVE_PROMPT_LENS[-1]),
+                                    dtype=torch.int32, device=dev),
+              **{k: v[-1:] for k, v in extra.items()}}
+    dc = model.cache_expand(model.prefill(params, prompt,
+                                          cache_len=VLM_CACHE_LEN)[1], B)
+    lens = torch.tensor(want, dtype=torch.int32, device=dev)
+    feed = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+
+    def dense_decode():
+        dc["pos"] = lens.clone()
+        model.decode(params, dc, feed)
+
+    def dense_prefill():
+        model.prefill(params, prompt, cache_len=VLM_CACHE_LEN)
+
+    _profile_calls(torch, cfg.name, (
+        ("dense decode step (B=8)", dense_decode),
+        (f"dense prefill (B=1, {cfg.n_patches} + {SERVE_PROMPT_LENS[-1]} "
+         "positions)", dense_prefill)))
+    del params, dc
+    torch.cuda.empty_cache()
+    # fp32 (TF32 off): the same first-token logits of the longest prompt
+    # on both paths within 1e-4 of their scale (as phase_checks holds the
+    # card against the CPU), each kernel on its fp32 route
+    params = model.init(VLM_SEED, device=dev, dtype=torch.float32)
+    row = {k: v[-1:].float() for k, v in extra.items()}
+    reset_launches(kmods)
+    dense = model.prefill(params, {"tokens": torch.tensor(
+        [prompts[-1]], dtype=torch.int32, device=dev), **row})[0]
+    paged = _run_path(torch, model, params, pc_kw, prompts[-1], 0, dev, row)
+    launches = {**read_launches(kmods), **read_routes(kmods)}
+    require(launches["flash_attention.simt"] == cfg.n_layers
+            and launches["paged_prefill_attention.simt"]
+            == launches["paged_prefill_attention"] > 0,
+            f"vlm fp32: a kernel off its fp32 route ({launches})")
+    dense = dense.float().cpu()
+    scale = paged.abs().max().item()
+    err = (dense - paged[-1:]).abs().max().item()
+    ok = bool(torch.isfinite(dense).all()) and err <= 1e-4 * scale
+    log(f"vlm fp32 dense vs paged first-token logits, prompt_len="
+        f"{len(prompts[-1])} (+{cfg.n_patches} patches): max_abs_err="
+        f"{err:.3e} (scale {scale:.3e}, atol {1e-4 * scale:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, "vlm fp32: dense and paged first-token logits disagree")
+    del params
+    torch.cuda.empty_cache()
+    return {layout: launches for layout, (_, launches) in out.items()}
+
+
+def phase_qwen3_moe(torch, cfgs, build_model, serving, kmods, dev, name):
+    """qwen3-moe-235b-a22b at full width cut to 2 of its 94 layers (128
+    experts of 1536, d 4096, 64 / 4 heads of 128, qk-norm) on seeded random
+    bf16 weights: the serve trace, dense continuous, 8 new tokens."""
+    cfg = dataclasses.replace(cfgs.get_config("qwen3-moe-235b-a22b"),
+                              n_layers=QWEN3_MOE_LAYERS)
+    model = build_model(cfg)
+    params = model.init(QWEN3_MOE_SEED, device=dev)
+    log(f"qwen3-moe: {cfg.name} cut to n_layers={cfg.n_layers} d_model="
+        f"{cfg.d_model} experts={cfg.n_experts} top_k={cfg.top_k} d_ff="
+        f"{cfg.d_ff} params={model.n_params} bf16 on {name}")
+    eng = serving.ServeEngine(model, params, max_batch=8, cache_len=1024)
+    reqs = [serving.Request(p, QWEN3_MOE_MAX_NEW, rid=i)
+            for i, p in enumerate(serve_prompts(cfg.vocab_size))]
+    _, launches = _family_run(torch, kmods, eng, reqs, "qwen3-moe dense",
+                              name)
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The paper's kernel pool.
 # ---------------------------------------------------------------------------
 
@@ -2631,6 +2975,19 @@ def main() -> int:
         phase_hybrid_profile(torch, hmodel, hparams, dev)
         del hparams
         torch.cuda.empty_cache()
+        t_fam = time.perf_counter()
+        moe_launches = phase_moe(torch, cfgs, build_model, serving, kmods,
+                                 dev, name)
+        phase_moe_fp32(torch, cfgs, build_model, serving, kmods, dev, name)
+        vlm_launches = phase_vlm(torch, cfgs, build_model, serving, kmods,
+                                 dev, name)
+        q3_launches = phase_qwen3_moe(torch, cfgs, build_model, serving,
+                                      kmods, dev, name)
+        log(f"moe and vlm phases: {time.perf_counter() - t_fam:.1f} s; "
+            f"launches granite dense {moe_launches['dense']} paged "
+            f"{moe_launches['paged']}, phi-3-vision dense "
+            f"{vlm_launches['dense']} paged {vlm_launches['paged']}, "
+            f"qwen3-moe dense {q3_launches}")
         pool = ideality.POOL
         errs.update(phase_pool_parity(torch, ideality, pool, dev))
         phase_conv2d_bands(torch, pool["conv2d"], dev)

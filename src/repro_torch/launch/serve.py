@@ -22,7 +22,9 @@ attributor (``repro_torch.serving.attribution``) with the device's spec (the
 H100 SXM's peaks on that card) and prints its ``[metrics] attribution``
 line: FU utilization, achieved FLOP/s and bytes/s, the decode phase's
 arithmetic intensity against the ridge, and the verdict counts (the
-reference prints that line only beside ``--metrics``).
+reference prints that line only beside ``--metrics``).  A vlm arch
+(``--arch phi-3-vision-4.2b``) gets the reference's stub patches, one row
+of zeros a prompt, as its ``extra_inputs``.
 """
 from __future__ import annotations
 
@@ -129,6 +131,13 @@ def main(argv=None):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
     params = model.init(args.seed, device=device)
+    # per-request side inputs the tokenized --prompts cannot carry: the
+    # reference's stub rows, one a prompt (vlm patch embeddings)
+    extra = None
+    if cfg.family == "vlm":
+        extra = {"patches": torch.zeros(
+            (len(args.prompts), cfg.n_patches, cfg.patch_embed_dim),
+            dtype=torch.bfloat16, device=device)}
     tracer = Tracer() if (args.trace or args.metrics) else None
     attribution = (Attributor(MachineSpec.detect(
         device, params["embed"]["embedding"].dtype))
@@ -143,7 +152,8 @@ def main(argv=None):
                             preempt_hysteresis=args.hysteresis,
                             prefix_cache=args.prefix_cache,
                             driver=args.driver, policy=args.policy,
-                            tracer=tracer, attribution=attribution)
+                            tracer=tracer, attribution=attribution,
+                            extra_inputs=extra)
     else:
         eng = ServeEngine(model, params, max_batch=args.max_batch,
                           cache_len=args.cache_len, mode=args.mode,
@@ -152,7 +162,8 @@ def main(argv=None):
                           n_blocks=args.n_blocks,
                           admission=args.admission or "reserve",
                           prefix_cache=args.prefix_cache, policy=args.policy,
-                          tracer=tracer, attribution=attribution)
+                          tracer=tracer, attribution=attribution,
+                          extra_inputs=extra)
     reqs = [Request([int(t) % cfg.vocab_size for t in p.split()],
                     args.max_new, args.temperature, rid=i,
                     slo_ttft_ms=args.slo_ttft, slo_tpot_ms=args.slo_tpot)

@@ -1,4 +1,5 @@
-"""Family dispatch: the port's ``Model`` API, dense and hybrid families.
+"""Family dispatch: the port's ``Model`` API, dense, moe, vlm and hybrid
+families.
 
 The counterpart of ``repro/models/model.py``.  A ``Model`` exposes the
 serving hooks the engine drives:
@@ -34,8 +35,9 @@ Two layout flags steer the engine's bookkeeping:
                          folds every position into its state, so the engine
                          refuses ``bucket=`` for it.
 
-Other families (moe, vlm, ssm, encdec) raise ``NotImplementedError``
-until their slices are ported.
+moe and vlm share the dense family's hooks (``models.transformer``); a
+vlm prefill also takes ``batch["patches"]``.  The other families (ssm,
+encdec) raise ``NotImplementedError`` until their slices are ported.
 """
 from __future__ import annotations
 
@@ -78,7 +80,7 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return Model(
             cfg, transformer.decoder_templates(cfg),
             functools.partial(transformer.decoder_prefill, cfg=cfg),
@@ -106,4 +108,5 @@ def build_model(cfg: ModelConfig) -> Model:
         )
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}) is not ported yet; the port "
-        "builds the dense and hybrid families")
+        "builds the dense, moe, vlm and hybrid families (ssm and encdec are "
+        "still to come)")

@@ -1,6 +1,15 @@
-"""Decoder-only transformer, dense family: templates and the dense and
-paged serving paths.  The port's counterpart of
+"""Decoder-only transformer families (dense, moe, vlm): templates and the
+dense and paged serving paths.  The port's counterpart of
 ``repro/models/transformer.py``.
+
+moe swaps each layer's SwiGLU for the expert layer (``models.moe``),
+routed dropless (``exact=True``) on every serving path as in the
+reference, so a token's output does not depend on the batch or chunk it
+shares.  vlm puts ``n_patches`` projected patch rows (``batch["patches"]``,
+(B, n_patches, patch_embed_dim)) ahead of the tokens: the dense prefill
+concatenates them (``embed_input``) and a paged chunk takes a patch row at
+every position below ``n_patches`` (``_embed_chunk``); positions, the
+cache and ``pos`` count them.
 
 A Python loop over the layers takes the place of ``lax.scan``.  The dense
 cache is a dict ``{"k"/"v": (L, B, Hkv, W, hd), "pos": 0-d or (B,) int32}``
@@ -17,6 +26,7 @@ from .attention import (attn_decode, attn_decode_paged, attn_prefill,
 from .layers import (PT, embed_lookup, embed_templates, rmsnorm,
                      rope_cos_sin, stack_layers, swiglu_apply,
                      swiglu_templates, tree_index)
+from .moe import moe_apply, moe_templates
 
 # ---------------------------------------------------------------------------
 # Templates.
@@ -24,12 +34,16 @@ from .layers import (PT, embed_lookup, embed_templates, rmsnorm,
 
 
 def layer_templates(cfg) -> dict:
-    return {
+    t = {
         "ln1": PT((cfg.d_model,), "zeros"),
         "attn": attn_templates(cfg),
         "ln2": PT((cfg.d_model,), "zeros"),
-        "mlp": swiglu_templates(cfg.d_model, cfg.d_ff),
     }
+    if cfg.family == "moe":
+        t["moe"] = moe_templates(cfg.d_model, cfg.d_ff, cfg.n_experts)
+    else:
+        t["mlp"] = swiglu_templates(cfg.d_model, cfg.d_ff)
+    return t
 
 
 def decoder_templates(cfg) -> dict:
@@ -40,6 +54,8 @@ def decoder_templates(cfg) -> dict:
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = PT((cfg.d_model, cfg.padded_vocab), "scaled")
+    if cfg.family == "vlm":
+        t["patch_proj"] = PT((cfg.patch_embed_dim, cfg.d_model), "scaled")
     return t
 
 
@@ -74,12 +90,47 @@ def _rope(positions, cfg):
     return rope_cos_sin(positions, cfg.head_dim_resolved, cfg.rope_theta)
 
 
+def _ffn(lp, h, cfg):
+    """The layer's feed-forward: SwiGLU, or for moe the expert layer routed
+    dropless (every caller here serves)."""
+    if cfg.family == "moe":
+        return moe_apply(lp["moe"], h, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, exact=True)
+    return swiglu_apply(lp["mlp"], h)
+
+
 def _block(lp, x, cfg, attn):
-    """One layer: pre-norm attention (``attn(lp_attn, h)``) and SwiGLU."""
+    """One layer: pre-norm attention (``attn(lp_attn, h)``) and the
+    feed-forward."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     x = x + attn(lp["attn"], h)
     h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + swiglu_apply(lp["mlp"], h)
+    return x + _ffn(lp, h, cfg)
+
+
+def n_prefix(cfg) -> int:
+    """Model-side positions ahead of a prompt's tokens (the vlm's
+    patches)."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def _project_patches(params, patches, dtype):
+    """(B, n_patches, patch_embed_dim) -> (B, n_patches, D) in ``dtype``,
+    the product in the two operands' promoted dtype as in the reference's
+    einsum."""
+    proj = params["patch_proj"]
+    dt = torch.promote_types(patches.dtype, proj.dtype)
+    return torch.matmul(patches.to(dt), proj.to(dt)).to(dtype)
+
+
+def embed_input(params, batch, cfg):
+    """(B, n_prefix + S, D): the token rows, for vlm behind the projected
+    patches."""
+    tok = embed_lookup(params["embed"], batch["tokens"])
+    if not n_prefix(cfg):
+        return tok
+    patches = _project_patches(params, batch["patches"], tok.dtype)
+    return torch.cat([patches, tok], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -90,20 +141,23 @@ def decoder_prefill(params, batch, cfg, *, cache_len=None):
     """Prefill a batch of prompts.  Returns (last-token logits (B, V),
     cache {"k"/"v": (L, B, Hkv, cache_len, hd), "pos"}).
 
-    ``batch["tokens"]``: (B, S).  ``batch["prefill_len"]`` (optional, (B,)
-    int32): each row's true token count when ``tokens`` is right-padded to a
-    bucket length.  Causality hides the pads from real tokens and their KV
-    lands at positions >= the true length (masked in decode, overwritten as
-    decode proceeds), so only the last-token gather and the position depend
-    on it: ``pos`` becomes that (B,) vector.  Without it ``pos`` is the
+    ``batch["tokens"]``: (B, S); for vlm ``batch["patches"]`` too, whose
+    ``n_patches`` rows go ahead of the tokens (S counts them below).
+    ``batch["prefill_len"]`` (optional, (B,) int32): each row's true token
+    count when ``tokens`` is right-padded to a bucket length.  Causality
+    hides the pads from real tokens and their KV lands at positions >= the
+    true length (masked in decode, overwritten as decode proceeds), so only
+    the last-token gather and the position depend on it: ``pos`` becomes
+    the (B,) vector ``n_prefix + prefill_len``.  Without it ``pos`` is the
     0-d S (every row at one position: lockstep's left-padded batch)."""
     tokens = batch["tokens"]
-    b, s = tokens.shape
+    dev = tokens.device
+    x = embed_input(params, batch, cfg)                        # (B, S, D)
+    b, s = x.shape[:2]
     cache_len = cache_len or s
     if cache_len < s:
-        raise ValueError(f"cache_len {cache_len} < prompt length {s}")
-    dev = tokens.device
-    x = embed_lookup(params["embed"], tokens)                  # (B, S, D)
+        raise ValueError(f"cache_len {cache_len} < prompt length {s} (vlm "
+                         "prompts include the n_patches prefix positions)")
     shape = (cfg.n_layers, b, cfg.n_kv_heads, cache_len,
              cfg.head_dim_resolved)
     k_all = torch.empty(shape, dtype=x.dtype, device=dev)
@@ -121,7 +175,8 @@ def decoder_prefill(params, batch, cfg, *, cache_len=None):
         x = _block(layer_params(params, i), x, cfg, attn(i))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if "prefill_len" in batch:
-        pos = batch["prefill_len"].to(device=dev, dtype=torch.int32)
+        pos = n_prefix(cfg) + batch["prefill_len"].to(device=dev,
+                                                      dtype=torch.int32)
         x_last = x[torch.arange(b, device=dev), pos.long() - 1]
     else:
         pos = torch.tensor(s, dtype=torch.int32, device=dev)
@@ -202,12 +257,28 @@ def decoder_cache_dtype(params):
     return params["embed"]["embedding"].dtype
 
 
+def _embed_chunk(params, batch, q_start: int, bs: int, cfg):
+    """Embed combined positions ``[q_start, q_start + bs)`` of a prompt: the
+    token rows, and for vlm the projected patch row at every position
+    below ``n_patches``.  The whole patch set is projected, as the dense
+    prefill projects it, so a patch row has the same bits on both paths;
+    a chunk past the prefix skips the projection."""
+    tok = embed_lookup(params["embed"], batch["tokens"])       # (1, bs, D)
+    if q_start >= n_prefix(cfg):
+        return tok
+    patches = _project_patches(params, batch["patches"], tok.dtype)
+    n = min(bs, n_prefix(cfg) - q_start)
+    return torch.cat([patches[:, q_start:q_start + n], tok[:, n:]], dim=1)
+
+
 def decoder_prefill_paged(params, pcache, batch, slot: int, chunk: int,
                           prefill_len: int, cfg):
     """One ``block_size`` chunk of a paged prefill for a single request.
 
     ``batch["tokens"]``: (1, bs) token ids of combined positions
-    ``[chunk * bs, (chunk + 1) * bs)`` (0 past the prompt).  Each layer
+    ``[chunk * bs, (chunk + 1) * bs)`` (0 past the prompt, and for vlm at
+    the patch positions, which take ``batch["patches"]``'s rows:
+    ``_embed_chunk``).  ``prefill_len`` counts the prefix.  Each layer
     writes the chunk's K/V into pool block ``pcache["bt"][slot, chunk]``
     (installed by the engine before the call) and attends causally over
     blocks ``0..chunk``.  Returns (logits (1, V) of the last *true* row of
@@ -217,7 +288,7 @@ def decoder_prefill_paged(params, pcache, batch, slot: int, chunk: int,
     bs = pcache["kp"].shape[3]
     q_start = chunk * bs
     dev = pcache["kp"].device
-    x = embed_lookup(params["embed"], batch["tokens"])         # (1, bs, D)
+    x = _embed_chunk(params, batch, q_start, bs, cfg)          # (1, bs, D)
     bt_row = pcache["bt"][slot]                                # (M,)
     qs = torch.full((1,), q_start, dtype=torch.int32, device=dev)
     rope = _rope(torch.arange(q_start, q_start + bs, device=dev), cfg)

@@ -21,6 +21,14 @@ computes them:
 * the paged prefill chunk's attention over one block of keys: the
   reference walks the table in a loop whose trip count is traced, which
   the HLO count takes once, so a chunk costs the same at any position;
+* moe: the router's ``d_model x n_experts`` on every token, and the
+  expert SwiGLU on the reference's padded dropless dispatch: each group of
+  T tokens fills ``n_experts x T`` rows (capacity T), so a token costs
+  ``3 d_model d_ff`` for every expert, not only its top k;
+* vlm: the patch projection (``n_patches x patch_embed_dim x d_model``) on
+  every dense prefill and on every paged chunk (the reference projects the
+  whole set in each chunk), and the ``n_patches`` prefix in the dense
+  prefill's length;
 * hybrid: the Mamba2 projections; in decode the depthwise conv's taps and
   the state read-out (contractions in the reference's ``mamba_decode`` and
   ``ssd_step_xla``); in prefill the SSD scan's four chunk products of
@@ -34,14 +42,14 @@ step, and is no target): what the phase must move on any implementation -
 every weight read once (an untied embedding table only at the rows the
 phase gathers; a tied one is read whole by the LM head), the K/V, ring and
 SSM / conv state read and written at the extents the flops count, the
-token ids read and the fp32 logits written.  Activations between the
-layers are left out (a fused implementation keeps them on chip), and so is
-the fp32 copy of the LM head weight that ``models.transformer._lm_logits``
-makes on every call: at qwen3-0.6b's width that copy writes and reads
-622 MB, so the port's own traffic in a decode step is about twice this
-count.  The KV extents are the flops': the card's kernels stop at each
-row's length, so for a decode step the count bounds their reads from
-above.
+token ids (and a vlm's patch rows) read and the fp32 logits written.
+Activations between the layers are left out (a fused implementation keeps
+them on chip), and so is the fp32 copy of the LM head weight that
+``models.transformer._lm_logits`` makes on every call: at qwen3-0.6b's
+width that copy writes and reads 622 MB, so the port's own traffic in a
+decode step is about twice this count.  The KV extents are the flops': the
+card's kernels stop at each row's length, so for a decode step the count
+bounds their reads from above.
 """
 from __future__ import annotations
 
@@ -54,6 +62,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..models import build_model
 from ..models.mamba2 import mamba_dims
+from ..models.transformer import n_prefix
 
 SSD_CHUNK = 64       # the reference's ssd_xla chunk
 FLASH_CHUNK = 1024   # the reference's attention_xla row and key chunks
@@ -110,9 +119,27 @@ def _attn_weight_macs(cfg) -> int:
     return cfg.d_model * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
 
 
+def _ffn_macs(cfg) -> int:
+    """Per token: the SwiGLU, or the router and every expert's SwiGLU on
+    the padded dropless dispatch."""
+    if cfg.family == "moe":
+        return cfg.n_experts * cfg.d_model * (1 + 3 * cfg.d_ff)
+    return 3 * cfg.d_model * cfg.d_ff
+
+
 def _block_macs(cfg) -> int:
-    """Per token: one attention block's projections and its SwiGLU."""
-    return _attn_weight_macs(cfg) + 3 * cfg.d_model * cfg.d_ff
+    """Per token: one attention block's projections and its feed-forward."""
+    return _attn_weight_macs(cfg) + _ffn_macs(cfg)
+
+
+def _patch_macs(cfg) -> int:
+    """One request's patch projection (none outside vlm)."""
+    return n_prefix(cfg) * cfg.patch_embed_dim * cfg.d_model
+
+
+def _patch_bytes(cfg, elem: int) -> int:
+    """One request's patch rows, read by a prefill or a chunk."""
+    return n_prefix(cfg) * cfg.patch_embed_dim * elem
 
 
 def _attn_macs(cfg, pairs: int) -> int:
@@ -179,10 +206,11 @@ def decode(cfg, *, batch: int, keys: int,
 def prefill(cfg, *, seq: int, cache_len: int | None = None,
             dtype=torch.bfloat16) -> PhaseCost:
     """One dense prefill of one ``seq``-token prompt (the port prefills a
-    slot at a time)."""
+    slot at a time), a vlm's patch prefix ahead of it."""
     elem = _itemsize(dtype)
     head = cfg.d_model * cfg.padded_vocab
     hd = cfg.head_dim_resolved
+    tokens, seq = seq, n_prefix(cfg) + seq
     attn = _attn_macs(cfg, flash_pairs(seq))
     if cfg.family == "hybrid":
         dims = mamba_dims(cfg)
@@ -199,11 +227,13 @@ def prefill(cfg, *, seq: int, cache_len: int | None = None,
                    + cfg.n_layers * (hs * p * n * 4 + (dims.d_conv - 1)
                                      * dims.conv_dim * elem))
     else:
-        macs = cfg.n_layers * (seq * _block_macs(cfg) + attn) + head
+        macs = (cfg.n_layers * (seq * _block_macs(cfg) + attn) + head
+                + _patch_macs(cfg))
         written = cfg.n_layers * 2 * cfg.n_kv_heads * hd * elem * seq
     return PhaseCost(2.0 * macs,
-                float(weight_bytes(cfg, seq, dtype) + written
-                      + seq * TOKEN_BYTES + cfg.padded_vocab * LOGIT_BYTES))
+                float(weight_bytes(cfg, tokens, dtype) + written
+                      + tokens * TOKEN_BYTES + _patch_bytes(cfg, elem)
+                      + cfg.padded_vocab * LOGIT_BYTES))
 
 
 def prefill_chunk(cfg, *, block_size: int,
@@ -213,12 +243,12 @@ def prefill_chunk(cfg, *, block_size: int,
     elem = _itemsize(dtype)
     macs = (cfg.n_layers * (block_size * _block_macs(cfg)
                             + _attn_macs(cfg, block_size * block_size))
-            + cfg.d_model * cfg.padded_vocab)
+            + cfg.d_model * cfg.padded_vocab + _patch_macs(cfg))
     kv = (cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim_resolved * elem
           * 2 * block_size)
     return PhaseCost(2.0 * macs,
                 float(weight_bytes(cfg, block_size, dtype) + kv
-                      + block_size * TOKEN_BYTES
+                      + block_size * TOKEN_BYTES + _patch_bytes(cfg, elem)
                       + cfg.padded_vocab * LOGIT_BYTES))
 
 

@@ -74,7 +74,11 @@ locked, for the threaded driver), each replica records into its own
 registry, and ``_aggregate``'s merge derives the cluster's figures from the
 union.
 
-Not ported yet: ``extra_inputs`` (vlm / encdec).
+Per-request side inputs (``extra_inputs=``, the vlm's patches) go to
+every replica whole; a request's row is its submission order, whichever
+replica admits it and however often it is preempted.
+
+Not ported yet: the encdec family's ``extra_inputs`` (encoder frames).
 """
 from __future__ import annotations
 
@@ -142,6 +146,7 @@ class ClusterEngine:
     replica (track ``replica{i}``) and the shared pool; routing, victim
     picks, requeues and hysteresis waits land on the ``cluster`` track.
     attribution: one ``serving.attribution.Attributor`` for every replica.
+    extra_inputs: as ``ServeEngine``'s, given to every replica.
     The device is the parameters' device.
     """
 
@@ -156,7 +161,8 @@ class ClusterEngine:
                  prefix_cache: bool = False,
                  driver: str = "sequential",
                  policy="fifo", slo_guard_ms: float = 50.0,
-                 tracer=None, clock=None, attribution=None):
+                 tracer=None, clock=None, attribution=None,
+                 extra_inputs: dict | None = None):
         if router not in ROUTER_POLICIES:
             raise ValueError(f"router={router!r}: pick one of "
                              f"{ROUTER_POLICIES}")
@@ -208,7 +214,7 @@ class ClusterEngine:
             ServeEngine(model, params, max_batch=total_slots // replicas,
                         cache_len=cache_len, mode="continuous", bucket=bucket,
                         owner=i, track=f"replica{i}", policy=self.policy,
-                        **layout_kw)
+                        extra_inputs=extra_inputs, **layout_kw)
             for i in range(replicas)]
         self.device = self.engines[0].device
         self._streams = None        # a CUDA stream a replica, made on demand
@@ -484,8 +490,8 @@ class ClusterEngine:
                 # paged admission always defers to session_step, but a
                 # dense (scan-family) admission runs the prefill here
                 # and can satisfy a 1-token budget on the spot
-                res = e.session_admit(r, tag=seq, admit_seq=admit_seq,
-                                      enqueue_t=enq_t)
+                res = e.session_admit(r, tag=seq, extra_row=order,
+                                      admit_seq=admit_seq, enqueue_t=enq_t)
                 if res is not None:
                     out[seq] = res
                 admit_seq += 1
@@ -950,8 +956,8 @@ class ClusterEngine:
             _, item, aseq = cmd
             seq, order, r, _ready, enq_t = item
             try:
-                res = engine.session_admit(r, tag=seq, admit_seq=aseq,
-                                           enqueue_t=enq_t)
+                res = engine.session_admit(r, tag=seq, extra_row=order,
+                                           admit_seq=aseq, enqueue_t=enq_t)
             except MemoryError:
                 # reserve-mode admission lost a pool race between the
                 # coordinator's headroom check and now; bounce it back

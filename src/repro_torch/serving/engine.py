@@ -70,7 +70,16 @@ in the reference, nor are a resumed paged request's replay steps (the
 reference re-prefills those positions in attributed chunks).  Host-side
 only: the tokens do not depend on it.
 
-Not ported yet (a later slice): ``extra_inputs`` (vlm / encdec).
+Per-request side inputs (``extra_inputs=``, the vlm's patches): each leaf
+holds one row a request, taken by submission order (``_gather_extra``; a
+leaf of one row broadcasts).  A vlm prefill puts ``n_patches`` model-side
+positions ahead of the tokens (``_n_prefix``): the prefill position, the
+write budget, the bucket cap, the chunk feed and the paged replay count
+them, and the prefix cache is refused (patch rows have no token ids to
+hash).
+
+Not ported yet (a later slice): the encdec family's ``extra_inputs``
+(encoder frames).
 """
 from __future__ import annotations
 
@@ -84,6 +93,7 @@ import numpy as np
 import torch
 
 from ..models.model import Model
+from ..models.transformer import n_prefix
 from ..roofline import phase_cost
 from . import kvcache, sampling
 from .attribution import NULL_ATTR, VERDICTS, dominant_verdict
@@ -309,6 +319,7 @@ class _Slot:
     # prefix cache: blocks[:shared_until] are referenced from the prefix
     # index (refcounted, read-only for this slot until copy-on-write)
     shared_until: int = 0
+    extra_row: int = 0             # extra_inputs row (vlm patches)
     replayed: int = 0              # paged: ``done`` tokens replayed so far
     admit_t: float = 0.0           # clock time of the *first* admission
     enqueue_t: float | None = None  # clock time the request was queued
@@ -391,6 +402,9 @@ class ServeEngine:
     ``policy`` names a scheduling policy of ``serving.slo.POLICIES``.
     ``tracer`` / ``clock`` / ``track``: telemetry, host-side only.
     ``attribution``: a ``serving.attribution.Attributor`` (host-side).
+    ``extra_inputs`` (vlm patches): a dict of tensors with one row a
+    request, indexed by submission order; a leaf of one row broadcasts to
+    every request, and too few rows is an error, not a clamp.
     The device is the parameters' device.
     """
 
@@ -402,7 +416,7 @@ class ServeEngine:
                  admission: str = "reserve", owner: Any = 0,
                  prefix_cache: bool = False, policy="fifo",
                  tracer=None, clock=None, track: str | None = None,
-                 attribution=None):
+                 attribution=None, extra_inputs: dict | None = None):
         if mode not in ("auto", "continuous", "lockstep"):
             raise ValueError(f"mode={mode!r}: expected auto, continuous or "
                              "lockstep")
@@ -438,9 +452,16 @@ class ServeEngine:
             if prefix_cache:
                 raise ValueError("prefix_cache=True requires kv_layout="
                                  "'paged' (there are no blocks to share)")
+        if prefix_cache and model.cfg.family == "vlm":
+            raise ValueError(
+                "prefix_cache=True: vlm prompts start with a patch prefix "
+                "whose content is not addressable by token ids, so prefix "
+                "blocks cannot be content-hashed")
         self.model = model
         self.params = params
         self.device = params["embed"]["embedding"].device
+        self.extra = {k: torch.as_tensor(v).to(self.device)
+                      for k, v in (extra_inputs or {}).items()}
         self.max_batch = max_batch
         self.cache_len = cache_len
         self.owner = owner
@@ -579,7 +600,7 @@ class ServeEngine:
     def check_request(self, r: Request) -> None:
         """Reject a request that can never be served: context overflow, or
         (paged) a worst case larger than the whole pool."""
-        self._check_budget(len(r.prompt) + len(r.done),
+        self._check_budget(self._n_prefix() + len(r.prompt) + len(r.done),
                            r.max_new_tokens - len(r.done), r.rid)
         if self.kv_layout != "paged":
             return
@@ -608,9 +629,31 @@ class ServeEngine:
                 f"(prefill {prefill_pos} + {max_new - 1} decode writes) "
                 f"but cache_len={self.cache_len}")
 
+    def _gather_extra(self, rows: list[int]) -> dict:
+        """The ``extra_inputs`` rows of the requests submitted ``rows``-th
+        (a leaf of one row broadcasts)."""
+        out = {}
+        for k, v in self.extra.items():
+            if v.shape[0] == 1:
+                out[k] = v.expand((len(rows),) + tuple(v.shape[1:]))
+            elif max(rows) < v.shape[0]:
+                out[k] = v[list(rows)]
+            else:
+                raise ValueError(
+                    f"extra_inputs[{k!r}] has {v.shape[0]} rows but request "
+                    f"#{max(rows)} needs its own (pass one row per request, "
+                    "or a single row to broadcast)")
+        return out
+
+    def _n_prefix(self) -> int:
+        """Model-side prefix positions a prefill puts ahead of the tokens
+        (the vlm's patches)."""
+        return n_prefix(self.model.cfg)
+
     def _bucket_len(self, n: int) -> int:
         """Round a prompt length up to its bucket (pow2 or pad-to-multiple),
-        capped so the padded sequence still fits the per-request bound."""
+        capped so the padded sequence (and any model-side prefix) still
+        fits the per-request bound."""
         if not self.bucket:
             return n
         if self.bucket == "pow2":
@@ -619,12 +662,12 @@ class ServeEngine:
                 b <<= 1
         else:
             b = -(-n // self.bucket) * self.bucket
-        return max(min(b, self.cache_len), n)
+        return max(min(b, self.cache_len - self._n_prefix()), n)
 
     def _worst_blocks(self, r: Request) -> int:
         """Worst-case block count for a request (all cache positions it can
         ever write), computable before prefill runs."""
-        writes = (len(r.prompt) + len(r.done)
+        writes = (self._n_prefix() + len(r.prompt) + len(r.done)
                   + max(r.max_new_tokens - len(r.done) - 1, 0))
         return blocks_needed(writes, self.block_size)
 
@@ -780,7 +823,7 @@ class ServeEngine:
                                 phase="tpot",
                                 over_ms=per_tok_ms - s.req.slo_tpot_ms)
 
-    def session_admit(self, r: Request, tag: int,
+    def session_admit(self, r: Request, tag: int, extra_row: int = 0,
                       admit_seq: int | None = None,
                       enqueue_t: float | None = None) -> Result | None:
         """Admit ``r`` into the first free slot.
@@ -795,9 +838,10 @@ class ServeEngine:
         None; budget-satisfied-by-prefill Results arrive from
         ``session_step``.
 
-        ``tag`` is echoed back with the Result; ``admit_seq`` orders
-        admissions for victim selection; ``enqueue_t`` is the clock time
-        the request was queued."""
+        ``tag`` is echoed back with the Result; ``extra_row`` indexes
+        ``extra_inputs``; ``admit_seq`` orders admissions for victim
+        selection; ``enqueue_t`` is the clock time the request was
+        queued."""
         sess = self._require_session()
         slot = self.session_free_slot()
         if slot is None:
@@ -809,12 +853,12 @@ class ServeEngine:
         if enqueue_t is not None:
             sess.metrics.histogram("queue_age_ms").observe(
                 (t0 - enqueue_t) * 1e3)
-        prefill_pos = len(r.prompt) + len(r.done)
+        prefill_pos = self._n_prefix() + len(r.prompt) + len(r.done)
         self._check_budget(prefill_pos, r.max_new_tokens - len(r.done),
                            r.rid)
         if self.kv_layout != "paged":
             return self._admit_dense(sess, r, tag, slot, admit_seq, t0,
-                                     enqueue_t)
+                                     enqueue_t, extra_row)
         if sess.cache is None:
             if self._pcache is not None:
                 # prefix cache: the previous session's pool is revived so
@@ -871,6 +915,7 @@ class ServeEngine:
             req=r, tag=tag, tokens=[], ttft_ms=0.0, admit_seq=admit_seq,
             prefill_pos=prefill_pos, reserve_left=reserve_left,
             blocks=taken, shared_until=h, chunks_done=chunks_done,
+            extra_row=extra_row,
             admit_t=(r.first_admit_t if r.first_admit_t is not None
                      else t0), enqueue_t=enqueue_t, span_t0=t0)
         sess.temps[slot] = r.temperature
@@ -918,13 +963,14 @@ class ServeEngine:
         return logits[:1], dict(mini, pos=mini["pos"][:1])
 
     def _admit_dense(self, sess: _Session, r: Request, tag: int, slot: int,
-                     admit_seq: int, t0: float,
-                     enqueue_t: float | None) -> Result | None:
+                     admit_seq: int, t0: float, enqueue_t: float | None,
+                     extra_row: int) -> Result | None:
         """Prefill ``r`` into dense slot ``slot`` and sample its first token.
         KV families prefill prompt + done in one pass (re-admitting
         byte-exactly); scan families prefill the prompt and replay ``done``
         (``_replay_done``).  With ``bucket`` the prompt is right-padded to
-        its bucket and the true length rides in ``prefill_len``."""
+        its bucket and the true length rides in ``prefill_len``; the
+        request's ``extra_inputs`` row rides in the batch."""
         tr = self.tracer
         if tr.enabled:
             tr.instant(self._slot_track(slot), "admit", rid=r.rid,
@@ -938,7 +984,8 @@ class ServeEngine:
         plen = len(seq)
         toks = np.zeros((1, self._bucket_len(plen)), np.int32)
         toks[0, :plen] = seq
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = {"tokens": torch.from_numpy(toks).to(self.device),
+                 **self._gather_extra([extra_row])}
         if self.bucket:
             batch["prefill_len"] = torch.tensor([plen], dtype=torch.int32,
                                                 device=self.device)
@@ -985,7 +1032,8 @@ class ServeEngine:
         self._emit_token(sess, r, tok, len(r.done))
         s = _Slot(req=r, tag=tag, tokens=[tok], ttft_ms=ttft_ms,
                   admit_seq=admit_seq,
-                  prefill_pos=len(r.prompt) + len(r.done), admit_t=t0,
+                  prefill_pos=self._n_prefix() + len(r.prompt) + len(r.done),
+                  extra_row=extra_row, admit_t=t0,
                   enqueue_t=enqueue_t, span_t0=t0, first_tok_t=t1)
         if len(r.done) + 1 >= r.max_new_tokens:
             res = self._finish(s)       # satisfied by prefill alone
@@ -1144,15 +1192,20 @@ class ServeEngine:
         s.shared_until = c
 
     def _chunk_tokens(self, r: Request, chunk: int) -> torch.Tensor:
-        """(1, block_size) token feed for positions ``[chunk*bs,
-        (chunk+1)*bs)``: prompt ids, 0 past them (right pad, masked
-        causally and overwritten as decode proceeds)."""
+        """(1, block_size) token feed for combined positions ``[chunk*bs,
+        (chunk+1)*bs)``: prompt ids where a position maps to a token, 0 at
+        a model-side prefix position (vlm patches, embedded from
+        ``extra_inputs`` by the model) and past the prompt (right pad,
+        masked causally and overwritten as decode proceeds)."""
         bs = self.block_size
+        npre = self._n_prefix()
         seq = self._prefill_seq(r)
         toks = np.zeros((1, bs), np.int32)
-        lo, hi = chunk * bs, min((chunk + 1) * bs, len(seq))
+        lo = max(chunk * bs, npre)
+        hi = min((chunk + 1) * bs, npre + len(seq))
         if hi > lo:
-            toks[0, :hi - lo] = seq[lo:hi]
+            toks[0, lo - chunk * bs:hi - chunk * bs] = seq[lo - npre:
+                                                           hi - npre]
         return torch.from_numpy(toks).to(self.device)
 
     def _advance_prefill(self, sess: _Session, i: int,
@@ -1164,8 +1217,9 @@ class ServeEngine:
         finished Result when the token budget is satisfied by the prefill
         itself, else None."""
         r = s.req
-        plen = len(self._prefill_seq(r))
+        plen = self._n_prefix() + len(self._prefill_seq(r))
         n_chunks = blocks_needed(plen, self.block_size)
+        extra = self._gather_extra([s.extra_row])   # same rows every chunk
         logits = None
         while s.chunks_done < n_chunks:
             c = s.chunks_done
@@ -1173,7 +1227,7 @@ class ServeEngine:
                 self._cow_block(sess, i, s, c)  # may raise PoolPressure
             if len(s.blocks) <= c:
                 self._grow_slot(sess, i, s)     # may raise PoolPressure
-            batch = {"tokens": self._chunk_tokens(r, c)}
+            batch = {"tokens": self._chunk_tokens(r, c), **extra}
             at = self.attr
             tc0 = self.clock.now() if at.enabled else 0.0
             span = at.device_span(self.device) if at.enabled else None
@@ -1421,7 +1475,7 @@ class ServeEngine:
                     if not self.session_can_admit(r):
                         break
                     queue.remove(item)
-                    res = self.session_admit(r, tag=seq,
+                    res = self.session_admit(r, tag=seq, extra_row=order,
                                              enqueue_t=self._sess.t_start)
                     if res is not None:
                         results[seq] = res
@@ -1485,12 +1539,14 @@ class ServeEngine:
                                      for r in reqs])
         remaining = [r.max_new_tokens - len(r.done) for r in reqs]
         max_new = max(remaining)
-        self._check_budget(prompts.shape[1], max_new, [r.rid for r in reqs])
+        self._check_budget(self._n_prefix() + prompts.shape[1], max_new,
+                           [r.rid for r in reqs])
         self._prefill_shapes.add(prompts.shape[1])
+        batch = {"tokens": torch.from_numpy(prompts).to(self.device),
+                 **self._gather_extra([order for _, order, _ in group])}
         t0 = self.clock.now()
-        logits, cache = self.model.prefill(
-            self.params, {"tokens": torch.from_numpy(prompts).to(self.device)},
-            cache_len=self.cache_len)
+        logits, cache = self.model.prefill(self.params, batch,
+                                           cache_len=self.cache_len)
         temps = np.asarray([r.temperature for r in reqs], np.float32)
         rids = np.asarray([r.rid for r in reqs], np.int32)
         base_idx = np.asarray([len(r.done) for r in reqs], np.int32)

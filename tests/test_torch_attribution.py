@@ -10,7 +10,8 @@ and ``repro_torch.roofline``) held against the reference's
   ``EngineStats`` rollup of those registries;
 * the port's analytic flops equal to the reference's HLO-derived
   ``phase_cost`` flops for every key the reference records on the same
-  smoke traces (qwen3 paged and dense, zamba2 dense, a two-replica
+  smoke traces (qwen3 paged and dense, zamba2 dense, granite-moe,
+  qwen3-moe and phi-3-vision (stub patches) paged and dense, a two-replica
   cluster), with the same key sets;
 * the port's bytes against one case computed by hand;
 * the engine, the cluster (one attributor shared by the replicas, under
@@ -259,20 +260,30 @@ def test_attr_metrics_merge_losslessly():
 # The cost layer: flops equal to the reference's HLO count per key.
 # ---------------------------------------------------------------------------
 
+def _stub_patches(cfg, xp):
+    """The serve CLI's stub patches (zeros, one row for every request) of
+    a vlm, as ``extra_inputs=``; None for the other families."""
+    if cfg.family != "vlm":
+        return None
+    return {"patches": xp.zeros((1, cfg.n_patches, cfg.patch_embed_dim))}
+
+
 def _ref_costs(arch, layout, cache_len, replicas=None):
     cfg = ref_smoke(arch)
     model = ref_build(cfg)
     params = model.init(jax.random.key(0))
     at = RefAttributor(spec=REF_SPEC)
+    extra = _stub_patches(cfg, jax.numpy)
     if replicas:
         eng = RefClusterEngine(model, params, replicas=replicas,
                                total_slots=2 * replicas, cache_len=cache_len,
-                               block_size=BLOCK, attribution=at)
+                               block_size=BLOCK, attribution=at,
+                               extra_inputs=extra)
     else:
         kw = dict(block_size=BLOCK) if layout == "paged" else {}
         eng = RefServeEngine(model, params, max_batch=SLOTS,
                              cache_len=cache_len, kv_layout=layout,
-                             attribution=at, **kw)
+                             attribution=at, extra_inputs=extra, **kw)
     eng.generate(_ref_reqs(cfg.vocab_size))
     return {k: c.flops for k, c in at._costs.items()}
 
@@ -282,14 +293,17 @@ def _port_run(arch, layout, cache_len, replicas=None, driver="sequential"):
     model = build_model(cfg)
     params = model.init(0, device="cpu", dtype=torch.float32)
     at = Attributor(spec=SPEC)
+    extra = _stub_patches(cfg, torch)
     if replicas:
         eng = ClusterEngine(model, params, replicas=replicas,
                             total_slots=2 * replicas, cache_len=cache_len,
-                            block_size=BLOCK, driver=driver)
+                            block_size=BLOCK, driver=driver,
+                            extra_inputs=extra)
     else:
         kw = dict(block_size=BLOCK) if layout == "paged" else {}
         eng = ServeEngine(model, params, max_batch=SLOTS,
-                          cache_len=cache_len, kv_layout=layout, **kw)
+                          cache_len=cache_len, kv_layout=layout,
+                          extra_inputs=extra, **kw)
     off = [r.tokens for r in eng.generate(_port_reqs(cfg.vocab_size))]
     eng.set_attributor(at)
     on = [r.tokens for r in eng.generate(_port_reqs(cfg.vocab_size))]
@@ -310,6 +324,32 @@ REF_FLOPS = {
         ("prefill", "qwen3-smoke", 4): 630784,
         ("prefill", "qwen3-smoke", 5): 782848,
         ("prefill", "qwen3-smoke", 6): 935936},
+    ("granite-moe-1b-a400m", "paged", 48): {
+        ("decode", "paged", "granite-moe-smoke", 3): 617472,
+        ("prefill_chunk", "granite-moe-smoke", 8): 1253376},
+    ("granite-moe-1b-a400m", "dense", 48): {
+        ("decode", "dense", "granite-moe-smoke", 3): 617472,
+        ("prefill", "granite-moe-smoke", 4): 634880,
+        ("prefill", "granite-moe-smoke", 5): 787968,
+        ("prefill", "granite-moe-smoke", 6): 942080},
+    ("qwen3-moe-235b-a22b", "paged", 48): {
+        ("decode", "paged", "qwen3-moe-smoke", 3): 915456,
+        ("prefill_chunk", "qwen3-moe-smoke", 8): 2048000},
+    ("qwen3-moe-235b-a22b", "dense", 48): {
+        ("decode", "dense", "qwen3-moe-smoke", 3): 915456,
+        ("prefill", "qwen3-moe-smoke", 4): 1032192,
+        ("prefill", "qwen3-moe-smoke", 5): 1284608,
+        ("prefill", "qwen3-moe-smoke", 6): 1538048},
+    # the 8 patch positions ride in every dense prefill, and the patch
+    # projection in every paged chunk
+    ("phi-3-vision-4.2b", "paged", 48): {
+        ("decode", "paged", "phi-3-vision-smoke", 3): 663552,
+        ("prefill_chunk", "phi-3-vision-smoke", 8): 1409024},
+    ("phi-3-vision-4.2b", "dense", 48): {
+        ("decode", "dense", "phi-3-vision-smoke", 3): 663552,
+        ("prefill", "phi-3-vision-smoke", 4): 2105344,
+        ("prefill", "phi-3-vision-smoke", 5): 2281984,
+        ("prefill", "phi-3-vision-smoke", 6): 2459648},
     ("zamba2-1.2b", "dense", 48): {
         ("decode", "dense", "zamba2-smoke", 3): 1328640,
         ("prefill", "zamba2-smoke", 4): 1622016,

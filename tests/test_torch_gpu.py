@@ -368,6 +368,46 @@ def test_prefill_kernel_any_block_size_with_nan_planted(cuda, dtype, tol):
                                    atol=tol)
 
 
+# (Hq, Hkv, D, bs, M, decode kv_lens, prefill q_starts): granite-moe's
+# heads (16 / 8 of 64) at block size 16, and phi-3-vision's (32 / 32 of 96,
+# padded to the 128 template) at block size 64 and its 2048-position table
+MOE_VLM_HEADS = ((16, 8, 64, 16, 64, [1, 15, 16, 17, 1023, 1024, 500, 0],
+                  [0, 16, 1008]),
+                 (32, 32, 96, 64, 32, [1, 63, 64, 65, 1476, 2048, 600, 0],
+                  [0, 576, 1984]))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", range(len(MOE_VLM_HEADS)),
+                         ids=["d64-granite", "d96-phi3v"])
+def test_paged_kernels_at_moe_and_vlm_head_dims(cuda, case, dtype, tol):
+    """Both paged kernels at the head dims the moe and vlm paths serve
+    against their plain versions, NaN at every pool position neither may
+    read, each call on its dtype's route; decode's kv_len 0 returns 0."""
+    hq, hkv, d, bs, m, lens, starts = MOE_VLM_HEADS[case]
+    kind = "simt" if dtype == torch.float32 else "mma"
+    args = _decode_nan_case(40 + case, lens, hq=hq, hkv=hkv, d=d, bs=bs,
+                            m=m, dtype=dtype, dev=cuda)
+    pa.reset_launches()
+    got = pa.paged_decode_attention_cuda(*args)
+    assert pa.DECODE_ROUTES[kind] == 1
+    want = pa.paged_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and not got[lens.index(0)].any()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    args = _prefill_nan_case(50 + case, starts, hq=hq, hkv=hkv, d=d, bs=bs,
+                             m=m, dtype=dtype, dev=cuda)
+    got = pa.paged_prefill_attention_cuda(*args)
+    assert pa.ROUTES[kind] == 1
+    want = pa.paged_prefill_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
 def _params_on(params, dev):
     return {k: _params_on(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in params.items()}
@@ -464,12 +504,14 @@ def _flash_qkv(seed, dev, dtype, *, b, hq, g, sq, sk, d):
 
 @pytest.mark.parametrize("hq,g,s,d", [(32, 1, 960, 64), (16, 2, 900, 128),
                                       (16, 8, 900, 128), (4, 2, 200, 24),
-                                      (4, 2, 200, 40), (4, 1, 130, 72)])
+                                      (4, 2, 200, 40), (4, 1, 130, 72),
+                                      (16, 2, 900, 64), (32, 1, 1476, 96)])
 def test_flash_tensor_cores_on_served_shapes(cuda, hq, g, s, d):
     """bf16 goes to the tensor-core route at the served shapes: zamba2's
     shared block (g 1, D 64, S 960), qwen3 (g 2, D 128, S 900), qwen2.5-3b
-    (g 8, D 128); and head dims between two templates, zero-padded in
-    shared memory (D 24 to 32, 40 to 64, 72 to 128); causal, at the bf16
+    (g 8, D 128), granite-moe (g 2, D 64) and phi-3-vision (g 1, D 96
+    padded to 128, S 576 + 900); and head dims between two templates,
+    zero-padded in shared memory (D 24 to 32, 40 to 64, 72 to 128); causal, at the bf16
     tolerance 1e-2.  The worst error is printed."""
     q, k, v = _flash_qkv(7, cuda, torch.bfloat16, b=1, hq=hq, g=g, sq=s,
                          sk=s, d=d)
@@ -1404,3 +1446,24 @@ def test_paged_equals_dense_in_fp32_on_card(cuda):
         assert paged_ran == (layout == "paged")
         assert (fa.LAUNCHES["flash_attention"] > 0) == (layout == "dense")
     assert toks["paged"] == toks["dense"]
+
+
+def test_granite_fp32_paged_equals_dense_on_card(cuda):
+    """A narrow fp32 copy of granite-moe (TF32 off) served on the card by
+    the paged layout and by dense continuous: the expert products and the
+    combine depend neither on the chunk nor on the batch, so the greedy
+    tokens agree row for row, and a repeat gives the same tokens."""
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              n_layers=2, vocab_size=1000)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda, dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 1000, n).tolist()
+               for n in (7, 16, 17, 64, 200, 333)]
+    toks = []
+    for kw in (dict(kv_layout="paged", block_size=16), {},
+               dict(kv_layout="paged", block_size=16)):
+        eng = ServeEngine(model, params, max_batch=4, cache_len=512, **kw)
+        toks.append([r.tokens for r in eng.generate(
+            [Request(p, 16, rid=i) for i, p in enumerate(prompts)])])
+    assert toks[0] == toks[1] == toks[2]

@@ -118,10 +118,15 @@ def test_bridge_carries_bf16_bits_and_rejects_mismatches():
 
 
 def test_registry_and_templates_match_reference():
-    """The port builds the dense archs qwen3-0.6b and qwen2.5-3b and the
-    hybrid zamba2-1.2b, with the reference's configs and the reference's
-    param trees (names and shapes) at full width."""
-    assert list_archs() == ["qwen2.5-3b", "qwen3-0.6b", "zamba2-1.2b"]
+    """The port builds the dense archs qwen3-0.6b and qwen2.5-3b, the
+    hybrid zamba2-1.2b, the moe archs granite-moe-1b-a400m and
+    qwen3-moe-235b-a22b and the vlm phi-3-vision-4.2b, with the
+    reference's configs and the reference's param trees (names, shapes and
+    leaf dtypes: the moe router stays fp32) at full width.  The families
+    still to port raise."""
+    assert list_archs() == ["granite-moe-1b-a400m", "phi-3-vision-4.2b",
+                            "qwen2.5-3b", "qwen3-0.6b",
+                            "qwen3-moe-235b-a22b", "zamba2-1.2b"]
 
     def shapes(t, f):
         return {k: shapes(v, f) if isinstance(v, dict) else f(v)
@@ -135,10 +140,14 @@ def test_registry_and_templates_match_reference():
         model = build_model(get_config(arch))
         assert shapes(model.templates, lambda t: t.shape) == \
             shapes(ref_model.templates, lambda t: t.shape)
+        assert shapes(model.templates, lambda t: t.dtype == torch.float32) \
+            == shapes(ref_model.templates,
+                      lambda t: t.dtype == jnp.float32)
         assert model.n_params == ref_model.n_params
-    with pytest.raises(NotImplementedError, match="moe"):
-        build_model(dataclasses.replace(get_config("qwen3-0.6b"),
-                                        family="moe"))
+    for family in ("ssm", "encdec"):
+        with pytest.raises(NotImplementedError, match=family):
+            build_model(dataclasses.replace(get_config("qwen3-0.6b"),
+                                            family=family))
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):

@@ -16,10 +16,18 @@ not change a token.  The hybrid family (zamba2-1.2b, the scan family the
 port has) runs its own matrix: continuous, lockstep, cluster 1xN and Nx1.
 Both matrices run twice, attribution off and on (an :class:`Attributor`
 attached to every cell, the reference cell's too): the tokens must not
-move, and every attributed continuous step gets one verdict.
+move, and every attributed continuous step gets one verdict.  The moe
+family (granite-moe's smoke config, routed dropless on every path) runs
+the reference's moe matrix: dense, paged, paged with the prefix cache and
+cluster 2x1.  The vlm family (phi-3-vision's smoke config, a seeded patch
+row a request) runs dense continuous, lockstep (uniform lengths), paged
+(at block size 8, and at 5, where the prefix ends inside a chunk),
+``bucket="pow2"``, cluster 2x1 under both drivers and a starved 2x2
+cluster that preempts.
 
 Hypothesis draws the traces; the reference's seeds on record, 218 and
-53156, are pinned with ``@example`` (ROADMAP §3).  The random examples are
+53156 (and 6480 for the hybrid family), are pinned with ``@example``
+(ROADMAP §3).  The random examples are
 bounded so the file stays near a minute on one CPU worker; without
 hypothesis a seeded fallback runs the pinned seeds and a few more.
 """
@@ -50,8 +58,11 @@ MAX_PROMPT = 12
 MAX_NEW = 8
 TEMPERATURES = (0.0, 0.0, 0.7, 1.3)   # half greedy, half sampled
 PINNED = (218, 53156)                  # the reference's seeds on record
+HYBRID_PINNED = 6480                   # the reference's hybrid split
 N_EXAMPLES = 30                        # random traces beside the pinned
 N_SCAN_EXAMPLES = 12
+N_MOE_EXAMPLES = 30                    # the reference runs 12
+N_VLM_EXAMPLES = 20
 FALLBACK = PINNED + (1, 2, 3)
 ATTRIBUTION = pytest.mark.parametrize("attributed", [False, True],
                                       ids=["attr-off", "attr-on"])
@@ -396,6 +407,7 @@ def _check_scan_conformance(scan_harness, seed: int,
 @given(st.integers(0, 2 ** 31 - 1))
 @example(PINNED[0])
 @example(PINNED[1])
+@example(HYBRID_PINNED)
 def test_scan_family_conformance_random_traces(scan_harness, attributed,
                                                seed):
     """hybrid x {continuous, lockstep on uniform lengths} x {single, 1xN,
@@ -407,6 +419,168 @@ def test_scan_family_conformance_random_traces(scan_harness, attributed,
 @pytest.mark.skipif(HAS_HYPOTHESIS,
                     reason="hypothesis variant runs the examples")
 @ATTRIBUTION
-@pytest.mark.parametrize("seed", FALLBACK)
+@pytest.mark.parametrize("seed", FALLBACK + (HYBRID_PINNED,))
 def test_scan_family_conformance_fallback(scan_harness, attributed, seed):
     _check_scan_conformance(scan_harness, seed, attributed)
+
+
+# ---------------------------------------------------------------------------
+# The moe family: dropless routing on every path.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def moe_harness():
+    cfg = smoke_config("granite-moe-1b-a400m")
+    model = build_model(cfg)
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    kw = dict(cache_len=CACHE_LEN)
+    engines = {
+        "dense-continuous": ServeEngine(model, params, max_batch=SLOTS,
+                                        mode="continuous", **kw),
+        "paged-continuous": ServeEngine(model, params, max_batch=SLOTS,
+                                        kv_layout="paged", block_size=BLOCK,
+                                        **kw),
+        "paged-prefix-cache": ServeEngine(model, params, max_batch=SLOTS,
+                                          kv_layout="paged",
+                                          block_size=BLOCK,
+                                          prefix_cache=True, **kw),
+        "cluster-2x1": ClusterEngine(model, params, replicas=2,
+                                     total_slots=2, block_size=BLOCK, **kw),
+    }
+    return cfg, engines
+
+
+def _check_family_conformance(harness, seed, family, extra=None):
+    """Every cell of a family's matrix against its dense continuous cell:
+    byte-identical tokens, every pool drained.  ``extra(reqs)`` gives the
+    trace's per-request side inputs, set on every engine for the trace."""
+    cfg, engines = harness
+    reqs, key = _draw_trace(np.random.default_rng(seed), cfg.vocab_size)
+    uniform = len({len(r.prompt) for r in reqs}) == 1
+    if extra is not None:
+        rows = extra(len(reqs), seed)
+        for eng in engines.values():
+            for e in (eng, *getattr(eng, "engines", ())):
+                e.extra = rows
+    ref = engines["dense-continuous"].generate(reqs, key=key)
+    assert [len(r.tokens) for r in ref] == [q.max_new_tokens for q in reqs]
+    for name, eng in engines.items():
+        if name == "dense-continuous" or (
+                name == "dense-lockstep" and not uniform):
+            continue
+        got = eng.generate(reqs, key=key)
+        for a, b in zip(ref, got):
+            assert a.tokens == b.tokens, (
+                f"{family}/{name} diverged on rid={a.rid} (seed {seed}): "
+                f"{a.tokens} vs {b.tokens}")
+        if _pool(eng) is not None:
+            _assert_drained(_pool(eng), (family, name, seed))
+
+
+@pytest.mark.skipif(not HAS_HYPOTHESIS,
+                    reason="hypothesis drives the examples; the seeded "
+                           "fallback below covers the no-dep environment")
+@settings(max_examples=N_MOE_EXAMPLES, deadline=None)
+@given(st.integers(0, 2 ** 31 - 1))
+@example(PINNED[0])
+@example(PINNED[1])
+def test_moe_family_conformance_random_traces(moe_harness, seed):
+    """moe x {dense, paged, paged + prefix cache, cluster 2x1}:
+    byte-identical tokens per trace, every pool drained."""
+    _check_family_conformance(moe_harness, seed, "moe")
+
+
+@pytest.mark.skipif(HAS_HYPOTHESIS,
+                    reason="hypothesis variant runs the examples")
+@pytest.mark.parametrize("seed", FALLBACK)
+def test_moe_family_conformance_fallback(moe_harness, seed):
+    _check_family_conformance(moe_harness, seed, "moe")
+
+
+# ---------------------------------------------------------------------------
+# The vlm family: a patch prefix and a side-input row a request.
+# ---------------------------------------------------------------------------
+
+def _vlm_rows(n, seed):
+    """One seeded patch row a request of the trace."""
+    cfg = smoke_config("phi-3-vision-4.2b")
+    return {"patches": torch.from_numpy(
+        np.random.default_rng(seed).standard_normal(
+            (n, cfg.n_patches, cfg.patch_embed_dim)).astype(np.float32))}
+
+
+@pytest.fixture(scope="module")
+def vlm_harness():
+    cfg = smoke_config("phi-3-vision-4.2b")
+    model = build_model(cfg)
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    # the 8-position prefix: CACHE_LEN covers it, the longest prompt and
+    # the decode writes
+    kw = dict(cache_len=CACHE_LEN + cfg.n_patches)
+
+    def cluster(**ckw):
+        return ClusterEngine(model, params, block_size=BLOCK, **kw, **ckw)
+    engines = {
+        "dense-continuous": ServeEngine(model, params, max_batch=SLOTS,
+                                        mode="continuous", **kw),
+        "dense-lockstep": ServeEngine(model, params, max_batch=SLOTS,
+                                      mode="lockstep", **kw),
+        "paged-continuous": ServeEngine(model, params, max_batch=SLOTS,
+                                        kv_layout="paged", block_size=BLOCK,
+                                        **kw),
+        "dense-pow2": ServeEngine(model, params, max_batch=SLOTS,
+                                  bucket="pow2", **kw),
+        # 5-position blocks: the 8-position prefix ends inside a chunk
+        "paged-bs5": ServeEngine(model, params, max_batch=SLOTS,
+                                 kv_layout="paged", block_size=5, **kw),
+        "cluster-2x1": cluster(replicas=2, total_slots=2),
+        "cluster-2x1-threaded": cluster(replicas=2, total_slots=2,
+                                        driver="threaded"),
+        # 9 allocatable blocks against up to 4 requests wanting up to 4
+        "cluster-2x2-pressure": cluster(replicas=2, total_slots=4,
+                                        n_blocks=10),
+    }
+    return cfg, engines
+
+
+@pytest.mark.skipif(not HAS_HYPOTHESIS,
+                    reason="hypothesis drives the examples; the seeded "
+                           "fallback below covers the no-dep environment")
+@settings(max_examples=N_VLM_EXAMPLES, deadline=None)
+@given(st.integers(0, 2 ** 31 - 1))
+@example(PINNED[0])
+@example(PINNED[1])
+def test_vlm_family_conformance_random_traces(vlm_harness, seed):
+    """vlm x {dense continuous, lockstep on uniform lengths, paged at
+    block sizes 8 and 5, pow2 buckets, cluster 2x1 sequential and
+    threaded, a starved 2x2 cluster}: byte-identical tokens per trace,
+    every pool drained."""
+    _check_family_conformance(vlm_harness, seed, "vlm", _vlm_rows)
+
+
+@pytest.mark.skipif(HAS_HYPOTHESIS,
+                    reason="hypothesis variant runs the examples")
+@pytest.mark.parametrize("seed", FALLBACK)
+def test_vlm_family_conformance_fallback(vlm_harness, seed):
+    _check_family_conformance(vlm_harness, seed, "vlm", _vlm_rows)
+
+
+def test_vlm_pressure_cluster_preempts_invisibly(vlm_harness):
+    """The starved vlm cluster really preempts (6 requests wanting 4
+    blocks each against 9), under overcommit, and the resumed requests
+    emit the uncontended streams: each is re-admitted with its own patch
+    row."""
+    cfg, engines = vlm_harness
+    reqs = [Request(list(range(i, i + MAX_PROMPT)), MAX_NEW,
+                    temperature=(0.9 if i % 2 else 0.0), rid=i)
+            for i in range(6)]
+    rows = _vlm_rows(6, 11)
+    for eng in engines.values():
+        for e in (eng, *getattr(eng, "engines", ())):
+            e.extra = rows
+    ref = engines["dense-continuous"].generate(reqs, key=(0, 19))
+    cl = engines["cluster-2x2-pressure"]
+    got = cl.generate(reqs, key=(0, 19))
+    assert cl.last_stats.preempted >= 1
+    assert [r.tokens for r in got] == [r.tokens for r in ref]
+    _assert_drained(cl.pool, "vlm pressure")
