@@ -150,6 +150,33 @@ Phases, each of which exits non-zero on failure:
               weights within 1e-4 for the 900-token prompt); a 2-layer
               qwen3-moe-235b-a22b copy at full width (128 experts) dense,
               8 new tokens;
+9c. gemma3 / yi / xlstm - after the flash parity, gemma3-27b's attention
+              shapes (flash at Hq 32 / Hkv 16, D 128, bf16 and fp32,
+              window 1024 and none, S 1024, 1025, 1800 and Sq 600 < Sk
+              1800; the kernel at window 1024 against the plain version
+              at 1023 must fail the bf16 tolerance; both paged kernels at
+              block size 64, M 32, NaN planted, both routes; the gather
+              path with a window past every position against the
+              kernels); after phase 9b, narrow fp32 copies of gemma3
+              (window 16) and xlstm on the card against the CPU within
+              1e-4 of the logits' scale, the full xlstm's first-token
+              logits at 768 tokens (fp32 within 1.6e-4 of their scale,
+              TOL_XLSTM; bf16 no farther from fp32 than 1.5x the CPU's
+              bf16); gemma3-27b at full width in bf16 (54 GB): its
+              trace (prompts 7 to 1800, cache_len 2048) dense twice
+              (token-identical, 62 flash launches a prefill on mma), with
+              attribution on (tokens unchanged), paged at block size 64
+              (102 chunks; 10 paged launches a step or chunk, the 52
+              local layers on the gather path), profiles of a decode step
+              and a chunk on each layout and one layer's kernel beside the
+              gather path; a 6-layer fp32 copy at full width paged ==
+              dense on all 8 rids and its first-token logits at 1100
+              tokens (fp32 1e-4, bf16 1.5x the CPU's); yi-6b at full width
+              paged (bs 16) and dense, each twice; xlstm-350m at full
+              width continuous twice, with attribution on, lockstep ==
+              continuous on 8 x 256, a sampled row preempted and replayed
+              byte-identical, freed slots zero, host ms a prefill and the
+              profiles; no hand kernel on xlstm's path;
 10. profile - wall and device time of one full-width decode step and one
               prefill (chunk) of each path, with the top kernels and the
               port's own outside them (torch.profiler);
@@ -199,6 +226,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-2     # bf16 outputs rounded from fp32: one ulp at |x|~1 is 7.8e-3
 TOL_FP32 = 1e-4    # fp32 outputs, other summation orders
+# the full xlstm-350m's fp32 first-token logits at 768 tokens: 24
+# recurrent layers carry a summation order's rounding into the logits, and
+# one fp32 step of relative noise on the embedding moves the CPU's own
+# logits by 7.6e-5 of their scale; the card reads 1.233e-4 (PERF.md)
+TOL_XLSTM = 1.6e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 CUDA-core peak (no TF32)
@@ -890,24 +922,40 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, kconv, kdot, dev):
     fgen = torch.Generator(device=dev)
     fgen.manual_seed(5)
 
-    def flash_row(name, hq, g, d, s):
+    def flash_row(name, hq, g, d, s, window=None):
         """A causal bf16 prefill, B = 1: q, k, v and the output once; the
-        causal half of the square."""
+        (query, key) pairs the mask keeps (the causal half of the square,
+        with ``window`` each row's last ``window`` keys).  SDPA takes a
+        window as a boolean mask."""
         args = [_flash_inputs(torch, fgen, dev, torch.bfloat16, g, s, s, b=1,
                               hq=hq, d=d) for _ in range(6)]
         nbytes = sum(x.numel() for x in args[0]) * 2 + args[0][0].numel() * 2
+        pos = torch.arange(s, device=dev)
+        keep = pos[None, :] <= pos[:, None]
+        if window is not None:
+            keep &= pos[None, :] > pos[:, None] - window
+        pairs = int(keep.sum())
 
         def lib(q, k, v):
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+            if window is None:
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=g > 1)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
                                                   enable_gqa=g > 1)
+
+        def kernel(q, k, v):
+            return fa.flash_attention_cuda(q, k, v, window=window)
+
+        def plain(q, k, v):
+            return fa.flash_attention_plain(q, k, v, window=window)
         out[name] = dict(
-            ms=time_ms(torch, fa.flash_attention_cuda, args, 50),
-            plain_ms=time_ms(torch, fa.flash_attention_plain, args, 10),
+            ms=time_ms(torch, kernel, args, 50),
+            plain_ms=time_ms(torch, plain, args, 10),
             library_ms=time_ms(torch, lib, args, 50),
-            device_ms=device_ms(torch, fa.flash_attention_cuda, args),
+            device_ms=device_ms(torch, kernel, args),
             library_device_ms=device_ms(torch, lib, args),
             **dict(zip(("bound_ms", "bound_by"),
-                       bound(nbytes, 4 * hq * d * s * (s + 1) // 2))))
+                       bound(nbytes, 4 * hq * d * pairs))))
 
     decode_row("paged_decode_attention", DECODE_KV_LENS, copies)
     # one request with its whole table live (logged, not in the kernels
@@ -943,6 +991,33 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, kconv, kdot, dev):
             f"B=1 Hq={hq} Hkv={hkv} D={d} Sq={bs} chunk={chunks[-1]} bf16")
         labels[f"flash_attention {label}"] = (
             f"B=1 Hq={fhq} Hkv={fhq // fg} D={fd} S={fs} causal bf16")
+    # gemma3-27b's shapes (logged, not in the kernels line): flash at its
+    # longest prompt on a global layer and with the local layers' window,
+    # each paged kernel at a global layer's shape (block size 64) over the
+    # trace's last decode positions and at the longest prompt's last chunk
+    ghq, gg, gd = GEMMA3_HEADS
+    gs, gbs = GEMMA3_PROMPT_LENS[-1], GEMMA3_BLOCK_SIZE
+    gm = GEMMA3_CACHE_LEN // gbs
+    glens = [n + SERVE_MAX_NEW for n in GEMMA3_PROMPT_LENS]
+    flash_row("flash_attention gemma3", ghq, gg, gd, gs)
+    flash_row("flash_attention gemma3 window", ghq, gg, gd, gs,
+              window=GEMMA3_WINDOW)
+    decode_row("paged_decode_attention gemma3", glens, copies, ghq,
+               ghq // gg, gd, gbs, gm, idle=None)
+    prefill_row("paged_prefill_attention gemma3", (gs - 1) // gbs, ghq,
+                ghq // gg, gd, gbs, gm)
+    labels.update({
+        "flash_attention gemma3": f"B=1 Hq={ghq} Hkv={ghq // gg} D={gd} "
+                                  f"S={gs} causal bf16",
+        "flash_attention gemma3 window": f"B=1 Hq={ghq} Hkv={ghq // gg} "
+                                         f"D={gd} S={gs} causal window="
+                                         f"{GEMMA3_WINDOW} bf16",
+        "paged_decode_attention gemma3": f"B=8 Hq={ghq} Hkv={ghq // gg} "
+                                         f"D={gd} bs={gbs} kv_len={glens} "
+                                         "bf16",
+        "paged_prefill_attention gemma3": f"B=1 Hq={ghq} Hkv={ghq // gg} "
+                                          f"D={gd} Sq={gbs} chunk="
+                                          f"{(gs - 1) // gbs} bf16"})
     # fft at 2^24 (the pool's card case, timed by the entry point later):
     # the profiler's device time of its launches and of cuFFT on complex64
     # planes, here where the traces are reliable (logged, not in the
@@ -1130,6 +1205,58 @@ def _cpu_copy(tree):
             for k, v in tree.items()}
 
 
+def _report(label, err, scale, atol):
+    ok = err <= atol
+    log(f"check {label}: max_abs_err={err:.3e} (scale {scale:.3e}, atol "
+        f"{atol:.3e}) {'ok' if ok else 'FAIL'}")
+    require(ok, f"{label}: the card's logits disagree with the plain CPU "
+                "path")
+
+
+def _like(tree, ref, device):
+    """``tree`` on ``device`` at ``ref``'s leaf dtypes."""
+    return {k: _like(v, ref[k], device) if isinstance(v, dict)
+            else v.to(device=device, dtype=ref[k].dtype)
+            for k, v in tree.items()}
+
+
+def _bf16_check(torch, model, params, prompts, dev, label,
+                fp32_tol=TOL_FP32):
+    """First-token logits of each of ``prompts`` from bf16 ``params`` on the
+    card: in fp32 (the same values, cast) card against CPU within
+    ``fp32_tol`` of their scale; in bf16 the card no farther from the CPU's
+    fp32 logits than 1.5 times the CPU's own bf16 run.  Returns the CPU
+    seconds it took."""
+    cpu32 = _cpu_copy(params)
+    card32 = _like(cpu32, cpu32, dev)
+    cpu16 = _like(cpu32, params, "cpu")
+    cpu_s = 0.0
+    for prompt in prompts:
+        n = len(prompt)
+        t0 = time.perf_counter()
+        want = _hybrid_logits(torch, model, cpu32, prompt, 0, "cpu")
+        runs = {k: _hybrid_logits(torch, model, prm, prompt, 0, d)
+                for k, prm, d in (("card fp32", card32, dev),
+                                  ("card bf16", params, dev),
+                                  ("cpu bf16", cpu16, "cpu"))}
+        cpu_s += time.perf_counter() - t0
+        require(all(bool(torch.isfinite(r).all()) for r in runs.values()),
+                f"{label}: non-finite logits")
+        scale = want.abs().max().item()
+        err = {k: (r - want).abs().max().item() for k, r in runs.items()}
+        _report(f"{label} float32 prompt_len={n}, card vs CPU "
+                f"({err['card fp32'] / scale:.3e} of scale)",
+                err["card fp32"], scale, fp32_tol * scale)
+        _report(f"{label} bfloat16 prompt_len={n}, card bf16 vs CPU fp32 "
+                f"(CPU bf16 vs CPU fp32: {err['cpu bf16']:.3e}, "
+                f"{err['cpu bf16'] / scale:.4f} of scale; card bf16 "
+                f"{err['card bf16'] / scale:.4f})", err["card bf16"], scale,
+                1.5 * err["cpu bf16"])
+    del card32, cpu32, cpu16
+    torch.cuda.empty_cache()
+    return cpu_s
+
+
 def phase_checks(torch, cfgs, build_model, dev):
     """The model on the card (kernels) against the plain path on the CPU,
     on the same weights: a narrow fp32 copy of qwen3-0.6b at fp32
@@ -1196,14 +1323,15 @@ def read_routes(kernel_modules):
             for r, n in routes.items()}
 
 
-def phase_serve(torch, cfg, build_model, serving, kmods, dev, name, bs=BS):
+def phase_serve(torch, cfg, build_model, serving, kmods, dev, name, bs=BS,
+                seed=0):
     """The paged path: ``cfg`` served on seeded random bf16 weights at
     block size ``bs``, twice, every kernel's launches counted in each run:
     one decode and one prefill launch a layer a step or chunk, every decode
     and prefill on the tensor cores, no flash launch, the pool drained, the
     tokens repeated."""
     model = build_model(cfg)
-    params = model.init(0, device=dev)
+    params = model.init(seed, device=dev)
     log(f"serve: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} vocab={cfg.vocab_size} "
         f"params={model.n_params} block_size={bs} bf16 on {name}")
@@ -1650,10 +1778,12 @@ def phase_cluster_fp32(torch, serving, kmods, model, params, single, dev,
 
 
 def _hybrid_logits(torch, model, params, prompt, n_decode, dev):
-    """Prefill of ``prompt`` (B = 1), then ``n_decode`` greedy steps;
-    returns every logits row on the CPU in fp32."""
+    """Prefill of ``prompt`` (B = 1) into a cache of 1024 positions (more
+    if the prompt and the steps need them), then ``n_decode`` greedy
+    steps; returns every logits row on the CPU in fp32."""
     logits, cache = model.prefill(params, {"tokens": torch.tensor(
-        [prompt], dtype=torch.int32, device=dev)}, cache_len=1024)
+        [prompt], dtype=torch.int32, device=dev)},
+        cache_len=max(1024, len(prompt) + n_decode))
     rows = [logits.float().cpu()]
     for _ in range(n_decode):
         feed = torch.tensor([[int(rows[-1].argmax())]], dtype=torch.int32,
@@ -1683,13 +1813,6 @@ def phase_hybrid_checks(torch, cfgs, build_model, dev):
     def prompt(n, vocab):
         return torch.randint(0, vocab, (n,), generator=rng).tolist()
 
-    def report(label, err, scale, atol):
-        ok = err <= atol
-        log(f"check {label}: max_abs_err={err:.3e} (scale {scale:.3e}, "
-            f"atol {atol:.3e}) {'ok' if ok else 'FAIL'}")
-        require(ok, f"{label}: the card's logits disagree with the plain "
-                    "CPU path")
-
     model = build_model(narrow)
     params = model.init(3, device=dev, dtype=torch.float32)
     p = prompt(192, narrow.vocab_size)
@@ -1700,38 +1823,15 @@ def phase_hybrid_checks(torch, cfgs, build_model, dev):
             f"expected {narrow.n_layers} on simt")
     want = _hybrid_logits(torch, model, _cpu_copy(params), p, 3, "cpu")
     require(bool(torch.isfinite(got).all()), "narrow zamba2: non-finite")
-    report(f"{narrow.name} L=7 d=256 float32 prompt_len=192 decode=3, card "
-           "vs CPU", (got - want).abs().max().item(),
-           want.abs().max().item(), TOL_FP32)
-
-    def like(tree, ref, device):
-        """``tree`` on ``device`` at ``ref``'s leaf dtypes."""
-        return {k: like(v, ref[k], device) if isinstance(v, dict)
-                else v.to(device=device, dtype=ref[k].dtype)
-                for k, v in tree.items()}
+    _report(f"{narrow.name} L=7 d=256 float32 prompt_len=192 decode=3, card "
+            "vs CPU", (got - want).abs().max().item(),
+            want.abs().max().item(), TOL_FP32)
     model = build_model(cfg)
     params = model.init(3, device=dev)
-    cpu32 = _cpu_copy(params)
-    card32 = like(cpu32, cpu32, dev)
-    cpu16 = like(cpu32, params, "cpu")
-    for n in (64, SSD_S):
-        p = prompt(n, cfg.vocab_size)
-        want = _hybrid_logits(torch, model, cpu32, p, 0, "cpu")
-        scale = want.abs().max().item()
-        runs = {k: _hybrid_logits(torch, model, prm, p, 0, d) for k, prm, d in
-                (("card fp32", card32, dev), ("card bf16", params, dev),
-                 ("cpu bf16", cpu16, "cpu"))}
-        require(all(bool(torch.isfinite(r).all()) for r in runs.values()),
-                "zamba2: non-finite logits")
-        err = {k: (r - want).abs().max().item() for k, r in runs.items()}
-        report(f"{cfg.name} L={cfg.n_layers} float32 prompt_len={n}, card "
-               "vs CPU", err["card fp32"], scale, TOL_FP32 * scale)
-        report(f"{cfg.name} L={cfg.n_layers} bfloat16 prompt_len={n}, card "
-               f"bf16 vs CPU fp32 (CPU bf16 vs CPU fp32: "
-               f"{err['cpu bf16']:.3e}, {err['cpu bf16'] / scale:.4f} of "
-               f"scale; card bf16 {err['card bf16'] / scale:.4f})",
-               err["card bf16"], scale, 1.5 * err["cpu bf16"])
-    del params, card32, cpu32, cpu16
+    _bf16_check(torch, model, params,
+                [prompt(n, cfg.vocab_size) for n in (64, SSD_S)], dev,
+                f"{cfg.name} L={cfg.n_layers}")
+    del params
     torch.cuda.empty_cache()
 
 
@@ -1744,7 +1844,7 @@ def _drain_session(torch, eng, reqs, preempt=None):
     eng.begin_session()
     for i, r in enumerate(reqs):
         require(eng.session_admit(r, tag=i) is None,
-                "hybrid: a request finished at admission")
+                "a scan-family request finished at admission")
     out, requeued, steps = {}, None, 0
     while eng.session_active:
         for tag, res in eng.session_step():
@@ -2042,27 +2142,30 @@ def first_decode_positions(eng):
 
 
 def _family_run(torch, kmods, eng, reqs, label, name):
-    """``_serve_run`` of a moe or vlm engine, its launches checked: paged,
-    one decode launch a layer a step and one prefill launch a layer a
-    chunk (the patch prefix counted), all on the tensor cores, no flash,
-    the pool drained; dense continuous, one flash launch a layer a
-    request, on the tensor cores, no paged launch.  Returns (tokens,
-    launches)."""
+    """``_serve_run`` of a moe, vlm or dense-family engine, its launches
+    checked: paged, one decode launch a step and one prefill launch a
+    chunk (the patch prefix counted) on every layer without a sliding
+    window (gemma3's local layers take the gather path, as in the
+    reference), all on the tensor cores, no flash, the pool drained; dense
+    continuous, one flash launch a layer a request, on the tensor cores,
+    no paged launch.  Returns (tokens, launches)."""
     cfg = eng.model.cfg
     toks, launches = _serve_run(torch, kmods, eng, reqs, label, name)
     s = eng.last_stats
     if eng.kv_layout == "paged":
         chunks = sum(math.ceil((eng._n_prefix() + len(r.prompt))
                                / eng.block_size) for r in reqs)
+        n_paged = sum(cfg.layer_window(i) is None
+                      for i in range(cfg.n_layers))
         require(launches["paged_decode_attention"]
                 == launches["paged_decode_attention.mma"]
-                == cfg.n_layers * s.decode_steps > 0,
-                f"{label}: decode launches {launches} != {cfg.n_layers} x "
+                == n_paged * s.decode_steps > 0,
+                f"{label}: decode launches {launches} != {n_paged} x "
                 f"{s.decode_steps} steps, all on the tensor cores")
         require(launches["paged_prefill_attention"]
                 == launches["paged_prefill_attention.mma"]
-                == cfg.n_layers * chunks,
-                f"{label}: prefill launches {launches} != {cfg.n_layers} x "
+                == n_paged * chunks,
+                f"{label}: prefill launches {launches} != {n_paged} x "
                 f"{chunks} chunks, all on the tensor cores")
         require(launches["flash_attention"] == 0,
                 f"{label}: the paged path launched flash ({launches})")
@@ -2301,6 +2404,564 @@ def phase_qwen3_moe(torch, cfgs, build_model, serving, kmods, dev, name):
     del eng, params
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The rest of the dense family (gemma3-27b, yi-6b) and the ssm family
+# (xlstm-350m).
+# ---------------------------------------------------------------------------
+
+GEMMA3_SEED, YI_SEED, XLSTM_SEED = 14, 15, 16      # one seed a model
+GEMMA3_WINDOW = 1024      # gemma3-27b's local layers' sliding window
+# gemma3's trace: 1000 crosses position 1024 while it decodes, 1100 and
+# 1800 prefill past the window (102 chunks of 64 in all)
+GEMMA3_PROMPT_LENS = [7, 64, 333, 900, 1000, 1024, 1100, 1800]
+GEMMA3_CACHE_LEN = 2048
+GEMMA3_BLOCK_SIZE = 64
+GEMMA3_HEADS = (32, 2, 128)          # (Hq, g, D): 32 / 16 heads of 128
+# flash parity at gemma3's shape: (Sq, Sk), Sq = Sk across the window's
+# edge and Sq < Sk
+GEMMA3_FLASH_S = ((1024, 1024), (1025, 1025), (1800, 1800), (600, 1800))
+# the window plant runs where this many query rows or more lie past the
+# window (at S 1025 only two rows lose a key at window 1023: its 1.57e-2
+# in one run is luck, not teeth)
+PLANT_ROWS = 256
+GEMMA3_CHUNKS = (0, 16, 28, 31)      # paged prefill parity, bs 64, M 32
+GEMMA3_FP32_LAYERS = 6    # one 5:1 group at full width: ~15.5 GB of fp32
+GEMMA3_CHECK_LEN = 1100   # the fp32 copy's first-token check, past 1024
+# xlstm's trace keeps the mLSTM chunk rule (at most 256, or a multiple)
+XLSTM_PROMPT_LENS = [7, 16, 33, 64, 128, 256, 512, 768]
+XLSTM_UNIFORM = (8, 256)      # lockstep vs continuous: 8 prompts of 256
+XLSTM_STATE = ("m_conv", "m_c", "m_n", "m_m", "s_conv", "s_c", "s_n", "s_h",
+               "s_m", "pos")
+
+
+def _trace(cfg, lens, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def phase_window_parity(torch, pa, fa, dev):
+    """gemma3-27b's attention shapes.  Flash at Hq 32 / Hkv 16, D 128, B 1,
+    bf16 and fp32, window 1024 (its local layers) and none (its global
+    ones), S across the window's edge and Sq < Sk (``GEMMA3_FLASH_S``),
+    each call on its dtype's route; the window honoured: the kernel at
+    1024 against the plain version at 1023 fails the bf16 tolerance.  Both
+    paged kernels at block size 64 (M 32: cache_len 2048), NaN planted
+    where neither may read, bf16 (mma) and fp32 (simt), the decode rows at
+    the trace's last positions; and the gather path (the local layers'
+    route) with a window past every position held against the kernels at
+    the same tolerance.  Returns the worst bf16 error of each kernel."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    hq, g, d = GEMMA3_HEADS
+    hkv, bs = hq // g, GEMMA3_BLOCK_SIZE
+    m = GEMMA3_CACHE_LEN // bs
+    worst = dict.fromkeys(("flash_attention", "paged_decode_attention",
+                           "paged_prefill_attention"), 0.0)
+    dtypes = ((torch.bfloat16, TOL, "mma"), (torch.float32, TOL_FP32, "simt"))
+    for dtype, tol, kind in dtypes:
+        name = str(dtype).split(".")[-1]
+        for sq, sk in GEMMA3_FLASH_S:
+            q, k, v = _flash_inputs(torch, gen, dev, dtype, g, sq, sk, b=1,
+                                    hq=hq, d=d)
+            for window in (GEMMA3_WINDOW, None):
+                got, route = _flash_counted(torch, fa, q, k, v, causal=True,
+                                            window=window)
+                require(route == kind, f"flash gemma3 {name}: went to the "
+                                       f"{route} route")
+                want = fa.flash_attention_plain(q, k, v, causal=True,
+                                                window=window)
+                torch.cuda.synchronize()
+                err = _compare(torch, f"flash gemma3 {name} [{route}] "
+                               f"Hq={hq} g={g} D={d} Sq={sq} Sk={sk} "
+                               f"window={window}", got, want, tol)
+                if dtype == torch.bfloat16:
+                    worst["flash_attention"] = max(
+                        worst["flash_attention"], err)
+                if (dtype == torch.bfloat16 and window
+                        and sk - window >= PLANT_ROWS):
+                    planted = fa.flash_attention_plain(
+                        q, k, v, causal=True, window=window - 1)
+                    off = (planted.float() - got.float()).abs().max().item()
+                    log(f"parity flash gemma3 bf16 Sq={sq} Sk={sk}: the "
+                        f"kernel at window {window} is {off:.3e} from the "
+                        f"plain version at {window - 1} (atol=rtol={TOL})")
+                    require(not torch.allclose(planted.float(), got.float(),
+                                               atol=TOL, rtol=TOL),
+                            f"flash: window {window} passes the tolerance "
+                            f"of window {window - 1}")
+    lens = [n + SERVE_MAX_NEW for n in GEMMA3_PROMPT_LENS]
+    _, dirty = decode_case(torch, gen, dev, hq, hkv, d, bs, m, lens,
+                           idle=None)
+    for dtype, tol, kind in dtypes:
+        args = [x.to(dtype) if x.is_floating_point() else x for x in dirty]
+        label = (f"decode gemma3 Hq={hq} Hkv={hkv} D={d} bs={bs} M={m} "
+                 f"kv_len={lens} {str(dtype)[6:]}")
+        got = _routed(pa, "paged_decode_attention", kind,
+                      pa.paged_decode_attention_cuda, args)
+        want = pa.paged_decode_attention_plain(*args)
+        wide = pa.paged_decode_attention_plain(*args, window=m * bs + 1)
+        torch.cuda.synchronize()
+        err = _compare(torch, f"{label} ({kind})", got, want, tol)
+        _compare(torch, f"{label}: gather path at window {m * bs + 1} vs "
+                 "the kernel", wide, got, tol)
+        if dtype == torch.bfloat16:
+            worst["paged_decode_attention"] = err
+    for chunk in GEMMA3_CHUNKS:
+        _, dirty = prefill_case(torch, gen, dev, chunk, hq, hkv, bs, m, d)
+        for dtype, tol, kind in dtypes:
+            args = [x.to(dtype) if x.is_floating_point() else x
+                    for x in dirty]
+            label = (f"prefill gemma3 Hq={hq} Hkv={hkv} D={d} bs={bs} M={m} "
+                     f"chunk={chunk} {str(dtype)[6:]}")
+            got = _routed(pa, "paged_prefill_attention", kind,
+                          pa.paged_prefill_attention_cuda, args)
+            want = pa.paged_prefill_attention_plain(*args)
+            wide = pa.paged_prefill_attention_plain(*args,
+                                                    window=m * bs + 1)
+            torch.cuda.synchronize()
+            err = _compare(torch, f"{label} ({kind})", got, want, tol)
+            _compare(torch, f"{label}: gather path at window {m * bs + 1} "
+                     "vs the kernel", wide, got, tol)
+            if dtype == torch.bfloat16:
+                worst["paged_prefill_attention"] = max(
+                    worst["paged_prefill_attention"], err)
+    log(f"parity gemma3 shapes worst bf16 max_abs_err: {worst}")
+    return worst
+
+
+def phase_new_checks(torch, cfgs, build_model, dev):
+    """gemma3 and xlstm on the card against the plain path on the CPU, on
+    the same weights.  Narrow fp32 copies: gemma3 with the smoke window of
+    16 (6 layers, d 128), a 37-token prompt through the paged chunks (bs
+    16) and through the dense prefill, 3 decode steps each; xlstm (6
+    layers: 5 mLSTM blocks and an sLSTM block, d 128), a 512-token prefill
+    (two mLSTM chunks) and 3 decode steps; both within 1e-4 of the logits'
+    scale.  Then the full-width xlstm's first-token logits at its longest
+    prompt (``_bf16_check``), fp32 within ``TOL_XLSTM`` of their scale."""
+    t0 = time.perf_counter()
+    rng = torch.Generator().manual_seed(10)
+
+    def prompt(n, vocab):
+        return torch.randint(0, vocab, (n,), generator=rng).tolist()
+    g3 = dataclasses.replace(cfgs.get_config("gemma3-27b"), n_layers=6,
+                             d_model=128, d_ff=256, n_heads=4, n_kv_heads=2,
+                             vocab_size=1000, local_window=16)
+    model = build_model(g3)
+    params = model.init(3, device=dev, dtype=torch.float32)
+    cpu = _cpu_copy(params)
+    p = prompt(37, g3.vocab_size)
+    pc_kw = dict(n_blocks=8, block_size=BS, max_blocks=4)
+    for path, run in (
+            ("paged", lambda prm, d: _run_path(torch, model, prm, pc_kw, p, 3,
+                                               d)),
+            ("dense", lambda prm, d: _hybrid_logits(torch, model, prm, p, 3,
+                                                    d))):
+        got, want = run(params, dev), run(cpu, "cpu")
+        require(bool(torch.isfinite(got).all()), "narrow gemma3: non-finite")
+        scale = want.abs().max().item()
+        _report(f"gemma3 narrow L=6 d=128 window=16 float32 {path} "
+                "prompt_len=37 decode=3, card vs CPU",
+                (got - want).abs().max().item(), scale, TOL_FP32 * scale)
+    x = dataclasses.replace(cfgs.get_config("xlstm-350m"), n_layers=6,
+                            d_model=128, vocab_size=1000)
+    model = build_model(x)
+    params = model.init(3, device=dev, dtype=torch.float32)
+    p = prompt(512, x.vocab_size)
+    got = _hybrid_logits(torch, model, params, p, 3, dev)
+    want = _hybrid_logits(torch, model, _cpu_copy(params), p, 3, "cpu")
+    require(bool(torch.isfinite(got).all()), "narrow xlstm: non-finite")
+    scale = want.abs().max().item()
+    _report("xlstm narrow L=6 d=128 float32 prompt_len=512 decode=3, card "
+            "vs CPU", (got - want).abs().max().item(), scale,
+            TOL_FP32 * scale)
+    cfg = cfgs.get_config("xlstm-350m")
+    model = build_model(cfg)
+    params = model.init(XLSTM_SEED, device=dev)
+    cpu_s = _bf16_check(torch, model, params,
+                        [prompt(XLSTM_PROMPT_LENS[-1], cfg.vocab_size)], dev,
+                        f"{cfg.name} L={cfg.n_layers}", fp32_tol=TOL_XLSTM)
+    del params
+    torch.cuda.empty_cache()
+    log(f"gemma3 / xlstm checks: {time.perf_counter() - t0:.1f} s (the "
+        f"full xlstm's CPU runs {cpu_s:.1f} s)")
+
+
+def _gemma3_profile(torch, pa, model, params, dev):
+    """A decode step over 8 slots at the trace's last positions and one
+    64-token chunk of the longest prompt (chunk 28, past the window), on
+    the dense and the paged layout: the profiler's top kernels, the port's
+    own among them.  Then one layer's attention alone at the same shapes:
+    the kernel (a global layer) beside the gather path (a local layer),
+    decode by the profiler's device time and the chunk by the event timer
+    (each profiler session costs seconds of host time here)."""
+    cfg = model.cfg
+    n_global = sum(cfg.layer_window(i) is None for i in range(cfg.n_layers))
+    bs, m = GEMMA3_BLOCK_SIZE, GEMMA3_CACHE_LEN // GEMMA3_BLOCK_SIZE
+    s = GEMMA3_PROMPT_LENS[-1]
+    last = (s - 1) // bs
+    lens = torch.tensor([n + SERVE_MAX_NEW for n in GEMMA3_PROMPT_LENS],
+                        dtype=torch.int32, device=dev)
+    feed = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    prompt = {"tokens": torch.zeros((1, s), dtype=torch.int32, device=dev)}
+    dc = model.cache_expand(model.prefill(params, prompt,
+                                          cache_len=GEMMA3_CACHE_LEN)[1], B)
+
+    def dense_decode():
+        dc["pos"] = lens.clone()
+        model.decode(params, dc, feed)
+    _profile_calls(torch, cfg.name, (("dense decode step (B=8)",
+                                      dense_decode),))
+    del dc
+    torch.cuda.empty_cache()
+    pc = model.paged_cache_init(batch=B, n_blocks=B * m + 1, block_size=bs,
+                                max_blocks=m, dtype=torch.bfloat16,
+                                device=dev)
+    pc["bt"].copy_(torch.arange(1, B * m + 1, dtype=torch.int32,
+                                device=dev).reshape(B, m))
+    chunk = {"tokens": torch.zeros((1, bs), dtype=torch.int32, device=dev)}
+
+    def paged_decode():
+        pc["pos"].copy_(lens)
+        model.decode_paged(params, pc, feed)
+
+    def paged_chunk():
+        model.prefill_paged(params, pc, chunk, 0, last, s)
+    _profile_calls(torch, cfg.name, (
+        ("paged decode step (B=8)", paged_decode),
+        (f"paged prefill chunk {last} (B=1, {bs} tokens)", paged_chunk)))
+    # one layer's attention alone: the kernel against the gather path
+    hq, _, d = GEMMA3_HEADS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    kp, vp, bt = pc["kp"][0], pc["vp"][0], pc["bt"]
+    kp.copy_(torch.randn(kp.shape, generator=gen, device=dev))
+    vp.copy_(torch.randn(vp.shape, generator=gen, device=dev))
+    q = torch.randn((B, hq, 1, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    qc = torch.randn((1, hq, bs, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    qs = torch.tensor([last * bs], dtype=torch.int32, device=dev)
+    dec, pre = (q, kp, vp, bt, lens), (qc, kp, vp, bt[:1], qs)
+    calls = {
+        "decode kernel": (pa.paged_decode_attention_cuda, dec),
+        "decode gather": (lambda *a: pa.paged_decode_attention_plain(
+            *a, window=GEMMA3_WINDOW), dec),
+        "chunk kernel": (pa.paged_prefill_attention_cuda, pre),
+        "chunk gather": (lambda *a: pa.paged_prefill_attention_plain(
+            *a, window=GEMMA3_WINDOW), pre)}
+    rows = {k: (time_ms(torch, fn, [a], 20),
+                device_ms(torch, fn, [a]) if k.startswith("decode") else None)
+            for k, (fn, a) in calls.items()}
+    n_local = cfg.n_layers - n_global
+    for what in ("decode", "chunk"):
+        k_ms, k_dev = rows[f"{what} kernel"]
+        g_ms, g_dev = rows[f"{what} gather"]
+        # the profiler's device time where it caught the call, else the
+        # event timer's (an upper bound: a short call reads the host)
+        k, g = (k_dev if k_dev is not None else k_ms,
+                g_dev if g_dev is not None else g_ms)
+        log(f"gemma3 one layer's {what} attention: kernel_ms={k_ms:.4f} "
+            f"device_ms={_ms(k_dev)} (a global layer) | gather path at "
+            f"window {GEMMA3_WINDOW} ms={g_ms:.4f} device_ms={_ms(g_dev)} "
+            f"(a local layer) | all {cfg.n_layers} layers: {n_global} x "
+            f"{k:.4f} + {n_local} x {g:.4f} = "
+            f"{n_global * k + n_local * g:.3f} ms")
+    del pc
+    torch.cuda.empty_cache()
+
+
+def phase_gemma3(torch, cfgs, build_model, serving, kmods, pa, dev, name):
+    """gemma3-27b at full width on seeded random bf16 weights (54 GB): its
+    trace (8 slots, cache_len 2048, prompts of 7 to 1800 tokens, 32 new
+    each) dense continuous twice, the repeat with attribution on
+    (token-identical; 62 flash launches a prefill, on the tensor cores),
+    and paged at block size 64 (102 chunks; the 10 global layers launch the
+    paged kernels, 10 a step or chunk, on the tensor cores; the 52 local
+    ones take the gather path); the rids where paged parts from dense,
+    logged with their top-2 gaps; the profile of a decode step and a chunk
+    on each layout.  One layout's cache at a time.  Returns each layout's
+    launches."""
+    import gc
+    t0 = time.perf_counter()
+    cfg = cfgs.get_config("gemma3-27b")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(GEMMA3_SEED, device=dev)
+    torch.cuda.synchronize()
+    n_global = sum(cfg.layer_window(i) is None for i in range(cfg.n_layers))
+    log(f"gemma3: {cfg.name} n_layers={cfg.n_layers} ({n_global} global, "
+        f"{cfg.n_layers - n_global} local of window {cfg.local_window}) "
+        f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}x"
+        f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} params="
+        f"{model.n_params} bf16 on {name}: init "
+        f"{time.perf_counter() - t0:.1f} s, weights "
+        f"{torch.cuda.memory_allocated()} B, max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated()}")
+    want = cfg.n_layers // (cfg.local_per_global + 1)
+    require(n_global == want, f"gemma3: {n_global} global layers, expected "
+                              f"{want}")
+    prompts = _trace(cfg, GEMMA3_PROMPT_LENS, 3)
+    chunks = sum(math.ceil(n / GEMMA3_BLOCK_SIZE) for n in GEMMA3_PROMPT_LENS)
+
+    def reqs():
+        return [serving.Request(p, SERVE_MAX_NEW, rid=i)
+                for i, p in enumerate(prompts)]
+    eng = serving.ServeEngine(model, params, max_batch=8,
+                              cache_len=GEMMA3_CACHE_LEN)
+    dense = [_family_run(torch, kmods, eng, reqs(), "gemma3 dense run 0",
+                         name)]
+    # the repeat runs with attribution on: the same tokens show both
+    at = serving.Attributor(serving.MachineSpec.detect(dev, torch.bfloat16))
+    eng.set_attributor(at)
+    dense.append(_family_run(torch, kmods, eng, reqs(),
+                             "gemma3 dense run 1, attribution on", name))
+    eng.set_attributor(None)
+    require(dense[0][0] == dense[1][0], "gemma3 dense: the repeat run with "
+                                        "attribution on changed the tokens")
+    _attribution_log("gemma3 dense", eng.last_stats, at, name)
+    _attribution_split("gemma3 dense", eng.last_metrics)
+    log("gemma3 dense: the repeat run, attribution on, token-identical")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = serving.ServeEngine(model, params, max_batch=8,
+                              cache_len=GEMMA3_CACHE_LEN, kv_layout="paged",
+                              block_size=GEMMA3_BLOCK_SIZE)
+    paged = _family_run(torch, kmods, eng, reqs(), "gemma3 paged", name)
+    require(paged[1]["paged_prefill_attention"] == n_global * chunks,
+            f"gemma3 paged: {paged[1]['paged_prefill_attention']} prefill "
+            f"launches, expected {n_global} x {chunks} chunks")
+    log(f"gemma3 paged: {chunks} chunks, {n_global} paged launches a chunk "
+        f"and a decode step ({time.perf_counter() - t0:.1f} s into the "
+        "phase)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    diffs = first_diffs(paged[0], dense[0][0])
+    log(f"gemma3 bf16 paged vs dense: {sum(d is not None for d in diffs)} "
+        f"of {len(prompts)} rids differ, first differing token per rid "
+        f"{diffs}")
+    log_margins(torch, model, params, prompts, paged[0], dense[0][0], diffs,
+                "gemma3 bf16 paged vs dense", dev)
+    t1 = time.perf_counter()
+    _gemma3_profile(torch, pa, model, params, dev)
+    log(f"gemma3 profiles: {time.perf_counter() - t1:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"gemma3 phase: {time.perf_counter() - t0:.1f} s")
+    return {"dense": dense[0][1], "paged": paged[1]}
+
+
+def phase_gemma3_fp32(torch, cfgs, build_model, serving, kmods, dev, name):
+    """gemma3-27b at full width cut to one 5:1 group (6 layers, ~15.5 GB)
+    on seeded random fp32 weights (TF32 off): the gemma3 trace greedy,
+    paged at block size 64 and dense continuous, each kernel on its fp32
+    route; the tokens must agree on all 8 rids (where rows part, the first
+    differing token and the top-2 gap are logged).  Then its first-token
+    logits at a prompt past the window (``_bf16_check`` on the same values
+    in bf16 and fp32)."""
+    import gc
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfgs.get_config("gemma3-27b"),
+                              n_layers=GEMMA3_FP32_LAYERS)
+    model = build_model(cfg)
+    params = model.init(GEMMA3_SEED, device=dev, dtype=torch.float32)
+    prompts = _trace(cfg, GEMMA3_PROMPT_LENS, 3)
+    toks = {}
+    for layout, kw in (("paged", dict(kv_layout="paged",
+                                      block_size=GEMMA3_BLOCK_SIZE)),
+                       ("dense", {})):
+        eng = serving.ServeEngine(model, params, max_batch=8,
+                                  cache_len=GEMMA3_CACHE_LEN, **kw)
+        reqs = [serving.Request(p, SERVE_MAX_NEW, rid=i)
+                for i, p in enumerate(prompts)]
+        toks[layout], launches = _serve_run(torch, kmods, eng, reqs,
+                                            f"gemma3 fp32 L=6 {layout}", name)
+        for kernel in ("flash_attention", "paged_decode_attention",
+                       "paged_prefill_attention"):
+            require(launches[f"{kernel}.simt"] == launches[kernel]
+                    and launches[f"{kernel}.mma"] == 0,
+                    f"gemma3 fp32 {layout}: {kernel} off its fp32 route "
+                    f"({launches})")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    diffs = first_diffs(toks["paged"], toks["dense"])
+    log(f"gemma3 fp32 L=6 paged vs dense: first differing token per rid "
+        f"{diffs}")
+    log_margins(torch, model, params, prompts, toks["paged"], toks["dense"],
+                diffs, "gemma3 fp32 paged vs dense", dev)
+    require(all(d is None for d in diffs),
+            f"gemma3 fp32 paged and dense tokens differ (first index per rid "
+            f"{diffs})")
+    log("gemma3 fp32 L=6 paged vs dense: all 8 rids token-identical")
+    params16 = _cast(params, torch.bfloat16)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu_s = _bf16_check(torch, model, params16,
+                        _trace(cfg, [GEMMA3_CHECK_LEN], 5), dev,
+                        f"{cfg.name} L={cfg.n_layers}")
+    del params16
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"gemma3 fp32 phase: {time.perf_counter() - t0:.1f} s (the "
+        f"first-token check's CPU runs {cpu_s:.1f} s)")
+
+
+def _cast(tree, dtype):
+    """Every leaf cast to ``dtype`` (gemma3 has no leaf of its own
+    dtype)."""
+    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def phase_yi(torch, cfgs, build_model, serving, kmods, dev, name):
+    """yi-6b at full width on seeded random bf16 weights (GQA 32 / 4: 8
+    query heads a kv head), the serve trace (8 slots, 32 new tokens,
+    cache_len 1024): paged at block size 16 twice (phase 7's checks: one
+    paged launch a layer a step or chunk, on the tensor cores, the pool
+    drained, the repeat token-identical), then dense continuous twice
+    (token-identical, one flash launch a layer a prefill); the rids where
+    paged parts from dense, logged with their top-2 gaps.  Returns each
+    layout's launches."""
+    import gc
+    t0 = time.perf_counter()
+    cfg = cfgs.get_config("yi-6b")
+    launches, model, params, paged = phase_serve(
+        torch, cfg, build_model, serving, kmods, dev, name, bs=BS,
+        seed=YI_SEED)
+    prompts = serve_prompts(cfg.vocab_size)
+    eng = serving.ServeEngine(model, params, max_batch=8, cache_len=1024)
+    dense = [_family_run(torch, kmods, eng, [
+        serving.Request(p, SERVE_MAX_NEW, rid=i)
+        for i, p in enumerate(prompts)], f"yi dense run {run}", name)
+        for run in range(2)]
+    require(dense[0][0] == dense[1][0],
+            "yi dense: a repeat run changed the tokens")
+    log("yi dense: repeat run token-identical")
+    diffs = first_diffs(paged, dense[0][0])
+    log(f"yi bf16 paged vs dense: {sum(d is not None for d in diffs)} of "
+        f"{len(prompts)} rids differ, first differing token per rid {diffs}")
+    log_margins(torch, model, params, prompts, paged, dense[0][0], diffs,
+                "yi bf16 paged vs dense", dev)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"yi phase: {time.perf_counter() - t0:.1f} s")
+    return {"dense": dense[0][1], "paged": launches}
+
+
+def phase_xlstm(torch, cfgs, build_model, serving, kmods, dev, name):
+    """xlstm-350m at full width on seeded random bf16 weights: its trace
+    (8 slots, prompts of 7 to 768 tokens) continuous twice, the repeat
+    with attribution on (token-identical); a uniform 8 x 256 trace
+    continuous and lockstep (equal); the first trace with rid 3 sampled
+    at 0.7, whole and preempted after 5 decode steps and resumed by replay
+    (byte-identical), every freed slot's state zero after the drain; host
+    ms a prefill (the per-token sLSTM loop); the profile of a decode step.
+    The path runs no hand kernel: every count stays 0."""
+    t0 = time.perf_counter()
+    cfg = cfgs.get_config("xlstm-350m")
+    model = build_model(cfg)
+    params = model.init(XLSTM_SEED, device=dev)
+    k = cfg.slstm_every
+    log(f"xlstm: {cfg.name} n_layers={cfg.n_layers} ({cfg.n_layers // k} "
+        f"groups of {k - 1} mLSTM + 1 sLSTM) d_model={cfg.d_model} heads="
+        f"{cfg.n_heads} vocab={cfg.vocab_size} params={model.n_params} "
+        f"bf16 on {name}")
+    prompts = _trace(cfg, XLSTM_PROMPT_LENS, 4)
+
+    def reqs(temps=None):
+        return [serving.Request(p, SERVE_MAX_NEW,
+                                (temps or {}).get(i, 0.0), rid=i)
+                for i, p in enumerate(prompts)]
+
+    def no_kernels(launches, label):
+        require(not any(launches.values()),
+                f"xlstm {label}: the path launched a kernel ({launches})")
+    eng = serving.ServeEngine(model, params, max_batch=8, cache_len=1024)
+    at = serving.Attributor(serving.MachineSpec.detect(dev, torch.bfloat16))
+    runs = []
+    for run in range(2):
+        # the repeat run with attribution on: the same tokens show both
+        eng.set_attributor(at if run else None)
+        runs.append(_serve_run(torch, kmods, eng, reqs(),
+                               f"xlstm continuous run {run}"
+                               + (", attribution on" if run else ""), name))
+        no_kernels(runs[-1][1], "continuous")
+    eng.set_attributor(None)
+    require(runs[0][0] == runs[1][0], "xlstm continuous: the repeat run with "
+                                      "attribution on changed the tokens")
+    _attribution_log("xlstm", eng.last_stats, at, name)
+    _attribution_split("xlstm", eng.last_metrics)
+    for rid, t in enumerate(runs[0][0]):
+        log(f"xlstm continuous rid={rid} prompt_len={len(prompts[rid])} "
+            f"tokens={t}")
+    log("xlstm continuous: the repeat run, attribution on, token-identical")
+
+    n_uni, len_uni = XLSTM_UNIFORM
+    uniform = _trace(cfg, [len_uni] * n_uni, 5)
+    modes = {}
+    for mode in ("continuous", "lockstep"):
+        e = serving.ServeEngine(model, params, max_batch=8, cache_len=1024,
+                                mode=mode)
+        modes[mode], launches = _serve_run(
+            torch, kmods, e, [serving.Request(p, SERVE_MAX_NEW, rid=i)
+                              for i, p in enumerate(uniform)],
+            f"xlstm {mode} uniform {n_uni}x{len_uni}", name)
+        no_kernels(launches, mode)
+    require(modes["lockstep"] == modes["continuous"],
+            "xlstm: lockstep and continuous differ on the uniform trace")
+    log("xlstm lockstep == continuous on the uniform trace")
+
+    sampled = reqs({PREEMPT_RID: SAMPLED_TEMPERATURE})
+    whole, _, cache, _ = _drain_session(torch, eng, sampled)
+    for key in XLSTM_STATE:
+        require(not bool(cache[key].any()),
+                f"xlstm: freed slots' {key} is not zero after the drain")
+    log(f"xlstm: after the drain every freed slot's {', '.join(XLSTM_STATE)}"
+        " are zero")
+    resumed, requeued, _, metrics = _drain_session(
+        torch, eng, reqs({PREEMPT_RID: SAMPLED_TEMPERATURE}),
+        preempt=(PREEMPT_RID, PREEMPT_AFTER))
+    replayed = metrics.counter("resume_replay_tokens").n
+    log(f"xlstm preempt: rid={PREEMPT_RID} temperature="
+        f"{SAMPLED_TEMPERATURE} preempted after {PREEMPT_AFTER} decode steps "
+        f"with done={len(requeued.done)} tokens, replayed {replayed}; "
+        f"tokens={resumed[PREEMPT_RID]}")
+    require(len(requeued.done) == PREEMPT_AFTER + 1
+            and replayed == len(requeued.done),
+            f"xlstm preempt: done {len(requeued.done)}, replayed {replayed}, "
+            f"expected {PREEMPT_AFTER + 1} each")
+    require(resumed == whole, "xlstm preempt: the resumed stream differs "
+                              "from the uninterrupted run")
+    log("xlstm preempt + replay: every row token-identical to the "
+        "uninterrupted run")
+    # host ms a prefill (warm: the runs above prefilled every length): the
+    # per-token sLSTM loop is one launch chain a token and sLSTM layer
+    for p in prompts:
+        batch = {"tokens": torch.tensor([p], dtype=torch.int32, device=dev)}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        log(f"xlstm prefill B=1 prompt_len={len(p)}: host_ms={ms:.1f} "
+            f"({ms / len(p):.3f} ms a token)")
+    xc = model.cache_expand(out[1], B)
+    feed = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    # the decode step only: a profiled 768-token prefill records ~10^5
+    # host ops a call, and its trace takes minutes to read back
+    _profile_calls(torch, cfg.name, (
+        ("xlstm decode step (B=8)", lambda: model.decode(params, xc, feed)),))
+    del params, xc
+    torch.cuda.empty_cache()
+    log(f"xlstm phase: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2936,6 +3597,8 @@ def main() -> int:
         phase_build(build)
         errs = phase_parity(torch, pa, dev)
         errs["flash_attention"] = phase_flash_parity(torch, fa, dev)
+        for k, err in phase_window_parity(torch, pa, fa, dev).items():
+            errs[k] = max(errs[k], err)
         errs["ssd_scan"] = phase_ssd_parity(torch, ss, dev)
         times = phase_timing(torch, pa, fa, ss, ideality.POOL["fft"],
                              ideality.POOL["exp"], ideality.POOL["pathfinder"],
@@ -2988,6 +3651,19 @@ def main() -> int:
             f"{moe_launches['paged']}, phi-3-vision dense "
             f"{vlm_launches['dense']} paged {vlm_launches['paged']}, "
             f"qwen3-moe dense {q3_launches}")
+        t_fam = time.perf_counter()
+        phase_new_checks(torch, cfgs, build_model, dev)
+        g3_launches = phase_gemma3(torch, cfgs, build_model, serving, kmods,
+                                   pa, dev, name)
+        phase_gemma3_fp32(torch, cfgs, build_model, serving, kmods, dev,
+                          name)
+        yi_launches = phase_yi(torch, cfgs, build_model, serving, kmods,
+                               dev, name)
+        phase_xlstm(torch, cfgs, build_model, serving, kmods, dev, name)
+        log(f"gemma3, yi and xlstm phases: {time.perf_counter() - t_fam:.1f}"
+            f" s; launches gemma3 dense {g3_launches['dense']} paged "
+            f"{g3_launches['paged']}, yi dense {yi_launches['dense']} paged "
+            f"{yi_launches['paged']}")
         pool = ideality.POOL
         errs.update(phase_pool_parity(torch, ideality, pool, dev))
         phase_conv2d_bands(torch, pool["conv2d"], dev)

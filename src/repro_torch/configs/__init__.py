@@ -13,6 +13,9 @@ from .base import ModelConfig
 ARCHS = {
     "qwen3-0.6b": "qwen3_0_6b",
     "qwen2.5-3b": "qwen2_5_3b",
+    "yi-6b": "yi_6b",
+    "gemma3-27b": "gemma3_27b",
+    "xlstm-350m": "xlstm_350m",
     "zamba2-1.2b": "zamba2_1_2b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",

@@ -57,3 +57,14 @@ class ModelConfig:
         over the model axis (e.g. granite's 49155 -> 49408).  Logits beyond
         ``vocab_size`` are masked in the loss and sliced off at serving."""
         return -(-self.vocab_size // 256) * 256
+
+    def layer_window(self, layer_idx: int) -> int | None:
+        """Sliding window for a given layer (gemma3 5:1 pattern): None for
+        a global layer, and for every layer of a config without
+        ``local_window``."""
+        if not self.local_window:
+            return None
+        if self.local_per_global and \
+                (layer_idx + 1) % (self.local_per_global + 1) == 0:
+            return None  # global layer
+        return self.local_window

@@ -9,7 +9,11 @@ The implementation follows the tensor's device, and nothing else:
 There is no environment override and no fallback: a CUDA tensor never
 reaches a plain version through this module.  ``decode_attention`` and
 ``ssd_step`` have no kernel (the reference leaves them to XLA) and are
-plain PyTorch everywhere.
+plain PyTorch everywhere.  So is a *windowed* paged call: the reference
+routes ``window is not None`` to its XLA gather functions on every device
+(``repro/kernels/ops.py:112-140``), and so does this module
+(``paged_*_attention_plain(window=...)``); with ``window=None`` a CUDA
+tensor launches the paged kernel or raises, as before.
 """
 from __future__ import annotations
 
@@ -43,13 +47,6 @@ def _pick(x, plain, cuda, what: str):
     if kind == "cuda":
         return cuda
     raise ValueError(f"{what}: no implementation for device {x.device}")
-
-
-def _no_paged_window(what: str, window) -> None:
-    if window is not None:
-        raise NotImplementedError(
-            f"{what}(window={window}): sliding-window paged attention "
-            "(gemma3's local layers) is not ported yet")
 
 
 def attention(q, k, v, *, causal=True, window=None, scale=None):
@@ -87,8 +84,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, kv_len, *,
                            scale=None, window=None):
     """Single-token GQA attention against a paged KV pool via a block
     table.  q: (B, Hq, 1, D); pools: (N, Hkv, bs, D); block_table: (B, M)
-    int32; kv_len: (B,) int32.  Returns (B, Hq, 1, D)."""
-    _no_paged_window("paged_decode_attention", window)
+    int32; kv_len: (B,) int32.  Returns (B, Hq, 1, D).  A ``window``
+    takes the plain gather path on every device, as in the reference."""
+    if window is not None:
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_table,
+                                            kv_len, scale=scale,
+                                            window=window)
     fn = _pick(q, paged_decode_attention_plain, paged_decode_attention_cuda,
                "paged_decode_attention")
     return fn(q, k_pool, v_pool, block_table, kv_len, scale=scale)
@@ -98,8 +99,13 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, q_start, *,
                             scale=None, window=None):
     """One prompt chunk's causal attention against a paged KV pool (the
     chunk's K/V must already sit in its block).  q: (B, Hq, Sq, D) at
-    absolute positions ``q_start[b] + [0, Sq)``.  Returns (B, Hq, Sq, D)."""
-    _no_paged_window("paged_prefill_attention", window)
+    absolute positions ``q_start[b] + [0, Sq)``.  Returns (B, Hq, Sq, D).
+    A ``window`` takes the plain gather path on every device, as in the
+    reference."""
+    if window is not None:
+        return paged_prefill_attention_plain(q, k_pool, v_pool, block_table,
+                                             q_start, scale=scale,
+                                             window=window)
     fn = _pick(q, paged_prefill_attention_plain,
                paged_prefill_attention_cuda, "paged_prefill_attention")
     return fn(q, k_pool, v_pool, block_table, q_start, scale=scale)

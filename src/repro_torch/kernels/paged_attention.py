@@ -26,6 +26,9 @@ Two implementations of each function, as in the reference
   CPU runs it, and ``chip_smoke.py`` holds the kernel against it.
 
 ``repro_torch.kernels.ops`` picks between them by the tensor's device.
+A windowed call (gemma3's local layers) takes ``*_plain(window=...)`` on
+every device, as the reference sends it to its XLA functions (the kernels
+keep the unwindowed mask).
 """
 from __future__ import annotations
 
@@ -67,20 +70,25 @@ def _scale(scale, d: int) -> float:
 # ---------------------------------------------------------------------------
 
 def paged_decode_attention_plain(q, k_pool, v_pool, block_table, kv_len, *,
-                                 scale=None):
+                                 scale=None, window=None):
     """q: (B, Hq, 1, D); k_pool/v_pool: (N, Hkv, bs, D); block_table: (B, M)
-    int32; kv_len: (B,) int32.  Returns (B, Hq, 1, D) in q's dtype.
+    int32; kv_len: (B,) int32.  Returns (B, Hq, 1, D) in q's dtype.  With
+    ``window`` only keys past kv_len - 1 - window are seen.
 
-    Positions at or past ``kv_len`` get p = 0 and their V is zeroed before
-    the product, so stale pool bytes (even NaN) never reach the sum; a row
-    with ``kv_len == 0`` returns 0, as the reference's Pallas kernel does."""
+    Positions outside the window or at or past ``kv_len`` get p = 0 and
+    their V is zeroed before the product, so stale pool bytes (even NaN)
+    never reach the sum; a row with ``kv_len == 0`` returns 0, as the
+    reference's Pallas kernel does."""
     b, hq, _, d = q.shape
     hkv = k_pool.shape[1]
     g = hq // hkv
     k = gather_pool(k_pool, block_table).float()     # (B, Hkv, M*bs, D)
     v = gather_pool(v_pool, block_table).float()
-    kpos = torch.arange(k.shape[2], device=q.device)
-    valid = kpos[None, :] < kv_len[:, None].long()   # (B, M*bs)
+    kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+    kv = kv_len[:, None].long()
+    valid = kpos < kv                                # (B, M*bs)
+    if window is not None:
+        valid &= kpos > kv - 1 - window
     qf = q.float().reshape(b, hkv, g, d) * _scale(scale, d)
     logits = torch.einsum("bhgd,bhsd->bhgs", qf, k)
     vmask = valid[:, None, None, :]
@@ -92,11 +100,12 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_table, kv_len, *,
 
 
 def paged_prefill_attention_plain(q, k_pool, v_pool, block_table, q_start, *,
-                                  scale=None):
+                                  scale=None, window=None):
     """q: (B, Hq, Sq, D) chunk queries at absolute positions
-    ``q_start[b] + [0, Sq)``; causal (``kpos <= qpos``) over the table.
-    Returns (B, Hq, Sq, D) in q's dtype.  V past the chunk's causal
-    frontier is zeroed before the product (stale bytes never reach it)."""
+    ``q_start[b] + [0, Sq)``; causal (``kpos <= qpos``) over the table and,
+    with ``window``, only past ``qpos - window``.  Returns (B, Hq, Sq, D) in
+    q's dtype.  V that no query of the chunk may see is zeroed before the
+    product (stale bytes never reach it)."""
     b, hq, sq, d = q.shape
     hkv = k_pool.shape[1]
     g = hq // hkv
@@ -104,13 +113,15 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, block_table, q_start, *,
     v = gather_pool(v_pool, block_table).float()
     kpos = torch.arange(k.shape[2], device=q.device)
     qpos = q_start[:, None].long() + torch.arange(sq, device=q.device)[None]
-    mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None, None]
+    vis = kpos[None, None, :] <= qpos[:, :, None]            # (B, Sq, K)
+    if window is not None:
+        vis &= kpos[None, None, :] > qpos[:, :, None] - window
+    mask = vis[:, None, None]
     qf = q.float().reshape(b, hkv, g, sq, d) * _scale(scale, d)
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k)
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.where(mask, torch.softmax(logits, dim=-1), 0.0)
-    frontier = kpos[None, :] <= qpos[:, -1:]        # (B, M*bs)
-    v = torch.where(frontier[:, None, :, None], v, 0.0)
+    v = torch.where(vis.any(dim=1)[:, None, :, None], v, 0.0)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v)
     return out.reshape(b, hq, sq, d).to(q.dtype)
 

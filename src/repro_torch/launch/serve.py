@@ -12,7 +12,8 @@ reference's default key, seed 0; see ``repro_torch.serving.sampling``), and
 ``--replicas N`` (N > 1) serves through the multi-replica cluster instead:
 N narrow engines behind a ``--router`` policy, sharing one KV block pool
 with preemption under pool pressure for the dense family (per-replica slot
-state for the hybrid family; ``repro_torch.serving.cluster``), stepped in
+state for the scan families, hybrid and ssm; ``repro_torch.serving.cluster``),
+stepped in
 one loop or, with ``--driver threaded``, a replica a thread (on the card a
 CUDA stream each; the same tokens), with ``--hysteresis`` the preemption
 cool-down.  ``--device`` (default ``cuda``) picks the device; ``--device
@@ -25,6 +26,14 @@ arithmetic intensity against the ridge, and the verdict counts (the
 reference prints that line only beside ``--metrics``).  A vlm arch
 (``--arch phi-3-vision-4.2b``) gets the reference's stub patches, one row
 of zeros a prompt, as its ``extra_inputs``.
+
+Every arch the port builds serves here (``--arch``; ``list_archs()``),
+among them gemma3-27b (5 sliding-window layers of 1024 to one global
+layer), yi-6b and xlstm-350m (the ssm family: dense slot layout only,
+prompts of at most 256 tokens or a multiple of 256).  gemma3's window
+shows only where a context passes it: at full size that needs
+``--cache-len`` past 1024 (the default 256 never reaches it), e.g.
+``--arch gemma3-27b --cache-len 2048``; its smoke config's window is 16.
 """
 from __future__ import annotations
 
@@ -112,7 +121,7 @@ def main(argv=None):
         if args.mode != "auto" or args.kv_layout != "dense":
             ap.error("--replicas > 1 always serves continuous and resolves "
                      "the KV layout per family (paged for the dense family, "
-                     "slot state for the hybrid family); drop "
+                     "slot state for the scan families); drop "
                      "--mode/--kv-layout")
     elif args.driver != "sequential":
         ap.error("--driver threaded needs a cluster (--replicas > 1); a "

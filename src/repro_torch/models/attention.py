@@ -180,7 +180,7 @@ def attn_decode(p, x, k_cache, v_cache, kv_len, rope, cfg, *, window=None,
 
 
 def attn_decode_paged(p, x, k_pool, v_pool, block_table, kv_len, rope, cfg,
-                      *, write_rows=None):
+                      *, window=None, write_rows=None):
     """One-token decode against one layer's paged pool, in place.
 
     x: (B, 1, D); k_pool/v_pool: (N, Hkv, bs, hd); block_table: (B, M)
@@ -190,8 +190,10 @@ def attn_decode_paged(p, x, k_pool, v_pool, block_table, kv_len, rope, cfg,
     ``write_rows`` (a (R,) index tensor, or None for every row) restricts
     the write to rows whose block column is inside the table: an idle slot
     whose position ran past ``M * bs`` writes nothing, as the reference's
-    out-of-range scatter drops it (``attention.py:198-204``).
-    Returns the attention output (B, 1, D)."""
+    out-of-range scatter drops it (``attention.py:198-204``).  ``window``
+    (a local layer's sliding window) sends the read to the gather path
+    (``ops.paged_decode_attention``).  Returns the attention output
+    (B, 1, D)."""
     bs = k_pool.shape[2]
     q, k, v = _project_decode_qkv(p, x, rope, cfg)
     col = (kv_len // bs).long()
@@ -207,12 +209,12 @@ def attn_decode_paged(p, x, k_pool, v_pool, block_table, kv_len, rope, cfg,
     k_pool[blk, :, off] = k_new
     v_pool[blk, :, off] = v_new
     out = ops.paged_decode_attention(q.contiguous(), k_pool, v_pool,
-                                     block_table, kv_len + 1)
+                                     block_table, kv_len + 1, window=window)
     return _out_proj(p, out)
 
 
 def attn_prefill_paged(p, x, cfg, k_pool, v_pool, bt_row, chunk, q_start,
-                       rope):
+                       rope, *, window=None):
     """One ``block_size`` chunk of a paged prefill, in place.
 
     x: (1, bs, D), the chunk's hidden states at absolute positions
@@ -223,6 +225,7 @@ def attn_prefill_paged(p, x, cfg, k_pool, v_pool, bt_row, chunk, q_start,
     written into pool block ``bt_row[chunk]`` first, then the chunk's
     queries attend causally over blocks ``0..chunk`` through the table —
     on the same stream, so the kernel reads what was just written.
+    ``window``: a local layer's sliding window (the gather path).
     Returns the attention output (1, bs, D)."""
     b, s, _ = x.shape
     bs = k_pool.shape[2]
@@ -236,5 +239,5 @@ def attn_prefill_paged(p, x, cfg, k_pool, v_pool, bt_row, chunk, q_start,
     k_pool.index_copy_(0, blk, k)
     v_pool.index_copy_(0, blk, v)
     out = ops.paged_prefill_attention(q.contiguous(), k_pool, v_pool,
-                                      bt_row[None], q_start)
+                                      bt_row[None], q_start, window=window)
     return _out_proj(p, out)

@@ -44,18 +44,50 @@ def leaf_path(path: tuple[str, ...]) -> str:
     return "".join(f"[{k!r}]" for k in path)
 
 
+# the most elements one draw makes: a leaf larger than this is drawn in
+# runs of whole rows along axis 0 (layers, for a stacked leaf), each scaled
+# in place and cast into the leaf, so the fp32 transient stays at 1 GiB
+# however large the leaf (gemma3-27b's stacked MLP holds 7.2e9 elements)
+INIT_CHUNK_ELEMS = 1 << 28
+
+
+def _draw_rows(shape, draw, finish, device, dtype) -> torch.Tensor:
+    """A leaf of ``shape`` in ``dtype`` from fp32 draws: ``draw(shape)``
+    makes a run of rows, ``finish(x)`` maps it to the leaf's values (in
+    place where it can) before the cast."""
+    n = math.prod(shape)
+    if n <= INIT_CHUNK_ELEMS or len(shape) < 2:
+        return finish(draw(shape)).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, INIT_CHUNK_ELEMS // (n // shape[0]))
+    for lo in range(0, shape[0], rows):
+        hi = min(lo + rows, shape[0])
+        out[lo:hi].copy_(finish(draw((hi - lo,) + tuple(shape[1:]))))
+    return out
+
+
 def _init_leaf(t: PT, gen: torch.Generator, device, dtype) -> torch.Tensor:
     dtype = t.dtype or dtype
     if t.init == "zeros":
         return torch.zeros(t.shape, dtype=dtype, device=device)
     if t.init == "ones":
         return torch.ones(t.shape, dtype=dtype, device=device)
-    if t.init in ("ssm_dt", "ssm_a"):
-        u = torch.rand(t.shape, generator=gen, dtype=torch.float32,
-                       device=device)
-        if t.init == "ssm_dt":    # dt bias: softplus^-1 of U(0.001, 0.1)
-            return torch.log(torch.expm1(0.001 + 0.099 * u)).to(dtype)
-        return torch.log(1.0 + 15.0 * u).to(dtype)    # a_log: log U(1, 16)
+
+    def uniform(shape):
+        return torch.rand(shape, generator=gen, dtype=torch.float32,
+                          device=device)
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device)
+
+    if t.init == "ssm_dt":      # dt bias: softplus^-1 of U(0.001, 0.1)
+        return _draw_rows(t.shape, uniform,
+                          lambda u: torch.log(torch.expm1(0.001 + 0.099 * u)),
+                          device, dtype)
+    if t.init == "ssm_a":       # a_log: log U(1, 16)
+        return _draw_rows(t.shape, uniform,
+                          lambda u: torch.log(1.0 + 15.0 * u), device, dtype)
     if t.init == "scaled":     # fan-in scaled normal
         fan_in = t.shape[-2] if len(t.shape) >= 2 else t.shape[-1]
         std = t.scale if t.scale is not None else 1.0 / math.sqrt(fan_in)
@@ -63,9 +95,7 @@ def _init_leaf(t: PT, gen: torch.Generator, device, dtype) -> torch.Tensor:
         std = t.scale if t.scale is not None else 0.02
     else:
         raise ValueError(f"init scheme {t.init!r} is not ported")
-    x = torch.randn(t.shape, generator=gen, dtype=torch.float32,
-                    device=device)
-    return (x * std).to(dtype)
+    return _draw_rows(t.shape, normal, lambda x: x.mul_(std), device, dtype)
 
 
 def init_params(templates: dict, seed: int, *, device,
@@ -76,7 +106,9 @@ def init_params(templates: dict, seed: int, *, device,
     (as ``repro/models/layers.py::init_params`` folds the crc32 into its
     key), never from ``hash()``, so "same seed, same params" holds across
     processes.  The values differ from the reference's (another generator);
-    parity tests carry the reference's weights over the bridge instead."""
+    parity tests carry the reference's weights over the bridge instead.
+    A leaf past ``INIT_CHUNK_ELEMS`` elements is drawn in runs of rows, so
+    the peak stays near the weights themselves at any width."""
     out = {}
     for k, v in templates.items():
         path = _path + (k,)

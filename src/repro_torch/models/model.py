@@ -1,5 +1,5 @@
-"""Family dispatch: the port's ``Model`` API, dense, moe, vlm and hybrid
-families.
+"""Family dispatch: the port's ``Model`` API, dense, moe, vlm, hybrid and
+ssm families.
 
 The counterpart of ``repro/models/model.py``.  A ``Model`` exposes the
 serving hooks the engine drives:
@@ -28,7 +28,8 @@ families, whose state is O(1) per slot and has no block pool):
 Two layout flags steer the engine's bookkeeping:
 
   bounded_cache        - ``cache_len`` bounds a request's cache writes (KV
-                         strips).  False for hybrid (recurrent state plus a
+                         strips).  False for the scan families: ssm (state
+                         O(1) in context) and hybrid (recurrent state plus a
                          ring that wraps): the engine skips the budget check.
   supports_prefill_len - the prefill takes ``batch["prefill_len"]`` for
                          right-padded (bucketed) prompts.  A scan prefill
@@ -36,8 +37,9 @@ Two layout flags steer the engine's bookkeeping:
                          refuses ``bucket=`` for it.
 
 moe and vlm share the dense family's hooks (``models.transformer``); a
-vlm prefill also takes ``batch["patches"]``.  The other families (ssm,
-encdec) raise ``NotImplementedError`` until their slices are ported.
+vlm prefill also takes ``batch["patches"]``.  ssm (xlstm,
+``models.xlstm_lm``) and hybrid are the scan families: slot hooks only.
+encdec raises ``NotImplementedError`` until its slice is ported.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from . import hybrid, transformer
+from . import hybrid, transformer, xlstm_lm
 from .layers import init_params, param_count
 
 
@@ -106,7 +108,18 @@ def build_model(cfg: ModelConfig) -> Model:
             bounded_cache=False,    # O(1) state + a wrapping attention ring
             supports_prefill_len=False,
         )
+    if cfg.family == "ssm":
+        return Model(
+            cfg, xlstm_lm.xlstm_templates(cfg),
+            functools.partial(xlstm_lm.xlstm_prefill, cfg=cfg),
+            functools.partial(xlstm_lm.xlstm_decode_step, cfg=cfg),
+            xlstm_lm.xlstm_cache_expand,
+            xlstm_lm.xlstm_cache_slot_write,
+            cache_slot_reset=xlstm_lm.xlstm_cache_slot_reset,
+            bounded_cache=False,    # the state does not grow with context
+            supports_prefill_len=False,
+        )
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}) is not ported yet; the port "
-        "builds the dense, moe, vlm and hybrid families (ssm and encdec are "
+        "builds the dense, moe, vlm, hybrid and ssm families (encdec is "
         "still to come)")

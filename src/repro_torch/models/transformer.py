@@ -11,6 +11,16 @@ concatenates them (``embed_input``) and a paged chunk takes a patch row at
 every position below ``n_patches`` (``_embed_chunk``); positions, the
 cache and ``pos`` count them.
 
+gemma3's 5:1 local:global pattern is a per-layer window
+(``layer_window``): a local layer attends over its last ``local_window``
+positions, a global layer gets ``window=None`` (the reference's
+``_BIG_WINDOW``, a window past any context: the same mask, and the hand
+kernels keep their unwindowed fast path).  Every serving body passes the
+layer's window to its attention: the dense prefill to the flash kernel,
+dense decode to ``ops.decode_attention``, and the paged chunk and decode to
+``ops.paged_*_attention``, where a window takes the reference's gather
+path.
+
 A Python loop over the layers takes the place of ``lax.scan``.  The dense
 cache is a dict ``{"k"/"v": (L, B, Hkv, W, hd), "pos": 0-d or (B,) int32}``
 and the paged cache ``{"kp"/"vp": (L, N, Hkv, bs, hd), "bt": (B, M) int32,
@@ -166,7 +176,8 @@ def decoder_prefill(params, batch, cfg, *, cache_len=None):
 
     def attn(i):
         def run(p, h):
-            out, (kc, vc) = attn_prefill(p, h, cfg, rope, cache_len=cache_len)
+            out, (kc, vc) = attn_prefill(p, h, cfg, rope, cache_len=cache_len,
+                                         window=cfg.layer_window(i))
             k_all[i], v_all[i] = kc, vc
             return out
         return run
@@ -201,9 +212,10 @@ def decoder_decode_step(params, cache, tokens, cfg):
     rope = _rope((pos.expand(b) if pos.dim() == 0 else pos)[:, None], cfg)
     for i in range(cfg.n_layers):
         kc, vc = cache["k"][i], cache["v"][i]
+        w = cfg.layer_window(i)
         x = _block(layer_params(params, i), x, cfg,
-                   lambda p, h: attn_decode(p, h, kc, vc, pos, rope,
-                                            cfg)[0])
+                   lambda p, h: attn_decode(p, h, kc, vc, pos, rope, cfg,
+                                            window=w)[0])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _lm_logits(params, x[:, -1], cfg)
     cache["pos"] = pos + 1
@@ -294,9 +306,11 @@ def decoder_prefill_paged(params, pcache, batch, slot: int, chunk: int,
     rope = _rope(torch.arange(q_start, q_start + bs, device=dev), cfg)
     for i in range(cfg.n_layers):
         kp, vp = pcache["kp"][i], pcache["vp"][i]
+        w = cfg.layer_window(i)
         x = _block(layer_params(params, i), x, cfg,
                    lambda p, h: attn_prefill_paged(p, h, cfg, kp, vp, bt_row,
-                                                   chunk, qs, rope))
+                                                   chunk, qs, rope,
+                                                   window=w))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     last = min(max(prefill_len - 1 - q_start, 0), bs - 1)
     pcache["pos"][slot] = min(q_start + bs, prefill_len)
@@ -320,9 +334,10 @@ def decoder_decode_step_paged(params, pcache, tokens, cfg):
     rope = _rope(pos[:, None], cfg)
     for i in range(cfg.n_layers):
         kp, vp = pcache["kp"][i], pcache["vp"][i]
+        w = cfg.layer_window(i)
         x = _block(layer_params(params, i), x, cfg,
                    lambda p, h: attn_decode_paged(p, h, kp, vp, bt, pos,
-                                                  rope, cfg,
+                                                  rope, cfg, window=w,
                                                   write_rows=write_rows))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _lm_logits(params, x[:, -1], cfg)

@@ -34,7 +34,21 @@ computes them:
   ``ssd_step_xla``); in prefill the SSD scan's four chunk products of
   ``ssd_xla`` at chunk 64 (C.B^T, the masked scores into dt x, C into the
   carried state, the state update); and the shared attention block after
-  every ``shared_attn_every`` layers.
+  every ``shared_attn_every`` layers;
+* ssm (xlstm): every block's projections (the mLSTM up, per-head q / k /
+  v, the two gate columns and down; the sLSTM gates, recurrence and out)
+  on every token; the sLSTM recurrence ``4 H dh^2`` once a token (the
+  reference's token scan, its trip count read off the loop); in prefill
+  the mLSTM chunk products of ``_mlstm_chunk`` at chunk ``min(256, S)``
+  (scores, scores into V, q into the carried C and n, the C and n
+  updates), one chunk's worth for each of the S / chunk chunks; in decode
+  the conv taps (a contraction in ``*_block_decode``, elementwise in the
+  prefill), and ``mlstm_step``'s read-out of C and n (its k v^T update is
+  an outer product, which the HLO count does not take as a product);
+* gemma3's sliding windows change no flops: the reference masks a window
+  with a traced per-layer scalar, so its flash path skips no key chunk for
+  it, and its paged gather paths walk the whole table as the kernels'
+  count does.
 
 **Bytes are the port's own count** (the HLO count adds every fusion's
 operands and results, about 12x the compulsory traffic of a smoke decode
@@ -49,7 +63,10 @@ them on chip), and so is the fp32 copy of the LM head weight that
 width that copy writes and reads 622 MB, so the port's own traffic in a
 decode step is about twice this count.  The KV extents are the flops': the
 card's kernels stop at each row's length, so for a decode step the count
-bounds their reads from above.
+bounds their reads from above (gemma3's local layers read the same
+extents: the dense decode and the paged gather path mask the window but
+read the whole cache).  xlstm's state (the conv tails and the fp32 cells)
+is read and written once a decode step and written once a prefill.
 """
 from __future__ import annotations
 
@@ -63,6 +80,7 @@ from ..configs.base import ModelConfig
 from ..models import build_model
 from ..models.mamba2 import mamba_dims
 from ..models.transformer import n_prefix
+from ..models.xlstm import CHUNK as MLSTM_CHUNK
 
 SSD_CHUNK = 64       # the reference's ssd_xla chunk
 FLASH_CHUNK = 1024   # the reference's attention_xla row and key chunks
@@ -165,11 +183,42 @@ def ring_width(cfg, cache_len: int) -> int:
     return min(cache_len, cfg.local_window or cache_len)
 
 
+def _xlstm_dims(cfg):
+    """(n mLSTM blocks, n sLSTM blocks, d, di, H, mLSTM head dim, sLSTM
+    head dim) of an xlstm config (projection factor 2, as the templates)."""
+    k = cfg.slstm_every
+    n_groups = cfg.n_layers // k
+    d, h = cfg.d_model, cfg.n_heads
+    return (n_groups * (k - 1), n_groups, d, 2 * d, h, 2 * d // h, d // h)
+
+
+XLSTM_CONV = 4       # the blocks' causal conv taps (``d_conv``)
+
+
+def _xlstm_token_macs(cfg) -> int:
+    """Per token, every block: the projections and the sLSTM recurrence."""
+    n_m, n_s, d, di, h, dh, dhs = _xlstm_dims(cfg)
+    mlstm = d * 2 * di + 3 * h * dh * dh + 2 * di * h + di * d
+    slstm = d * 4 * d + d * d + 4 * h * dhs * dhs
+    return n_m * mlstm + n_s * slstm
+
+
+def _xlstm_state_bytes(cfg, elem: int) -> int:
+    """One slot's xlstm state: the conv tails in the weights' dtype and
+    the fp32 cells (mLSTM C, n, m; sLSTM c, n, h, m)."""
+    n_m, n_s, d, di, h, dh, dhs = _xlstm_dims(cfg)
+    tails = (XLSTM_CONV - 1) * elem
+    return (n_m * (tails * di + 4 * (h * dh * dh + h * dh + h))
+            + n_s * (tails * d + 4 * 4 * h * dhs))
+
+
 def decode_keys(cfg, layout: str, cache_len: int,
                 block_size: int | None = None) -> int:
     """Keys a decode row attends over in the reference's count."""
     if cfg.family == "hybrid":
         return ring_width(cfg, cache_len)
+    if cfg.family == "ssm":
+        return 0
     if layout == "paged":
         return -(-cache_len // block_size) * block_size
     return cache_len
@@ -194,6 +243,12 @@ def decode(cfg, *, batch: int, keys: int,
         # fp32 SSM state and the conv tail, each read and written
         kv += cfg.n_layers * 2 * (state * 4 + (dims.d_conv - 1)
                                   * dims.conv_dim * elem)
+    elif cfg.family == "ssm":
+        n_m, n_s, d, di, h, dh, _ = _xlstm_dims(cfg)
+        macs = (_xlstm_token_macs(cfg)
+                + n_m * (XLSTM_CONV * di + h * dh * dh + h * dh)
+                + n_s * XLSTM_CONV * d + head)
+        kv = 2 * _xlstm_state_bytes(cfg, elem)
     else:
         macs = cfg.n_layers * (_block_macs(cfg) + _attn_macs(cfg, keys)) \
             + head
@@ -226,6 +281,13 @@ def prefill(cfg, *, seq: int, cache_len: int | None = None,
                    * min(seq, w)
                    + cfg.n_layers * (hs * p * n * 4 + (dims.d_conv - 1)
                                      * dims.conv_dim * elem))
+    elif cfg.family == "ssm":
+        n_m, _, _, _, h, dh, _ = _xlstm_dims(cfg)
+        q = min(MLSTM_CHUNK, seq)
+        chunks = -(-seq // q) * (2 * h * q * q * dh + 2 * h * q * dh * dh
+                                 + 2 * h * q * dh)
+        macs = seq * _xlstm_token_macs(cfg) + n_m * chunks + head
+        written = _xlstm_state_bytes(cfg, elem)
     else:
         macs = (cfg.n_layers * (seq * _block_macs(cfg) + attn) + head
                 + _patch_macs(cfg))

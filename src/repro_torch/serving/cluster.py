@@ -19,9 +19,10 @@ analog:
   policy-independent, and sampled streams are keyed by request id, not by
   slot or replica (``engine._sample_rows``).
 
-* the dense family serves through the **paged** KV layout; the hybrid
-  family has no block pool to share (its per-slot recurrent state is O(1)
-  per request), so its replicas run the **dense slot layout**
+* the dense family serves through the **paged** KV layout; the scan
+  families (hybrid, ssm) have no block pool to share (their per-slot
+  recurrent state is O(1) per request), so their replicas run the **dense
+  slot layout**
   (``kv_layout="auto"`` resolves per family).  Only the pool-pressure
   machinery below is paged-specific.
 
@@ -113,7 +114,7 @@ class ClusterEngine:
     replicas / total_slots: replica count and the summed slot budget
     (``total_slots % replicas == 0``); each replica runs the continuous
     scheduler.  kv_layout: "auto" (paged when the family has paged hooks,
-    else the dense slot layout - the hybrid family), "paged", or "dense".
+    else the dense slot layout - the scan families), "paged", or "dense".
     block_size / n_blocks size the shared pool (paged only) - n_blocks
     defaults to the dense footprint of the whole cluster (total_slots *
     cache_len positions) plus the null block.  router: one of

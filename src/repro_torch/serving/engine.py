@@ -49,7 +49,7 @@ blocks instead of recomputing them.  A request whose whole prefill is
 covered re-runs its final chunk (its logits seed the first token) behind a
 **copy-on-write** barrier (``_cow_block``).
 
-Scan families (hybrid) serve on the dense slot layout only: a prefill
+Scan families (hybrid, ssm) serve on the dense slot layout only: a prefill
 folds every position into recurrent state, so ``bucket=`` is refused, and
 there is no block pool to page.  A freed slot's state is zeroed
 (``model.cache_slot_reset``), and a preempted request resumes by *replay*
@@ -619,7 +619,8 @@ class ServeEngine:
         """Every position written past prefill must fit ``cache_len``: the
         per-slot strip length (dense) or the block table's width (paged).
         A family whose state is unbounded in context (``model.bounded_cache``
-        False: hybrid's recurrent state and wrapping ring) has no budget."""
+        False: the scan families' recurrent state, hybrid's wrapping ring)
+        has no budget."""
         if not self.model.bounded_cache:
             return
         writes = prefill_pos + max(max_new - 1, 0)

@@ -11,11 +11,13 @@ and ``repro_torch.roofline``) held against the reference's
 * the port's analytic flops equal to the reference's HLO-derived
   ``phase_cost`` flops for every key the reference records on the same
   smoke traces (qwen3 paged and dense, zamba2 dense, granite-moe,
-  qwen3-moe and phi-3-vision (stub patches) paged and dense, a two-replica
+  qwen3-moe, phi-3-vision (stub patches) and gemma3 paged and dense,
+  xlstm dense, also at prompts of one and two mLSTM chunks, a two-replica
   cluster), with the same key sets;
 * the port's bytes against one case computed by hand;
 * the engine, the cluster (one attributor shared by the replicas, under
-  both drivers) and ``--attribution`` on the CPU: tokens unchanged, every
+  both drivers) and ``--attribution`` on the CPU (gemma3, yi and xlstm
+  too): tokens unchanged, every
   decode step given a verdict, ``0 < fu_utilization < 1``;
 * the engine's card branch, driven on the CPU by fake event spans and a
   fake driver hook: the issue / device / lock-wait split of a decode step
@@ -350,6 +352,20 @@ REF_FLOPS = {
         ("prefill", "phi-3-vision-smoke", 4): 2105344,
         ("prefill", "phi-3-vision-smoke", 5): 2281984,
         ("prefill", "phi-3-vision-smoke", 6): 2459648},
+    # gemma3's windows change no count (a traced window skips no chunk)
+    ("gemma3-27b", "paged", 48): {
+        ("decode", "paged", "gemma3-smoke", 3): 1646592,
+        ("prefill_chunk", "gemma3-smoke", 8): 3670016},
+    ("gemma3-27b", "dense", 48): {
+        ("decode", "dense", "gemma3-smoke", 3): 1646592,
+        ("prefill", "gemma3-smoke", 4): 1826816,
+        ("prefill", "gemma3-smoke", 5): 2283008,
+        ("prefill", "gemma3-smoke", 6): 2742272},
+    ("xlstm-350m", "dense", 48): {
+        ("decode", "dense", "xlstm-smoke", 3): 1147392,
+        ("prefill", "xlstm-smoke", 4): 1568768,
+        ("prefill", "xlstm-smoke", 5): 1957888,
+        ("prefill", "xlstm-smoke", 6): 2349056},
     ("zamba2-1.2b", "dense", 48): {
         ("decode", "dense", "zamba2-smoke", 3): 1328640,
         ("prefill", "zamba2-smoke", 4): 1622016,
@@ -392,6 +408,27 @@ def test_cluster_shares_one_memo(driver):
     lock = cl.last_metrics.histogram("attr_contention_ms")
     assert lock.count == (s.decode_steps if driver == "threaded" else 0)
     assert all(v >= 0 for v in lock.samples)
+
+
+def test_xlstm_chunked_prefill_flops_equal_reference():
+    """Prompts of one mLSTM chunk (256) and of two (512): the reference
+    counts each chunk's products once a chunk and the sLSTM recurrence
+    once a token, and so does the port."""
+    cfg = ref_smoke("xlstm-350m")
+    model = ref_build(cfg)
+    at = RefAttributor(spec=REF_SPEC)
+    eng = RefServeEngine(model, model.init(jax.random.key(0)), max_batch=2,
+                         cache_len=CACHE_LEN, attribution=at)
+    eng.generate([RefRequest(list(range(n)), 2, rid=i)
+                  for i, n in enumerate((512, 256))])
+    ref = {k: c.flops for k, c in at._costs.items()}
+    assert ref == {("prefill", "xlstm-smoke", 512): 328761344,
+                   ("prefill", "xlstm-smoke", 256): 164397056,
+                   ("decode", "dense", "xlstm-smoke", 2): 764928}
+    port = smoke_config("xlstm-350m")
+    for key, flops in ref.items():
+        assert roofline_cost.phase_cost(port, key,
+                                        cache_len=CACHE_LEN).flops == flops
 
 
 def test_flash_pairs_past_one_chunk():
@@ -580,6 +617,28 @@ def test_card_split_with_fake_spans(smoke, layout, stream_s, lock_s, want):
     useful = (sum(m.histogram("attr_step_flops").samples)
               + sum(m.histogram("attr_prefill_flops").samples))
     assert s.achieved_flops_per_s == pytest.approx(useful / busy_s)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "yi-6b", "xlstm-350m"])
+def test_cli_attribution_on_the_new_archs(arch):
+    """``--attribution`` on gemma3, yi and xlstm: one attribution line,
+    and the tokens the same as without it."""
+    outs = []
+    for extra in ([], ["--attribution"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                            "--max-new", "4", *extra])
+        outs.append(buf.getvalue().splitlines())
+    attr = [ln for ln in outs[1] if ln.startswith("[metrics] attribution ")]
+    assert len(attr) == 1, outs[1]
+    fields = dict(kv.split("=", 1) for kv in attr[0].split()[2:]
+                  if "=" in kv and not kv.startswith("verdicts"))
+    assert 0.0 < float(fields["fu_utilization"]) < 1.0
+
+    def tokens(lines):
+        return [ln.split("tokens=")[-1] for ln in lines if "tokens=" in ln]
+    assert tokens(outs[0]) == tokens(outs[1]) and tokens(outs[0])
 
 
 def test_hybrid_engine_attribution():

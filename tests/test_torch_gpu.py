@@ -1467,3 +1467,150 @@ def test_granite_fp32_paged_equals_dense_on_card(cuda):
         toks.append([r.tokens for r in eng.generate(
             [Request(p, 16, rid=i) for i, p in enumerate(prompts)])])
     assert toks[0] == toks[1] == toks[2]
+
+
+# ---------------------------------------------------------------------------
+# gemma3's sliding windows and the ssm family on the card.
+# ---------------------------------------------------------------------------
+
+GEMMA3_WINDOW = 1024
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("sq,sk", [(1024, 1024), (1025, 1025),
+                                   (1800, 1800), (600, 1800)])
+@pytest.mark.parametrize("window", [GEMMA3_WINDOW, None])
+def test_flash_at_gemma3_shape(cuda, window, sq, sk, dtype, tol):
+    """gemma3-27b's prefill shape, Hq 32 / Hkv 16 (g 2), D 128: causal,
+    with its local layers' window of 1024 and without (a global layer), at
+    S up to its longest served prompt and with Sq < Sk; each call on its
+    dtype's route."""
+    q, k, v = _flash_qkv(21, cuda, dtype, b=1, hq=32, g=2, sq=sq, sk=sk,
+                         d=128)
+    route = fa.route(dtype, 128)[0]
+    n0, r0 = fa.LAUNCHES["flash_attention"], fa.ROUTES[route]
+    got = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
+    assert fa.LAUNCHES["flash_attention"] == n0 + 1
+    assert fa.ROUTES[route] == r0 + 1
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("sq,sk", [(1800, 1800), (600, 1800)])
+def test_flash_window_plant_fails_the_tolerance(cuda, sq, sk):
+    """The window is honoured: the kernel at window 1024 held against the
+    plain version at window 1023 (one key fewer a row past the window) is
+    outside the bf16 tolerance, where hundreds of query rows lie past the
+    window (at S 1025 only two rows lose a key, too few to fail it)."""
+    q, k, v = _flash_qkv(22, cuda, torch.bfloat16, b=1, hq=32, g=2, sq=sq,
+                         sk=sk, d=128)
+    got = fa.flash_attention_cuda(q, k, v, causal=True,
+                                  window=GEMMA3_WINDOW)
+    planted = fa.flash_attention_plain(q, k, v, causal=True,
+                                       window=GEMMA3_WINDOW - 1)
+    assert not torch.allclose(got.float(), planted.float(), rtol=1e-2,
+                              atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_paged_kernels_at_gemma3_shape(cuda, dtype, tol):
+    """Both paged kernels at gemma3's global layers' shape (Hq 32 / Hkv 16,
+    D 128, block size 64, a table of 32 blocks: cache_len 2048) against
+    their plain versions, NaN planted where neither may read; and the
+    gather path (a local layer's route) with a window past every position
+    against the kernels, at the same tolerance."""
+    lens = [7, 64, 333, 900, 1024, 1025, 1100, 1800]
+    q, kp, vp, bt, kv = _decode_nan_case(23, lens, hq=32, hkv=16, d=128,
+                                         bs=64, m=32, dtype=dtype, dev=cuda)
+    got = pa.paged_decode_attention_cuda(q, kp, vp, bt, kv)
+    want = pa.paged_decode_attention_plain(q, kp, vp, bt, kv)
+    wide = pa.paged_decode_attention_plain(q, kp, vp, bt, kv, window=4096)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(wide.float(), got.float(), rtol=tol, atol=tol)
+    for starts in ([0], [1024], [1792], [64, 960, 1536]):
+        q, kp, vp, bt, qs = _prefill_nan_case(24, starts, hq=32, hkv=16,
+                                              d=128, bs=64, m=32,
+                                              dtype=dtype, dev=cuda)
+        got = pa.paged_prefill_attention_cuda(q, kp, vp, bt, qs)
+        want = pa.paged_prefill_attention_plain(q, kp, vp, bt, qs)
+        wide = pa.paged_prefill_attention_plain(q, kp, vp, bt, qs,
+                                                window=4096)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(wide.float(), got.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_gemma3_fp32_paged_equals_dense_on_card(cuda):
+    """A narrow fp32 copy of gemma3-27b (6 layers, one 5:1 group, its
+    window of 1024, d_model 128) served on the card, paged at block size 64
+    and dense continuous, prompts past the window: the greedy tokens agree
+    row for row; paged launches its kernels on the global layer only
+    (the local ones take the gather path), dense flash on every layer."""
+    cfg = dataclasses.replace(get_config("gemma3-27b"), n_layers=6,
+                              d_model=128, d_ff=256, n_heads=4,
+                              n_kv_heads=2, vocab_size=1000)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda, dtype=torch.float32)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 1000, n).tolist()
+               for n in (7, 333, 1000, 1100)]
+    toks = {}
+    for layout, kw in (("paged", dict(kv_layout="paged", block_size=64)),
+                       ("dense", {})):
+        pa.reset_launches()
+        fa.reset_launches()
+        eng = ServeEngine(model, params, max_batch=4, cache_len=1152, **kw)
+        toks[layout] = [r.tokens for r in eng.generate(
+            [Request(p, 40, rid=i) for i, p in enumerate(prompts)])]
+        if layout == "paged":
+            chunks = sum(-(-len(p) // 64) for p in prompts)
+            assert pa.LAUNCHES["paged_prefill_attention"] == chunks
+            assert pa.LAUNCHES["paged_decode_attention"] == \
+                eng.last_stats.decode_steps
+            assert fa.LAUNCHES["flash_attention"] == 0
+        else:
+            assert fa.LAUNCHES["flash_attention"] == 6 * len(prompts)
+    assert toks["paged"] == toks["dense"]
+
+
+def test_xlstm_on_card_matches_cpu(cuda):
+    """A narrow fp32 copy of xlstm-350m (6 layers: 5 mLSTM blocks and an
+    sLSTM block, d_model 128): first-token logits on the card within 1e-4
+    of the CPU's at prompts of one and two mLSTM chunks, the greedy tokens
+    of continuous serving equal, and lockstep on a uniform trace equal to
+    continuous."""
+    cfg = dataclasses.replace(get_config("xlstm-350m"), n_layers=6,
+                              d_model=128, vocab_size=1000)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    on_card = _params_on(params, cuda)
+    rng = np.random.default_rng(8)
+    for n in (64, 512):
+        toks = torch.from_numpy(rng.integers(0, 1000, (1, n)).astype(
+            np.int32))
+        want = model.prefill(params, {"tokens": toks})[0]
+        got = model.prefill(on_card, {"tokens": toks.to(cuda)})[0].cpu()
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+    prompts = [rng.integers(0, 1000, n).tolist() for n in (7, 33, 256, 512)]
+    reqs = [Request(p, 12, rid=i) for i, p in enumerate(prompts)]
+    want = [r.tokens for r in ServeEngine(model, params, max_batch=2,
+                                          cache_len=64).generate(reqs)]
+    got = [r.tokens for r in ServeEngine(model, on_card, max_batch=2,
+                                         cache_len=64).generate(reqs)]
+    assert got == want
+    uniform = [Request(rng.integers(0, 1000, 64).tolist(), 8, rid=i)
+               for i in range(4)]
+    cont, lock = (ServeEngine(model, on_card, max_batch=4, cache_len=64,
+                              mode=m).generate(uniform)
+                  for m in ("continuous", "lockstep"))
+    assert [r.tokens for r in cont] == [r.tokens for r in lock]

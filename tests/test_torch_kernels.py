@@ -321,8 +321,9 @@ def test_torch_oracle_matches_reference_oracle():
 
 
 def test_ops_dispatch_by_device():
-    """CPU tensors take the plain version; a window raises (gemma3's slice);
-    a device that is neither CPU nor CUDA raises; the CUDA wrappers refuse
+    """CPU tensors take the plain version; a window takes the gather path
+    (as the reference routes it, on every device) and counts no launch; a
+    device that is neither CPU nor CUDA raises; the CUDA wrappers refuse
     CPU tensors rather than falling back, and count no launch."""
     _, t = _decode(10, [64, 23, 17])
     _close(ops.paged_decode_attention(*t),
@@ -330,13 +331,14 @@ def test_ops_dispatch_by_device():
     _, tp = _prefill(10, [24, 8, 0])
     _close(ops.paged_prefill_attention(*tp),
            pa.paged_prefill_attention_plain(*tp).numpy())
-    with pytest.raises(NotImplementedError, match="window"):
-        ops.paged_decode_attention(*t, window=8)
-    with pytest.raises(NotImplementedError, match="window"):
-        ops.paged_prefill_attention(*tp, window=8)
+    before, routes = dict(pa.LAUNCHES), dict(pa.ROUTES)
+    _close(ops.paged_decode_attention(*t, window=8),
+           pa.paged_decode_attention_plain(*t, window=8).numpy())
+    _close(ops.paged_prefill_attention(*tp, window=8),
+           pa.paged_prefill_attention_plain(*tp, window=8).numpy())
+    assert pa.LAUNCHES == before and pa.ROUTES == routes
     with pytest.raises(ValueError, match="meta"):
         ops.paged_decode_attention(*[x.to("meta") for x in t])
-    before, routes = dict(pa.LAUNCHES), dict(pa.ROUTES)
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_decode_attention_cuda(*t)
     with pytest.raises(ValueError, match="CUDA"):

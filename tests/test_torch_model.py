@@ -3,10 +3,13 @@
 by the bridge, chunk-by-chunk paged prefill and then paged decode, logits
 compared at every call.
 
-Two configs: qwen3's ``SMOKE``, and a narrow copy of the real config
+Configs: qwen3's ``SMOKE``, and a narrow copy of the real config
 (``CONFIG`` with 2 layers, d_model 128, d_ff 256, vocab 1000), which keeps
 what ``SMOKE`` hides — 16/8 heads of head_dim 128 (Hq * hd != d_model),
-tied embeddings, rope_theta 1e6 and a padded vocab.
+tied embeddings, rope_theta 1e6 and a padded vocab; yi-6b's ``SMOKE``
+(GQA 8/2 of head_dim 8, no qk-norm); gemma3-27b's ``SMOKE`` (6 layers, five
+of window 16 to one global, qk-norm, a logit softcap), whose 21-token
+prompt and decode run past the window.
 
 Tolerances: with fp32-cast weights, atol = rtol = 1e-4 (same math, other
 summation orders).  With bf16 weights, |err| <= 4% of the logits' scale:
@@ -34,6 +37,8 @@ CONFIGS = {
     "smoke": (ref_smoke("qwen3-0.6b"), smoke_config("qwen3-0.6b")),
     "narrow-real": (dataclasses.replace(ref_get("qwen3-0.6b"), **NARROW),
                     dataclasses.replace(get_config("qwen3-0.6b"), **NARROW)),
+    "yi-smoke": (ref_smoke("yi-6b"), smoke_config("yi-6b")),
+    "gemma3-smoke": (ref_smoke("gemma3-27b"), smoke_config("gemma3-27b")),
 }
 BS, M, B, N = 8, 8, 2, 20
 
@@ -118,15 +123,17 @@ def test_bridge_carries_bf16_bits_and_rejects_mismatches():
 
 
 def test_registry_and_templates_match_reference():
-    """The port builds the dense archs qwen3-0.6b and qwen2.5-3b, the
-    hybrid zamba2-1.2b, the moe archs granite-moe-1b-a400m and
-    qwen3-moe-235b-a22b and the vlm phi-3-vision-4.2b, with the
-    reference's configs and the reference's param trees (names, shapes and
-    leaf dtypes: the moe router stays fp32) at full width.  The families
-    still to port raise."""
-    assert list_archs() == ["granite-moe-1b-a400m", "phi-3-vision-4.2b",
-                            "qwen2.5-3b", "qwen3-0.6b",
-                            "qwen3-moe-235b-a22b", "zamba2-1.2b"]
+    """The port builds the dense archs qwen3-0.6b, qwen2.5-3b, yi-6b and
+    gemma3-27b, the hybrid zamba2-1.2b, the ssm xlstm-350m, the moe archs
+    granite-moe-1b-a400m and qwen3-moe-235b-a22b and the vlm
+    phi-3-vision-4.2b, with the reference's configs and the reference's
+    param trees (names, shapes and leaf dtypes: the moe router and the
+    xlstm gates stay fp32) at full width.  encdec, the family still to
+    port, raises."""
+    assert list_archs() == ["gemma3-27b", "granite-moe-1b-a400m",
+                            "phi-3-vision-4.2b", "qwen2.5-3b", "qwen3-0.6b",
+                            "qwen3-moe-235b-a22b", "xlstm-350m", "yi-6b",
+                            "zamba2-1.2b"]
 
     def shapes(t, f):
         return {k: shapes(v, f) if isinstance(v, dict) else f(v)
@@ -144,10 +151,9 @@ def test_registry_and_templates_match_reference():
             == shapes(ref_model.templates,
                       lambda t: t.dtype == jnp.float32)
         assert model.n_params == ref_model.n_params
-    for family in ("ssm", "encdec"):
-        with pytest.raises(NotImplementedError, match=family):
-            build_model(dataclasses.replace(get_config("qwen3-0.6b"),
-                                            family=family))
+    with pytest.raises(NotImplementedError, match="encdec"):
+        build_model(dataclasses.replace(get_config("qwen3-0.6b"),
+                                        family="encdec"))
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):

@@ -12,8 +12,9 @@ on Nx1 and on the starved 2x2, and the policy cells with no budgets set
 (edf single engine, priority Nx1, slo_adaptive over the starved pool and
 threaded, and the starved pool with the prefix cache).  Four cells run with
 a live :class:`Tracer`, whose lifecycle must be well-formed and which must
-not change a token.  The hybrid family (zamba2-1.2b, the scan family the
-port has) runs its own matrix: continuous, lockstep, cluster 1xN and Nx1.
+not change a token.  The scan families, hybrid (zamba2-1.2b) and ssm
+(xlstm-350m), each run their own matrix: continuous, lockstep, cluster 1xN
+and Nx1, sequential and threaded.
 Both matrices run twice, attribution off and on (an :class:`Attributor`
 attached to every cell, the reference cell's too): the tokens must not
 move, and every attributed continuous step gets one verdict.  The moe
@@ -26,7 +27,9 @@ row a request) runs dense continuous, lockstep (uniform lengths), paged
 cluster that preempts.
 
 Hypothesis draws the traces; the reference's seeds on record, 218 and
-53156 (and 6480 for the hybrid family), are pinned with ``@example``
+53156 (and 6480 for the hybrid family; 87, 1981929570 and 5148, where the
+reference's ssm cluster-Nx1 parts from continuous, for the ssm family), are
+pinned with ``@example``
 (ROADMAP §3).  The random examples are
 bounded so the file stays near a minute on one CPU worker; without
 hypothesis a seeded fallback runs the pinned seeds and a few more.
@@ -59,6 +62,8 @@ MAX_NEW = 8
 TEMPERATURES = (0.0, 0.0, 0.7, 1.3)   # half greedy, half sampled
 PINNED = (218, 53156)                  # the reference's seeds on record
 HYBRID_PINNED = 6480                   # the reference's hybrid split
+# the reference's ssm splits on record (xlstm smoke at cluster-Nx1)
+SSM_PINNED = (87, 1981929570, 5148)
 N_EXAMPLES = 30                        # random traces beside the pinned
 N_SCAN_EXAMPLES = 12
 N_MOE_EXAMPLES = 30                    # the reference runs 12
@@ -355,9 +360,8 @@ def test_paged_prefill_shape_is_trace_invariant(harness):
 # The hybrid family: slot-addressable recurrent state, dense clusters.
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def scan_harness():
-    cfg = smoke_config("zamba2-1.2b")
+def _scan_engines(arch):
+    cfg = smoke_config(arch)
     model = build_model(cfg)
     params = model.init(0, device="cpu", dtype=torch.float32)
     kw = dict(cache_len=CACHE_LEN)
@@ -378,6 +382,11 @@ def scan_harness():
     return cfg, engines
 
 
+@pytest.fixture(scope="module")
+def scan_harness():
+    return _scan_engines("zamba2-1.2b")
+
+
 def _check_scan_conformance(scan_harness, seed: int,
                             attributed: bool = False):
     cfg, engines = scan_harness
@@ -395,7 +404,8 @@ def _check_scan_conformance(scan_harness, seed: int,
             got = eng.generate(reqs, key=key)
         for a, b in zip(ref, got):
             assert a.tokens == b.tokens, (
-                f"hybrid/{name} diverged on rid={a.rid} (seed {seed}): "
+                f"{cfg.family}/{name} diverged on rid={a.rid} (seed "
+                f"{seed}): "
                 f"{a.tokens} vs {b.tokens}")
 
 
@@ -422,6 +432,40 @@ def test_scan_family_conformance_random_traces(scan_harness, attributed,
 @pytest.mark.parametrize("seed", FALLBACK + (HYBRID_PINNED,))
 def test_scan_family_conformance_fallback(scan_harness, attributed, seed):
     _check_scan_conformance(scan_harness, seed, attributed)
+
+
+# ---------------------------------------------------------------------------
+# The ssm family (xlstm): the hybrid family's matrix.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ssm_harness():
+    return _scan_engines("xlstm-350m")
+
+
+@pytest.mark.skipif(not HAS_HYPOTHESIS,
+                    reason="hypothesis drives the examples; the seeded "
+                           "fallback below covers the no-dep environment")
+@ATTRIBUTION
+@settings(max_examples=N_SCAN_EXAMPLES, deadline=None)
+@given(st.integers(0, 2 ** 31 - 1))
+@example(SSM_PINNED[0])
+@example(SSM_PINNED[1])
+@example(SSM_PINNED[2])
+def test_ssm_conformance_random_traces(ssm_harness, attributed, seed):
+    """xlstm x {continuous, lockstep on uniform lengths} x {single, 1xN,
+    Nx1 sequential and threaded} x attribution off and on: byte-identical
+    tokens per trace, at the seeds where the reference's ssm cell parts
+    too (ROADMAP §3)."""
+    _check_scan_conformance(ssm_harness, seed, attributed)
+
+
+@pytest.mark.skipif(HAS_HYPOTHESIS,
+                    reason="hypothesis variant runs the examples")
+@ATTRIBUTION
+@pytest.mark.parametrize("seed", FALLBACK + SSM_PINNED)
+def test_ssm_conformance_fallback(ssm_harness, attributed, seed):
+    _check_scan_conformance(ssm_harness, seed, attributed)
 
 
 # ---------------------------------------------------------------------------
