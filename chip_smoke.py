@@ -95,13 +95,15 @@ Phases, each of which exits non-zero on failure:
               their scale; then the trace with half its
               rows sampled at temperature 0.7 (repeat-identical, greedy rows
               unchanged);
-8b. cluster - the multi-replica ``ClusterEngine`` on phase 7's model and
-              trace (8 slots in all, bf16), each cell twice and
-              byte-identical, the counts zeroed just before each run and
-              read just after (every paged launch on mma, decode launches
-              28 a step summed over the replicas, replayed steps of
-              preempted requests included, the shared pool drained): 1x8
-              byte-identical to phase 7's single paged engine; 8x1 under
+8b. cluster - the multi-replica ``ClusterEngine`` on phase 7's trace and
+              a copy of qwen3-0.6b at full width cut to 8 of its 28
+              layers (``CLUSTER_LAYERS``; served first by its own single
+              paged engine, twice), 8 slots in all, bf16, each cell twice
+              and byte-identical, the counts zeroed just before each run
+              and read just after (every paged launch on mma, decode
+              launches 8 a step summed over the replicas, replayed steps
+              of preempted requests included, the shared pool drained):
+              1x8 byte-identical to the copy's single paged engine; 8x1 under
               round_robin, sequential and threaded (a replica a thread, a
               CUDA stream each), identical, and under least_loaded and
               shortest_queue at 2 new tokens, identical to round_robin's;
@@ -113,8 +115,9 @@ Phases, each of which exits non-zero on failure:
               the rids where 8x1 and 2x4 part from the single engine with
               their top-2 logit gaps;
 8c. attribution - utilization attribution on phases 7, 8 and 8b's paths
-              (paged, dense continuous, cluster 1x8 and 8x1 sequential
-              and threaded), one ``Attributor`` with the card's spec, the
+              (paged, dense continuous, and on 8b's 8-layer copy cluster
+              1x8 and 8x1 sequential and threaded), one ``Attributor``
+              with the card's spec, the
               counts zeroed before each run and read after: the tokens
               byte-identical to the same path's run without attribution,
               every decode step one verdict, FU utilization in (0, 1],
@@ -177,6 +180,27 @@ Phases, each of which exits non-zero on failure:
               continuous on 8 x 256, a sampled row preempted and replayed
               byte-identical, freed slots zero, host ms a prefill and the
               profiles; no hand kernel on xlstm's path;
+9d. whisper - whisper-base (the encdec family) at full width on seeded
+              random bf16 weights, a seeded (1500, 512) frame row a request
+              (whisper's 30 s encoder length): a narrow fp32 copy (2 + 2
+              layers, frames of 40) on the card against the CPU within 1e-4
+              of the logits' scale, the full model's first-token logits at
+              1,500 frames (fp32 within 1e-4 of their scale; bf16 no
+              farther from fp32 than 1.5x the CPU's bf16); the trace
+              (prompts 4 to 64, cache_len 448) continuous twice (18 flash
+              launches a prefill, all mma: 6 encoder layers non-causal at
+              S 1,500, 6 decoder self-attention causal, 6 cross-attention
+              non-causal over the 1,500 frames; no paged launch), lockstep
+              == continuous on 8 x 4, rid 3 sampled and preempted after 5
+              decode steps, resumed by replay with its frames
+              (byte-identical, every replayed token counted), every freed
+              slot's k, v, xk, xv and pos zero after the drain, cluster
+              1x8 and 8x1 (sequential) token-identical to the single
+              engine, the trace with attribution on (tokens unchanged, one
+              verdict a decode step), profiles of a prefill and a decode
+              step; the flash parity phase also runs whisper's shapes
+              (non-causal, 8 / 8 heads of 64, Sq = Sk = 1500 and Sq 4, 64,
+              448 < Sk 1500, both dtypes) and the timing phase its encoder;
 10. profile - wall and device time of one full-width decode step and one
               prefill (chunk) of each path, with the top kernels and the
               port's own outside them (torch.profiler);
@@ -279,6 +303,10 @@ FLASH_S = 900          # timing: B = 1, Hq 16, Hkv 8, D 128, causal
 # zamba2-1.2b's shared attention block at its longest prompt: B = 1, Hq =
 # Hkv = 32, D 64, S 960, causal (timed beside FLASH_S)
 FLASH_ZAMBA2 = (32, 1, 64, 960)        # (Hq, g, D, S)
+# whisper-base's encoder, non-causal: (Hq, g, D, S_enc); its cross-attention
+# runs a prompt's queries (Sq < Sk) over the S_enc keys
+FLASH_WHISPER = (8, 1, 64, 1500)
+WHISPER_CROSS_SQ = (4, 64, 448)
 # flash parity beyond flash_cases, causal, B 1: the served shapes (zamba2;
 # qwen3; qwen2.5-3b's g 8) and head dims between two of the tensor-core
 # kernel's templates (zero-padded: 24 to 32, 72 to 128)
@@ -305,6 +333,10 @@ PREEMPT_RID, PREEMPT_AFTER = 3, 5
 CLUSTER_ROUTER_MAX_NEW = 2
 CLUSTER_PRESSURE_BLOCKS = 97
 CLUSTER_HYSTERESIS = 16
+# the bf16 cluster phases (8b, 8c's cluster cells) run qwen3-0.6b at full
+# width cut to this many of its 28 layers: they are host-bound, and their
+# time follows the layers a step dispatches
+CLUSTER_LAYERS = 8
 # conv2d filters past one stage (conv2d.bands), (C, H, W, k): k 62 (one
 # band, one past the first kernel's 61), 97 (two bands of filter rows in
 # fp32) and 200 (one filter row a band, in bands of columns); W on 16 bytes
@@ -709,6 +741,9 @@ def phase_flash_parity(torch, fa, dev):
     cases += [(g, s, s, True, None, 1, hq, d) for hq, g, d, s in FLASH_SERVED]
     cases += [(g, s, s, True, window, 1, hq, d)
               for hq, g, d, s in FLASH_WIDE_GROUPS for window in (None, 48)]
+    whq, wg, wd, ws = FLASH_WHISPER
+    cases += [(wg, sq, ws, False, None, 1, whq, wd)
+              for sq in (ws,) + WHISPER_CROSS_SQ]
     for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, TOL_FP32)):
         name = str(dtype).split(".")[-1]
         for g, sq, sk, causal, window, b, hq, d in cases:
@@ -922,16 +957,17 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, kconv, kdot, dev):
     fgen = torch.Generator(device=dev)
     fgen.manual_seed(5)
 
-    def flash_row(name, hq, g, d, s, window=None):
-        """A causal bf16 prefill, B = 1: q, k, v and the output once; the
-        (query, key) pairs the mask keeps (the causal half of the square,
-        with ``window`` each row's last ``window`` keys).  SDPA takes a
-        window as a boolean mask."""
+    def flash_row(name, hq, g, d, s, window=None, causal=True):
+        """A bf16 prefill, B = 1: q, k, v and the output once; the (query,
+        key) pairs the mask keeps (the whole square non-causal; else its
+        causal half, with ``window`` each row's last ``window`` keys).
+        SDPA takes a window as a boolean mask."""
         args = [_flash_inputs(torch, fgen, dev, torch.bfloat16, g, s, s, b=1,
                               hq=hq, d=d) for _ in range(6)]
         nbytes = sum(x.numel() for x in args[0]) * 2 + args[0][0].numel() * 2
         pos = torch.arange(s, device=dev)
-        keep = pos[None, :] <= pos[:, None]
+        keep = (pos[None, :] <= pos[:, None]) if causal else torch.ones(
+            (s, s), dtype=torch.bool, device=dev)
         if window is not None:
             keep &= pos[None, :] > pos[:, None] - window
         pairs = int(keep.sum())
@@ -939,15 +975,17 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, kconv, kdot, dev):
         def lib(q, k, v):
             if window is None:
                 return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=g > 1)
+                    q, k, v, is_causal=causal, enable_gqa=g > 1)
             return F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
                                                   enable_gqa=g > 1)
 
         def kernel(q, k, v):
-            return fa.flash_attention_cuda(q, k, v, window=window)
+            return fa.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window)
 
         def plain(q, k, v):
-            return fa.flash_attention_plain(q, k, v, window=window)
+            return fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
         out[name] = dict(
             ms=time_ms(torch, kernel, args, 50),
             plain_ms=time_ms(torch, plain, args, 10),
@@ -976,6 +1014,11 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, kconv, kdot, dev):
     # dense prefill
     zhq, zg, zd, zs = FLASH_ZAMBA2
     flash_row("flash_attention zamba2", zhq, zg, zd, zs)
+    # flash at whisper-base's encoder: 1500 frames, non-causal (logged,
+    # not in the kernels line)
+    whq, wg, wd, ws = FLASH_WHISPER
+    flash_row("flash_attention whisper encoder", whq, wg, wd, ws,
+              causal=False)
     labels = {}
     for (label, hq, hkv, d, bs, m, chunks), (fhq, fg, fd, fs) in zip(
             HEAD_DIM_CASES, (MOE_FLASH, VLM_FLASH)):
@@ -1128,6 +1171,8 @@ def phase_timing(torch, pa, fa, ss, kf, kexp, kpf, kjc, kconv, kdot, dev):
                            "causal bf16",
         "flash_attention zamba2": f"B=1 Hq=Hkv={zhq} D={zd} S={zs} causal "
                                   "bf16",
+        "flash_attention whisper encoder": f"B=1 Hq=Hkv={whq} D={wd} "
+                                           f"S={ws} non-causal bf16",
         "ssd_scan": f"B=1 S={SSD_S} H={SSD_H} P={SSD_P} N={SSD_N} G=1 "
                     "d_skip bf16"})
     for name, t in out.items():
@@ -1221,12 +1266,13 @@ def _like(tree, ref, device):
 
 
 def _bf16_check(torch, model, params, prompts, dev, label,
-                fp32_tol=TOL_FP32):
+                fp32_tol=TOL_FP32, frames=None):
     """First-token logits of each of ``prompts`` from bf16 ``params`` on the
     card: in fp32 (the same values, cast) card against CPU within
     ``fp32_tol`` of their scale; in bf16 the card no farther from the CPU's
-    fp32 logits than 1.5 times the CPU's own bf16 run.  Returns the CPU
-    seconds it took."""
+    fp32 logits than 1.5 times the CPU's own bf16 run.  An encdec model
+    takes ``frames`` (one row, cast to each run's weights' dtype).
+    Returns the CPU seconds it took."""
     cpu32 = _cpu_copy(params)
     card32 = _like(cpu32, cpu32, dev)
     cpu16 = _like(cpu32, params, "cpu")
@@ -1234,8 +1280,9 @@ def _bf16_check(torch, model, params, prompts, dev, label,
     for prompt in prompts:
         n = len(prompt)
         t0 = time.perf_counter()
-        want = _hybrid_logits(torch, model, cpu32, prompt, 0, "cpu")
-        runs = {k: _hybrid_logits(torch, model, prm, prompt, 0, d)
+        want = _hybrid_logits(torch, model, cpu32, prompt, 0, "cpu",
+                              frames)
+        runs = {k: _hybrid_logits(torch, model, prm, prompt, 0, d, frames)
                 for k, prm, d in (("card fp32", card32, dev),
                                   ("card bf16", params, dev),
                                   ("cpu bf16", cpu16, "cpu"))}
@@ -1409,13 +1456,16 @@ def _serve_run(torch, kmods, eng, reqs, label, name):
     launches = {**read_launches(kmods), **read_routes(kmods)}
     s = eng.last_stats
     toks = [r.tokens for r in results]
+    model = eng.engines[0].model if hasattr(eng, "engines") else eng.model
     log(f"{label} on {name}: wall_s={wall:.3f} "
         f"tokens_per_s={s.tokens_per_s:.1f} ttft_ms_mean={s.ttft_ms_mean:.1f}"
-        f" tpot_ms_mean={s.tpot_ms_mean:.2f} decode_steps={s.decode_steps} "
+        f" p50={s.ttft_ms_p50:.1f} p99={s.ttft_ms_p99:.1f} tpot_ms_mean="
+        f"{s.tpot_ms_mean:.2f} p50={s.tpot_ms_p50:.2f} p99="
+        f"{s.tpot_ms_p99:.2f} decode_steps={s.decode_steps} "
         f"prefill_shapes={s.prefill_compiles} launches={launches} "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
     require(all(len(t) == r.max_new_tokens and
-                all(0 <= x < eng.model.cfg.vocab_size for x in t)
+                all(0 <= x < model.cfg.vocab_size for x in t)
                 for t, r in zip(toks, reqs)),
             f"{label}: every request must return max_new_tokens in-vocab "
             "tokens")
@@ -1602,10 +1652,10 @@ def _cluster_run(torch, kmods, cl, reqs, label, name, route):
     """One ``ClusterEngine.generate`` of ``reqs`` on the card with the
     counts zeroed just before and read just after: every request's tokens
     in-vocab and of its budget, the shared pool drained, every paged launch
-    on ``route``, no flash launch, decode launches 28 a step (the replicas'
-    steps summed, plus the steps that replayed a preempted request's done
-    tokens), prefill launches 28 a chunk (more when a preempted request
-    re-prefills).  Returns (tokens, stats, wall s, replayed tokens)."""
+    on ``route``, no flash launch, decode launches one a layer a step (the
+    replicas' steps summed, plus the steps that replayed a preempted
+    request's done tokens), prefill launches one a layer a chunk (more
+    when a preempted request re-prefills).  Returns (tokens, stats, wall s, replayed tokens)."""
     cfg = cl.engines[0].model.cfg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1685,10 +1735,11 @@ def _cluster_cell(torch, serving, kmods, model, params, label, name, route,
 
 
 def phase_cluster(torch, serving, kmods, model, params, single, dev, name):
-    """The multi-replica ``ClusterEngine`` at full width in bf16 (the
-    phase-7 model and trace, 32 new tokens, block size 16, cache_len 1024,
-    8 slots in all), each cell twice, byte-identical: 1x8 (round_robin)
-    equal to phase 7's single paged engine (``single``); 8x1 under
+    """The multi-replica ``ClusterEngine`` at full width in bf16 (phase 7's
+    trace on ``model``, the copy cut to ``CLUSTER_LAYERS`` layers; 32 new
+    tokens, block size 16, cache_len 1024, 8 slots in all), each cell
+    twice, byte-identical: 1x8 (round_robin) equal to the copy's single
+    paged engine (``single``); 8x1 under
     round_robin, sequential and threaded (equal), and under least_loaded
     and shortest_queue at ``CLUSTER_ROUTER_MAX_NEW`` tokens (equal to
     round_robin's first tokens); 2x4 over a starved pool
@@ -1777,13 +1828,18 @@ def phase_cluster_fp32(torch, serving, kmods, model, params, single, dev,
         "8 rids")
 
 
-def _hybrid_logits(torch, model, params, prompt, n_decode, dev):
-    """Prefill of ``prompt`` (B = 1) into a cache of 1024 positions (more
-    if the prompt and the steps need them), then ``n_decode`` greedy
-    steps; returns every logits row on the CPU in fp32."""
-    logits, cache = model.prefill(params, {"tokens": torch.tensor(
-        [prompt], dtype=torch.int32, device=dev)},
-        cache_len=max(1024, len(prompt) + n_decode))
+def _hybrid_logits(torch, model, params, prompt, n_decode, dev,
+                   frames=None):
+    """Prefill of ``prompt`` (B = 1; an encdec model's ``frames`` row
+    beside it, in the weights' dtype) into a cache of 1024 positions (more if the prompt and the
+    steps need them), then ``n_decode`` greedy steps; returns every logits
+    row on the CPU in fp32."""
+    batch = {"tokens": torch.tensor([prompt], dtype=torch.int32,
+                                    device=dev)}
+    if frames is not None:
+        batch["frames"] = frames.to(dev, params["embed"]["embedding"].dtype)
+    logits, cache = model.prefill(params, batch,
+                                  cache_len=max(1024, len(prompt) + n_decode))
     rows = [logits.float().cpu()]
     for _ in range(n_decode):
         feed = torch.tensor([[int(rows[-1].argmax())]], dtype=torch.int32,
@@ -1836,14 +1892,15 @@ def phase_hybrid_checks(torch, cfgs, build_model, dev):
 
 
 def _drain_session(torch, eng, reqs, preempt=None):
-    """Serve ``reqs`` through the session API (admit all, step to the end).
-    ``preempt=(rid, steps)``: after ``steps`` decode steps the request
-    ``rid`` is preempted and at once re-admitted.  Returns (tokens per rid,
+    """Serve ``reqs`` through the session API (admit all, step to the end),
+    request i with ``extra_inputs`` row i.  ``preempt=(rid, steps)``: after
+    ``steps`` decode steps the request ``rid`` is preempted and at once
+    re-admitted.  Returns (tokens per rid,
     the requeued request or None, the live cache before the session
     closes, the session's metrics)."""
     eng.begin_session()
     for i, r in enumerate(reqs):
-        require(eng.session_admit(r, tag=i) is None,
+        require(eng.session_admit(r, tag=i, extra_row=i) is None,
                 "a scan-family request finished at admission")
     out, requeued, steps = {}, None, 0
     while eng.session_active:
@@ -1854,7 +1911,8 @@ def _drain_session(torch, eng, reqs, preempt=None):
             slot = next(i for i, sl in eng.session_slots()
                         if sl.req.rid == preempt[0])
             tag, requeued = eng.session_preempt(slot)
-            eng.session_admit(requeued, tag=tag)
+            # re-admitted with its own extra_inputs row (submission order)
+            eng.session_admit(requeued, tag=tag, extra_row=tag)
     cache = eng._sess.cache
     eng.end_session()
     torch.cuda.synchronize()
@@ -2026,13 +2084,14 @@ def _attribution_profiled(torch, eng, reqs, label, name):
             f"profiler's device time {kernel_ms} ms")
 
 
-def phase_attribution(torch, serving, kmods, model, params, off, dev,
-                      name):
+def phase_attribution(torch, serving, kmods, model, params, cmodel,
+                      cparams, off, dev, name):
     """Utilization attribution on the full-width qwen3-0.6b main path in
     bf16, one ``Attributor`` (the card's spec) across every run: the serve
-    trace on the paged and the dense layout, and the cluster at 1x8 and
-    8x1 (round_robin; 8x1 under both drivers), the counts zeroed just
-    before each run and read just after.  Each run's tokens byte-identical
+    trace on the paged and the dense layout (``model``), and the cluster
+    at 1x8 and 8x1 (round_robin; 8x1 under both drivers) on phase 8b's
+    copy cut to ``CLUSTER_LAYERS`` layers (``cmodel``), the counts zeroed
+    just before each run and read just after.  Each run's tokens byte-identical
     to the same path's run without attribution (``off``, from the earlier
     phases); every decode step one verdict; FU utilization at most 1 and
     achieved bytes/s at most the card's bandwidth; then eight attributed
@@ -2065,7 +2124,7 @@ def phase_attribution(torch, serving, kmods, model, params, off, dev,
     for label, kw in (("1x8", dict(replicas=1)),
                       ("8x1", dict(replicas=8)),
                       ("8x1 threaded", dict(replicas=8, driver="threaded"))):
-        got = _cluster_cell(torch, serving, kmods, model, params,
+        got = _cluster_cell(torch, serving, kmods, cmodel, cparams,
                             f"attribution {label}", name, "mma", runs=1,
                             attribution=at, **kw)
         require(got[0] == off[label.split()[0]],
@@ -2434,6 +2493,20 @@ XLSTM_PROMPT_LENS = [7, 16, 33, 64, 128, 256, 512, 768]
 XLSTM_UNIFORM = (8, 256)      # lockstep vs continuous: 8 prompts of 256
 XLSTM_STATE = ("m_conv", "m_c", "m_n", "m_m", "s_conv", "s_c", "s_n", "s_h",
                "s_m", "pos")
+
+
+# whisper-base (the encdec family): a seeded (1500, 512) frame row a
+# request, whisper's 30 s encoder length, and prompts of 4 to 64 decoder
+# tokens in its 448-position text context
+WHISPER_SEED = 17
+WHISPER_FRAMES = 1500
+WHISPER_PROMPT_LENS = [4, 7, 12, 16, 23, 32, 48, 64]
+WHISPER_UNIFORM = (8, 4)      # lockstep vs continuous: 8 prompts of 4
+WHISPER_CACHE_LEN = 448
+WHISPER_NARROW = dict(n_layers=2, n_enc_layers=2, d_model=128, d_ff=256,
+                      vocab_size=1000)
+WHISPER_NARROW_FRAMES = 40
+WHISPER_STATE = ("k", "v", "xk", "xv", "pos")
 
 
 def _trace(cfg, lens, seed):
@@ -2962,6 +3035,213 @@ def phase_xlstm(torch, cfgs, build_model, serving, kmods, dev, name):
     del params, xc
     torch.cuda.empty_cache()
     log(f"xlstm phase: {time.perf_counter() - t0:.1f} s")
+
+
+def whisper_frames(torch, n, frames, d, seed, dev):
+    """``n`` seeded (frames, d) bf16 frame rows, one a request."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn((n, frames, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+
+
+def phase_whisper_checks(torch, cfgs, build_model, dev):
+    """whisper on the card (flash, encoder non-causal, cross-attention)
+    against the plain path on the CPU, on the same weights: a narrow fp32
+    copy (2 + 2 layers, d 128, 8 heads of 64) at frames of 40, a prefill
+    and 3 decode steps within 1e-4 of the logits' scale; then the
+    full-width model's first-token logits at 1,500 frames: fp32 card
+    against CPU within 1e-4 of their scale, bf16 no farther from the CPU's
+    fp32 logits than 1.5 times the CPU's own bf16 run."""
+    from repro_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    cfg = cfgs.get_config("whisper-base")
+    narrow = dataclasses.replace(cfg, **WHISPER_NARROW)
+    rng = torch.Generator().manual_seed(9)
+    model = build_model(narrow)
+    params = model.init(3, device=dev, dtype=torch.float32)
+    p = torch.randint(0, narrow.vocab_size, (9,), generator=rng).tolist()
+    frames = whisper_frames(torch, 1, WHISPER_NARROW_FRAMES, narrow.d_model,
+                            5, "cpu").float()
+    fa.reset_launches()
+    got = _hybrid_logits(torch, model, params, p, 3, dev, frames)
+    n_flash = narrow.n_enc_layers + 2 * narrow.n_layers
+    require(fa.ROUTES == {"mma": 0, "simt": n_flash},
+            f"narrow whisper fp32: flash launches by route {fa.ROUTES}, "
+            f"expected {n_flash} on simt")
+    want = _hybrid_logits(torch, model, _cpu_copy(params), p, 3, "cpu",
+                          frames)
+    require(bool(torch.isfinite(got).all()), "narrow whisper: non-finite")
+    scale = want.abs().max().item()
+    _report(f"{narrow.name} L=2+2 d=128 float32 frames="
+            f"{WHISPER_NARROW_FRAMES} prompt_len=9 decode=3, card vs CPU",
+            (got - want).abs().max().item(), scale, TOL_FP32 * scale)
+    model = build_model(cfg)
+    params = model.init(WHISPER_SEED, device=dev)
+    cpu_s = _bf16_check(
+        torch, model, params,
+        [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+         for n in (WHISPER_PROMPT_LENS[-1],)], dev,
+        f"{cfg.name} L={cfg.n_enc_layers}+{cfg.n_layers} frames="
+        f"{WHISPER_FRAMES}",
+        frames=whisper_frames(torch, 1, WHISPER_FRAMES, cfg.d_model, 6,
+                              "cpu"))
+    del params
+    torch.cuda.empty_cache()
+    log(f"whisper checks: {time.perf_counter() - t0:.1f} s (CPU runs "
+        f"{cpu_s:.1f} s)")
+
+
+def phase_whisper(torch, cfgs, build_model, serving, kmods, dev, name):
+    """whisper-base at full width on seeded random bf16 weights, a seeded
+    (1500, 512) frame row a request: the trace (8 prompts of 4 to 64
+    tokens, 32 new, cache_len 448) continuous twice (token-identical, 18
+    flash launches a prefill on mma, no paged launch); lockstep equal to
+    continuous on 8 x 4 tokens; rid 3 sampled, whole and preempted after 5
+    decode steps and resumed by replay with its frames (byte-identical,
+    every replayed token counted), every freed slot's state zero after the
+    drain; ClusterEngine 1x8 and 8x1 (sequential) token-identical to the
+    single engine; the trace with attribution on (tokens unchanged, one
+    verdict a decode step); profiles of a prefill and a decode step."""
+    from repro_torch.models.encdec import CROSS_LEN
+    t0 = time.perf_counter()
+    cfg = cfgs.get_config("whisper-base")
+    model = build_model(cfg)
+    params = model.init(WHISPER_SEED, device=dev)
+    require(WHISPER_FRAMES == CROSS_LEN, "whisper: the trace's frames are "
+                                         "not whisper's 30 s window")
+    per_prefill = cfg.n_enc_layers + 2 * cfg.n_layers
+    log(f"whisper: {cfg.name} encoder {cfg.n_enc_layers} + decoder "
+        f"{cfg.n_layers} layers d_model={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} of {cfg.head_dim_resolved} d_ff={cfg.d_ff} vocab="
+        f"{cfg.vocab_size} params={model.n_params} frames={WHISPER_FRAMES} "
+        f"cache_len={WHISPER_CACHE_LEN} bf16 on {name}")
+    prompts = _trace(cfg, WHISPER_PROMPT_LENS, 7)
+    frames = {"frames": whisper_frames(torch, len(prompts), WHISPER_FRAMES,
+                                       cfg.d_model, WHISPER_SEED, dev)}
+
+    def reqs(ps=prompts, temps=None):
+        return [serving.Request(p, SERVE_MAX_NEW,
+                                (temps or {}).get(i, 0.0), rid=i)
+                for i, p in enumerate(ps)]
+
+    def counted(launches, label, prefills):
+        require(launches["flash_attention"] == per_prefill * prefills
+                == launches["flash_attention.mma"]
+                and launches["paged_decode_attention"] == 0
+                and launches["paged_prefill_attention"] == 0
+                and launches["ssd_scan"] == 0,
+                f"whisper {label}: launches {launches}, expected "
+                f"flash_attention {per_prefill} x {prefills} prefills, all "
+                "on the tensor cores, and no other kernel")
+
+    def engine(**kw):
+        return serving.ServeEngine(model, params, max_batch=8,
+                                   cache_len=WHISPER_CACHE_LEN,
+                                   extra_inputs=frames, **kw)
+    eng = engine()
+    runs = []
+    for run in range(2):
+        runs.append(_serve_run(torch, kmods, eng, reqs(),
+                               f"whisper continuous run {run}", name))
+        counted(runs[-1][1], "continuous", len(prompts))
+    single = runs[0][0]
+    require(runs[1][0] == single,
+            "whisper continuous: a repeat run changed the tokens")
+    for rid, t in enumerate(single):
+        log(f"whisper continuous rid={rid} prompt_len={len(prompts[rid])} "
+            f"tokens={t}")
+    log("whisper continuous: repeat run token-identical")
+
+    n_uni, len_uni = WHISPER_UNIFORM
+    uniform = _trace(cfg, [len_uni] * n_uni, 8)
+    modes = {}
+    for mode in ("continuous", "lockstep"):
+        modes[mode], launches = _serve_run(
+            torch, kmods, engine(mode=mode), reqs(uniform),
+            f"whisper {mode} uniform {n_uni}x{len_uni}", name)
+        counted(launches, f"{mode} uniform", n_uni)    # lockstep: by rows
+    require(modes["lockstep"] == modes["continuous"],
+            "whisper: lockstep and continuous differ on the uniform trace")
+    log("whisper lockstep == continuous on the uniform trace")
+
+    sampled = {PREEMPT_RID: SAMPLED_TEMPERATURE}
+    whole, _, cache, _ = _drain_session(torch, eng, reqs(temps=sampled))
+    for key in WHISPER_STATE:
+        require(not bool(cache[key].any()),
+                f"whisper: freed slots' {key} is not zero after the drain")
+    log(f"whisper: after the drain every freed slot's "
+        f"{', '.join(WHISPER_STATE)} are zero")
+    resumed, requeued, _, metrics = _drain_session(
+        torch, eng, reqs(temps=sampled), preempt=(PREEMPT_RID,
+                                                  PREEMPT_AFTER))
+    replayed = metrics.counter("resume_replay_tokens").n
+    log(f"whisper preempt: rid={PREEMPT_RID} temperature="
+        f"{SAMPLED_TEMPERATURE} preempted after {PREEMPT_AFTER} decode steps "
+        f"with done={len(requeued.done)} tokens, replayed {replayed}; "
+        f"tokens={resumed[PREEMPT_RID]}")
+    require(len(requeued.done) == PREEMPT_AFTER + 1
+            and replayed == len(requeued.done),
+            f"whisper preempt: done {len(requeued.done)}, replayed "
+            f"{replayed}, expected {PREEMPT_AFTER + 1} each")
+    require(resumed == whole, "whisper preempt: the resumed stream differs "
+                              "from the uninterrupted run")
+    log("whisper preempt + replay with its frames: every row "
+        "token-identical to the uninterrupted run")
+
+    for label, replicas in (("1x8", 1), ("8x1", 8)):
+        cl = serving.ClusterEngine(model, params, replicas=replicas,
+                                   total_slots=8,
+                                   cache_len=WHISPER_CACHE_LEN,
+                                   extra_inputs=frames)
+        require(cl.kv_layout == "dense", f"whisper cluster {label}: layout "
+                                         f"{cl.kv_layout}")
+        toks, launches = _serve_run(torch, kmods, cl, reqs(),
+                                    f"whisper cluster {label}", name)
+        counted(launches, f"cluster {label}", len(prompts))
+        diffs = first_diffs(single, toks)
+        log(f"whisper cluster {label} vs the single engine: first differing "
+            f"token per rid {diffs}")
+        require(toks == single, f"whisper cluster {label} differs from the "
+                                "single engine")
+        del cl
+    log("whisper cluster 1x8 and 8x1: token-identical to the single engine")
+
+    at = serving.Attributor(serving.MachineSpec.detect(dev, torch.bfloat16))
+    eng.set_attributor(at)
+    toks, launches = _serve_run(torch, kmods, eng, reqs(),
+                                "whisper continuous, attribution on", name)
+    eng.set_attributor(None)
+    counted(launches, "attribution", len(prompts))
+    require(toks == single, "whisper: the tokens moved with attribution on")
+    _attribution_log("whisper", eng.last_stats, at, name)
+    _attribution_split("whisper", eng.last_metrics)
+    for key, c in sorted(at._costs.items()):
+        log(f"attribution cost whisper {key}: flops={c.flops:.6e} "
+            f"bytes={c.mem_bytes:.6e} ai={c.ai:.3f}")
+
+    batch = {"tokens": torch.tensor([prompts[-1]], dtype=torch.int32,
+                                    device=dev),
+             "frames": frames["frames"][-1:]}
+    sub = model.prefill(params, batch, cache_len=WHISPER_CACHE_LEN)[1]
+    pool = model.cache_expand(sub, B)
+    for i in range(B):
+        model.cache_slot_write(pool, sub, i)
+    lens = torch.tensor(WHISPER_PROMPT_LENS, dtype=torch.int32, device=dev)
+    feed = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+
+    def decode():
+        pool["pos"] = lens.clone()
+        model.decode(params, pool, feed)
+    _profile_calls(torch, cfg.name, (
+        (f"prefill (B=1, {WHISPER_FRAMES} frames, {len(prompts[-1])} "
+         "tokens)", lambda: model.prefill(params, batch,
+                                          cache_len=WHISPER_CACHE_LEN)),
+        ("decode step (B=8)", decode)))
+    del params, pool, sub
+    torch.cuda.empty_cache()
+    log(f"whisper phase: {time.perf_counter() - t0:.1f} s")
+    return runs[0][1]
 
 
 # ---------------------------------------------------------------------------
@@ -3614,11 +3894,21 @@ def main() -> int:
         dense_launches, dense = phase_dense(
             torch, serving, kmods, model, params, paged, dev, name)
         launches["flash_attention"] = dense_launches["flash_attention"]
-        clustered = phase_cluster(torch, serving, kmods, model, params,
-                                  paged, dev, f"{name} ({smi})")
-        phase_attribution(torch, serving, kmods, model, params,
+        # the bf16 cluster cells run a copy cut in depth (its own name, so
+        # the attribution memo keeps its costs apart), served first by a
+        # single paged engine: the 1x8 cell's reference
+        ccfg = dataclasses.replace(cfgs.get_config("qwen3-0.6b"),
+                                   n_layers=CLUSTER_LAYERS,
+                                   name=f"qwen3-0.6b-L{CLUSTER_LAYERS}")
+        _, cmodel, cparams, csingle = phase_serve(
+            torch, ccfg, build_model, serving, kmods, dev, name)
+        clustered = phase_cluster(torch, serving, kmods, cmodel, cparams,
+                                  csingle, dev, f"{name} ({smi})")
+        phase_attribution(torch, serving, kmods, model, params, cmodel,
+                          cparams,
                           {"paged": paged, "dense": dense, **clustered},
                           dev, f"{name} ({smi})")
+        del cparams
         phase_profile(torch, model, params, dev)
         del params
         torch.cuda.empty_cache()
@@ -3664,6 +3954,12 @@ def main() -> int:
             f" s; launches gemma3 dense {g3_launches['dense']} paged "
             f"{g3_launches['paged']}, yi dense {yi_launches['dense']} paged "
             f"{yi_launches['paged']}")
+        t_fam = time.perf_counter()
+        phase_whisper_checks(torch, cfgs, build_model, dev)
+        w_launches = phase_whisper(torch, cfgs, build_model, serving, kmods,
+                                   dev, name)
+        log(f"whisper phases: {time.perf_counter() - t_fam:.1f} s; flash "
+            f"launches in the continuous run {w_launches['flash_attention']}")
         pool = ideality.POOL
         errs.update(phase_pool_parity(torch, ideality, pool, dev))
         phase_conv2d_bands(torch, pool["conv2d"], dev)

@@ -1,7 +1,7 @@
 """Architecture registry: ``get_config(arch)`` / ``smoke_config(arch)``.
 
-The port's own copy of ``repro/configs``.  It lists only the archs the
-port can build; the others join as their families are ported.
+The port's own copy of ``repro/configs``: all ten archs of the
+reference, in its six families.
 ``qwen3-moe-235b-a22b`` (about 470 GB in bf16) fits no single card: its
 ``CONFIG`` is a faithful copy, served only as ``SMOKE`` or as a copy cut
 in depth.
@@ -20,6 +20,7 @@ ARCHS = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "whisper-base": "whisper_base",
 }
 
 

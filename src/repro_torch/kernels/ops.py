@@ -57,12 +57,36 @@ def attention(q, k, v, *, causal=True, window=None, scale=None):
     return fn(q, k, v, causal=causal, window=window, scale=scale)
 
 
+# the fewest rows a decode step's fp32 products run at.  On the card cuBLAS
+# takes a one-row fp32 product (and a batched product by its batch count)
+# to another kernel than a wider batch's, whose sums round apart: padded
+# to this many rows, a request's row computes the same bits at any batch
+# up to it, so a narrow cluster replica (width 1 or 4) decodes as the wide
+# engine (width 8) does
+INVARIANT_ROWS = 8
+
+
+def pad_rows(t, rows: int = INVARIANT_ROWS):
+    """``t`` with zero rows appended along axis 0 up to ``rows`` (``t``
+    itself when it has as many already)."""
+    if t.shape[0] >= rows:
+        return t
+    return torch.cat([t, t.new_zeros((rows - t.shape[0],) + t.shape[1:])])
+
+
 def decode_attention(q, k_cache, v_cache, kv_len, *, scale=None,
                      window=None):
     """Single-token GQA attention against a dense (B, Hkv, Smax, D) cache;
     ``kv_len``: (B,) valid lengths (the new token sits at kv_len - 1).
     Plain PyTorch on every device, as the reference leaves it to XLA
-    (``decode_attention_xla``): masked logits at -1e30, softmax in fp32."""
+    (``decode_attention_xla``): masked logits at -1e30, softmax in fp32.
+    A batch narrower than ``INVARIANT_ROWS`` runs padded to it (zero rows,
+    sliced off)."""
+    b = q.shape[0]
+    if b < INVARIANT_ROWS:
+        return decode_attention(
+            pad_rows(q), pad_rows(k_cache), pad_rows(v_cache),
+            pad_rows(kv_len), scale=scale, window=window)[:b]
     b, hq, _, d = q.shape
     _, hkv, smax, _ = k_cache.shape
     g = hq // hkv

@@ -12,7 +12,8 @@ reference's default key, seed 0; see ``repro_torch.serving.sampling``), and
 ``--replicas N`` (N > 1) serves through the multi-replica cluster instead:
 N narrow engines behind a ``--router`` policy, sharing one KV block pool
 with preemption under pool pressure for the dense family (per-replica slot
-state for the scan families, hybrid and ssm; ``repro_torch.serving.cluster``),
+state for the slot-state families, hybrid, ssm and encdec;
+``repro_torch.serving.cluster``),
 stepped in
 one loop or, with ``--driver threaded``, a replica a thread (on the card a
 CUDA stream each; the same tokens), with ``--hysteresis`` the preemption
@@ -25,12 +26,15 @@ line: FU utilization, achieved FLOP/s and bytes/s, the decode phase's
 arithmetic intensity against the ridge, and the verdict counts (the
 reference prints that line only beside ``--metrics``).  A vlm arch
 (``--arch phi-3-vision-4.2b``) gets the reference's stub patches, one row
-of zeros a prompt, as its ``extra_inputs``.
+of zeros a prompt, as its ``extra_inputs``, and the encdec arch
+(``--arch whisper-base``) the reference's stub frames, zeros of
+(prompts, 16, d_model) in bf16: the conv/mel frontend is a stub.
 
-Every arch the port builds serves here (``--arch``; ``list_archs()``),
-among them gemma3-27b (5 sliding-window layers of 1024 to one global
-layer), yi-6b and xlstm-350m (the ssm family: dense slot layout only,
-prompts of at most 256 tokens or a multiple of 256).  gemma3's window
+Every arch the port builds serves here (``--arch``; ``list_archs()``: all
+ten of the reference), among them gemma3-27b (5 sliding-window layers of
+1024 to one global layer), yi-6b, xlstm-350m (the ssm family: dense slot
+layout only, prompts of at most 256 tokens or a multiple of 256) and
+whisper-base (the encdec family: dense slot layout only).  gemma3's window
 shows only where a context passes it: at full size that needs
 ``--cache-len`` past 1024 (the default 256 never reaches it), e.g.
 ``--arch gemma3-27b --cache-len 2048``; its smoke config's window is 16.
@@ -49,6 +53,8 @@ from ..models import build_model
 from ..serving import (DRIVERS, POLICIES, ROUTER_POLICIES, Attributor,
                        ClusterEngine, MachineSpec, Request, ServeEngine,
                        Tracer)
+
+STUB_FRAMES = 16   # encoder frames a request (the reference's stub rows)
 
 
 def main(argv=None):
@@ -141,11 +147,16 @@ def main(argv=None):
     model = build_model(cfg)
     params = model.init(args.seed, device=device)
     # per-request side inputs the tokenized --prompts cannot carry: the
-    # reference's stub rows, one a prompt (vlm patch embeddings)
+    # reference's stub rows, one a prompt (vlm patch embeddings; encdec's
+    # conv/mel frontend is a stub, so its frames are too)
     extra = None
     if cfg.family == "vlm":
         extra = {"patches": torch.zeros(
             (len(args.prompts), cfg.n_patches, cfg.patch_embed_dim),
+            dtype=torch.bfloat16, device=device)}
+    elif cfg.family == "encdec":
+        extra = {"frames": torch.zeros(
+            (len(args.prompts), STUB_FRAMES, cfg.d_model),
             dtype=torch.bfloat16, device=device)}
     tracer = Tracer() if (args.trace or args.metrics) else None
     attribution = (Attributor(MachineSpec.detect(

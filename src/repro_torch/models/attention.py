@@ -1,8 +1,7 @@
 """GQA attention layer (qk-norm, qkv-bias): full-sequence, dense-cache and
-paged-pool modes.
+paged-pool modes, and the encoder-decoder's cross-attention.
 
-The port's counterpart of ``repro/models/attention.py`` (self-attention
-only; the encoder-decoder cross paths come with encdec).  Caches and pools
+The port's counterpart of ``repro/models/attention.py``.  Caches and pools
 are updated in place (the reference returns updated copies that XLA aliases
 through donation); every write lands on the cache's own stream before the
 attention that reads it.  RoPE arrives as ``rope = (cos, sin)`` tables at
@@ -87,18 +86,39 @@ def project_kv(p, x, cfg, *, positions=None, rope=True):
     return k, v
 
 
-def attn_forward(p, x, cfg, *, positions=None, window=None, causal=True):
-    """Full-sequence self-attention (training / encoder): x (B, S, D) at
-    ``positions`` (``arange(S)`` by default) through the flash kernel."""
+def _project_q_only(p, x, cfg):
+    """Query projection only (cross-attention): x (B, S, D) -> q
+    (B, Hq, S, hd), q-norm'd."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim_resolved
+    q = torch.matmul(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    return q
+
+
+def attn_forward(p, x, cfg, *, positions=None, window=None, causal=True,
+                 cross_kv=None):
+    """Full-sequence attention (training / encoder): x (B, S, D) at
+    ``positions`` (``arange(S)`` by default) through the flash kernel.
+    ``cross_kv``: an encoder's (k, v), (B, Hkv, S_enc, hd) each; the
+    queries attend over all of them, with neither RoPE nor a causal mask
+    (cross-attention)."""
     s = x.shape[1]
-    q, k, v = _project_qkv(p, x, cfg)
-    if cfg.rope_theta:
+    if cross_kv is None:
+        q, k, v = _project_qkv(p, x, cfg)
+    else:
+        q, (k, v) = _project_q_only(p, x, cfg), cross_kv
+    if cross_kv is None and cfg.rope_theta:
         pos = positions if positions is not None else torch.arange(
             s, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     out = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=causal, window=window)
+                        causal=causal and cross_kv is None, window=window)
     return _out_proj(p, out)
 
 
@@ -241,3 +261,15 @@ def attn_prefill_paged(p, x, cfg, k_pool, v_pool, bt_row, chunk, q_start,
     out = ops.paged_prefill_attention(q.contiguous(), k_pool, v_pool,
                                       bt_row[None], q_start, window=window)
     return _out_proj(p, out)
+
+
+def attn_cross_decode(p, x, k_cross, v_cross, cfg):
+    """Decode-time cross-attention: x (B, 1, D) against one layer's fixed
+    encoder strips k_cross / v_cross (B, Hkv, S_enc, hd), every key of the
+    strip valid (``ops.decode_attention`` at ``kv_len = S_enc``).  Returns
+    (B, 1, D)."""
+    b = x.shape[0]
+    q = _project_q_only(p, x, cfg)
+    kv_len = torch.full((b,), k_cross.shape[2], dtype=torch.int32,
+                        device=x.device)
+    return _out_proj(p, ops.decode_attention(q, k_cross, v_cross, kv_len))

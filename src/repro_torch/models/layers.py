@@ -1,4 +1,5 @@
-"""Model substrate: param templates and init, norms, RoPE, SwiGLU, embedding.
+"""Model substrate: param templates and init, norms, RoPE, sinusoidal
+positions, SwiGLU and GELU MLPs, embedding.
 
 The port's counterpart of ``repro/models/layers.py``.  Parameters are plain
 nested dicts of tensors with the reference's tree layout (layer stacks on
@@ -8,6 +9,7 @@ other leaf for leaf.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import zlib
 
@@ -148,6 +150,16 @@ def rmsnorm(w, x, eps=1e-6):
     return (x32 * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
 
 
+def layernorm(w, b, x, eps=1e-5):
+    """fp32 LayerNorm (population variance) with scale and shift, cast back
+    to x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
 def silu(x):
     return x * torch.sigmoid(x)
 
@@ -190,6 +202,31 @@ def apply_rope(x, positions, theta: float = 10000.0):
 
 
 # ---------------------------------------------------------------------------
+# Sinusoidal positions (the encoder-decoder family).
+# ---------------------------------------------------------------------------
+
+def sinusoid_div(d: int) -> np.ndarray:
+    """The sinusoids' frequencies, float64 numpy (d / 2,)."""
+    return np.exp(-np.log(10000.0) * np.arange(0, d, 2) / d)
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoid_table(n: int, d: int) -> np.ndarray:
+    pos = np.arange(n)[:, None]
+    pe = np.zeros((n, d), np.float32)
+    pe[:, 0::2] = np.sin(pos * sinusoid_div(d))
+    pe[:, 1::2] = np.cos(pos * sinusoid_div(d))
+    return pe
+
+
+def sinusoidal_positions(n: int, d: int, device="cpu") -> torch.Tensor:
+    """(n, d) fp32 table, sin on even and cos on odd columns: built in
+    float64 numpy and cast to fp32, as the reference builds it (once per
+    shape; each call gets its own copy)."""
+    return torch.from_numpy(_sinusoid_table(n, d)).to(device, copy=True)
+
+
+# ---------------------------------------------------------------------------
 # MLP and embedding.
 # ---------------------------------------------------------------------------
 
@@ -205,6 +242,23 @@ def swiglu_apply(p, x):
     g = silu(torch.matmul(x, p["gate"]))
     u = torch.matmul(x, p["up"])
     return torch.matmul(g * u, p["down"])
+
+
+def gelu_mlp_templates(d_model: int, d_ff: int) -> dict:
+    return {
+        "up": PT((d_model, d_ff), "scaled"),
+        "up_b": PT((d_ff,), "zeros"),
+        "down": PT((d_ff, d_model), "scaled"),
+        "down_b": PT((d_model,), "zeros"),
+    }
+
+
+def gelu_mlp_apply(p, x):
+    """Biased up and down projections around a GELU in its tanh form
+    (``jax.nn.gelu``'s default; the erf form parts from it near 1e-3)."""
+    h = torch.nn.functional.gelu(torch.matmul(x, p["up"]) + p["up_b"],
+                                 approximate="tanh")
+    return torch.matmul(h, p["down"]) + p["down_b"]
 
 
 def embed_templates(vocab: int, d_model: int) -> dict:

@@ -1,5 +1,5 @@
-"""Family dispatch: the port's ``Model`` API, dense, moe, vlm, hybrid and
-ssm families.
+"""Family dispatch: the port's ``Model`` API over the reference's six
+families, dense, moe, vlm, hybrid, ssm and encdec.
 
 The counterpart of ``repro/models/model.py``.  A ``Model`` exposes the
 serving hooks the engine drives:
@@ -16,8 +16,9 @@ serving hooks the engine drives:
                                                 whose stale strips are
                                                 masked by pos instead)
 
-and, for the transformer families, the paged-KV hooks (None for the scan
-families, whose state is O(1) per slot and has no block pool):
+and, for the transformer families, the paged-KV hooks (None for the
+slot-state families, hybrid, ssm and encdec, which serve on the dense slot
+layout):
 
   model.paged_cache_init(batch=, n_blocks=, block_size=, max_blocks=,
                          dtype=, device=)     - empty block-pool cache
@@ -28,18 +29,21 @@ families, whose state is O(1) per slot and has no block pool):
 Two layout flags steer the engine's bookkeeping:
 
   bounded_cache        - ``cache_len`` bounds a request's cache writes (KV
-                         strips).  False for the scan families: ssm (state
-                         O(1) in context) and hybrid (recurrent state plus a
-                         ring that wraps): the engine skips the budget check.
+                         strips, encdec's decoder strips included).  False
+                         for ssm (state O(1) in context) and hybrid
+                         (recurrent state plus a ring that wraps): the
+                         engine skips the budget check.
   supports_prefill_len - the prefill takes ``batch["prefill_len"]`` for
-                         right-padded (bucketed) prompts.  A scan prefill
-                         folds every position into its state, so the engine
-                         refuses ``bucket=`` for it.
+                         right-padded (bucketed) prompts.  A slot-state
+                         prefill folds every position into its state, so
+                         the engine refuses ``bucket=`` for it.
 
 moe and vlm share the dense family's hooks (``models.transformer``); a
 vlm prefill also takes ``batch["patches"]``.  ssm (xlstm,
-``models.xlstm_lm``) and hybrid are the scan families: slot hooks only.
-encdec raises ``NotImplementedError`` until its slice is ported.
+``models.xlstm_lm``), hybrid and encdec (``models.encdec``; its prefill
+also takes ``batch["frames"]``) are the slot-state families: slot hooks
+only, each slot's state zeroed on free.  Any other family raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from . import hybrid, transformer, xlstm_lm
+from . import encdec, hybrid, transformer, xlstm_lm
 from .layers import init_params, param_count
 
 
@@ -119,7 +123,16 @@ def build_model(cfg: ModelConfig) -> Model:
             bounded_cache=False,    # the state does not grow with context
             supports_prefill_len=False,
         )
-    raise NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported yet; the port "
-        "builds the dense, moe, vlm, hybrid and ssm families (encdec is "
-        "still to come)")
+    if cfg.family == "encdec":
+        return Model(
+            cfg, encdec.encdec_templates(cfg),
+            functools.partial(encdec.encdec_prefill, cfg=cfg),
+            functools.partial(encdec.encdec_decode_step, cfg=cfg),
+            encdec.encdec_cache_expand,
+            encdec.encdec_cache_slot_write,
+            cache_slot_reset=encdec.encdec_cache_slot_reset,
+            # the decoder's self strips are cache_len wide: budget enforced
+            supports_prefill_len=False,
+        )
+    raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); the "
+                     "port builds dense, moe, vlm, hybrid, ssm and encdec")

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import ops
 from .attention import (attn_decode, attn_decode_paged, attn_prefill,
                         attn_prefill_paged, attn_templates)
 from .layers import (PT, embed_lookup, embed_templates, rmsnorm,
@@ -83,9 +84,12 @@ def lm_head_weight(params, cfg):
 def _lm_logits(params, x_last, cfg):
     """(B, D) final-norm'd last-token hiddens -> (B, V) fp32 serving logits.
     Both operands go to fp32 as in the reference; at full width the tied
-    embedding's cast is a (V, D) fp32 transient on every call."""
-    logits = torch.matmul(x_last.float(),
-                          lm_head_weight(params, cfg).float())
+    embedding's cast is a (V, D) fp32 transient on every call.  Fewer rows
+    than ``ops.INVARIANT_ROWS`` run padded to it, so a row's logits are
+    the same bits at any batch up to it."""
+    b = x_last.shape[0]
+    logits = torch.matmul(ops.pad_rows(x_last.float()),
+                          lm_head_weight(params, cfg).float())[:b]
     logits = logits[:, :cfg.vocab_size]
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)

@@ -45,6 +45,15 @@ computes them:
   the conv taps (a contraction in ``*_block_decode``, elementwise in the
   prefill), and ``mlstm_step``'s read-out of C and n (its k v^T update is
   an outer product, which the HLO count does not take as a product);
+* encdec (whisper): a prefill runs the encoder over the request's
+  ``enc_len`` frames (its projections and MLP on every frame, attention
+  non-causal over the full ``enc_len`` x ``enc_len`` square), projects
+  every decoder layer's cross K/V from them, and runs the decoder's
+  projections (self q / k / v / o, cross q / o) and GELU MLP on every
+  token, its causal self-attention (``flash_pairs``) and its
+  cross-attention over ``enc_len`` keys a token; a decode step runs the
+  decoder's projections and MLP, self-attention over ``cache_len`` keys
+  and cross-attention over ``enc_len`` keys a row;
 * gemma3's sliding windows change no flops: the reference masks a window
   with a traced per-layer scalar, so its flash path skips no key chunk for
   it, and its paged gather paths walk the whole table as the kernels'
@@ -67,6 +76,8 @@ bounds their reads from above (gemma3's local layers read the same
 extents: the dense decode and the paged gather path mask the window but
 read the whole cache).  xlstm's state (the conv tails and the fp32 cells)
 is read and written once a decode step and written once a prefill.
+encdec's frames are read and its cross strips written once a prefill; a
+decode step reads the strips whole and no encoder weight.
 """
 from __future__ import annotations
 
@@ -110,15 +121,25 @@ def _read_whole_bytes(cfg: ModelConfig, dtype) -> int:
     own dtype (Mamba2's fp32 vectors) or ``dtype``; the embedding table
     only when it is tied (the LM head reads it)."""
     tree = build_model(cfg).templates
-    elem = _itemsize(dtype)
+    return _tree_bytes({k: v for k, v in tree.items()
+                                 if k != "embed" or cfg.tie_embeddings},
+                                _itemsize(dtype))
 
-    def walk(t):
-        if isinstance(t, dict):
-            return sum(walk(v) for v in t.values())
-        return math.prod(t.shape) * (_itemsize(t.dtype) if t.dtype
-                                     else elem)
-    return walk({k: v for k, v in tree.items()
-                 if k != "embed" or cfg.tie_embeddings})
+
+@functools.lru_cache(maxsize=None)
+def _encoder_bytes(cfg: ModelConfig, dtype) -> int:
+    """Bytes of an encdec model's encoder weights (0 for the others)."""
+    if cfg.family != "encdec":
+        return 0
+    tree = build_model(cfg).templates
+    return sum(_tree_bytes(tree[k], _itemsize(dtype))
+               for k in ("enc_layers", "enc_final"))
+
+
+def _tree_bytes(t, elem: int) -> int:
+    if isinstance(t, dict):
+        return sum(_tree_bytes(v, elem) for v in t.values())
+    return math.prod(t.shape) * (_itemsize(t.dtype) if t.dtype else elem)
 
 
 def weight_bytes(cfg: ModelConfig, rows: int, dtype=torch.bfloat16) -> int:
@@ -174,6 +195,32 @@ def flash_pairs(s: int) -> int:
                for lo in range(0, s, c))
 
 
+def _encdec_dec_macs(cfg) -> int:
+    """Per decoder token of encdec: self q / k / v / o, cross q / o and
+    the GELU MLP."""
+    hq = cfg.n_heads * cfg.head_dim_resolved
+    return (_attn_weight_macs(cfg) + 2 * cfg.d_model * hq
+            + 2 * cfg.d_model * cfg.d_ff)
+
+
+def _cross_kv_macs(cfg) -> int:
+    """Per encoder frame: one layer's cross K / V projection."""
+    return 2 * cfg.d_model * cfg.n_kv_heads * cfg.head_dim_resolved
+
+
+def _strip_bytes(cfg, elem: int, positions: int) -> int:
+    """K and V of every decoder layer at ``positions`` positions."""
+    return (cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim_resolved
+            * elem * positions)
+
+
+def _need_enc_len(cfg, enc_len):
+    if enc_len is None:
+        raise ValueError(f"{cfg.name}: an encdec phase's cost needs "
+                         "enc_len, the frames' length")
+    return enc_len
+
+
 def _n_shared(cfg) -> int:
     return cfg.n_layers // cfg.shared_attn_every
 
@@ -224,14 +271,21 @@ def decode_keys(cfg, layout: str, cache_len: int,
     return cache_len
 
 
-def decode(cfg, *, batch: int, keys: int,
-           dtype=torch.bfloat16) -> PhaseCost:
+def decode(cfg, *, batch: int, keys: int, dtype=torch.bfloat16,
+           enc_len: int | None = None) -> PhaseCost:
     """One decode step over ``batch`` slot rows, each attending ``keys``
-    keys (``decode_keys``)."""
+    keys (``decode_keys``) and, for encdec, its ``enc_len`` cross keys."""
     elem = _itemsize(dtype)
     head = cfg.d_model * cfg.padded_vocab
     hd = cfg.head_dim_resolved
-    if cfg.family == "hybrid":
+    weights = weight_bytes(cfg, batch, dtype)
+    if cfg.family == "encdec":
+        enc_len = _need_enc_len(cfg, enc_len)
+        macs = cfg.n_layers * (_encdec_dec_macs(cfg) + _attn_macs(
+            cfg, keys + enc_len)) + head
+        kv = _strip_bytes(cfg, elem, keys + 1 + enc_len)
+        weights -= _encoder_bytes(cfg, dtype)
+    elif cfg.family == "hybrid":
         dims = mamba_dims(cfg)
         state = dims.n_heads * dims.head_dim * dims.d_state
         mamba = (dims.d_model * dims.proj_dim + dims.d_inner * dims.d_model
@@ -254,20 +308,33 @@ def decode(cfg, *, batch: int, keys: int,
             + head
         kv = cfg.n_layers * 2 * cfg.n_kv_heads * hd * elem * (keys + 1)
     return PhaseCost(2.0 * batch * macs,
-                float(weight_bytes(cfg, batch, dtype) + batch * (
+                float(weights + batch * (
                     kv + TOKEN_BYTES + cfg.padded_vocab * LOGIT_BYTES)))
 
 
 def prefill(cfg, *, seq: int, cache_len: int | None = None,
-            dtype=torch.bfloat16) -> PhaseCost:
+            dtype=torch.bfloat16, enc_len: int | None = None) -> PhaseCost:
     """One dense prefill of one ``seq``-token prompt (the port prefills a
-    slot at a time), a vlm's patch prefix ahead of it."""
+    slot at a time), a vlm's patch prefix ahead of it, an encdec's
+    ``enc_len`` frames encoded beside it."""
     elem = _itemsize(dtype)
     head = cfg.d_model * cfg.padded_vocab
     hd = cfg.head_dim_resolved
     tokens, seq = seq, n_prefix(cfg) + seq
     attn = _attn_macs(cfg, flash_pairs(seq))
-    if cfg.family == "hybrid":
+    if cfg.family == "encdec":
+        e = _need_enc_len(cfg, enc_len)
+        encoder = cfg.n_enc_layers * (
+            e * (_attn_weight_macs(cfg) + 2 * cfg.d_model * cfg.d_ff)
+            + _attn_macs(cfg, e * e))
+        decoder = cfg.n_layers * (seq * _encdec_dec_macs(cfg)
+                                  + e * _cross_kv_macs(cfg) + attn
+                                  + _attn_macs(cfg, seq * e))
+        macs = encoder + decoder + head
+        # the frames read; the self strips and cross strips written
+        written = (e * cfg.d_model * elem
+                   + _strip_bytes(cfg, elem, seq + e))
+    elif cfg.family == "hybrid":
         dims = mamba_dims(cfg)
         hs, p, n = dims.n_heads, dims.head_dim, dims.d_state
         q = min(SSD_CHUNK, seq)
@@ -315,18 +382,20 @@ def prefill_chunk(cfg, *, block_size: int,
 
 
 def phase_cost(cfg, key: tuple, *, cache_len: int,
-               block_size: int | None = None,
-               dtype=torch.bfloat16) -> PhaseCost:
+               block_size: int | None = None, dtype=torch.bfloat16,
+               enc_len: int | None = None) -> PhaseCost:
     """The cost of the phase a memo key names: ``("decode", layout, name,
     B)``, ``("prefill", name, S)`` or ``("prefill_chunk", name,
     block_size)``, for an engine of ``cache_len`` (and ``block_size`` when
-    paged) whose weights are ``dtype``."""
+    paged) whose weights are ``dtype``; an encdec engine also gives its
+    frames' length ``enc_len``."""
     kind = key[0]
     if kind == "decode":
-        return decode(cfg, batch=key[3], dtype=dtype,
+        return decode(cfg, batch=key[3], dtype=dtype, enc_len=enc_len,
                       keys=decode_keys(cfg, key[1], cache_len, block_size))
     if kind == "prefill":
-        return prefill(cfg, seq=key[2], cache_len=cache_len, dtype=dtype)
+        return prefill(cfg, seq=key[2], cache_len=cache_len, dtype=dtype,
+                       enc_len=enc_len)
     if kind == "prefill_chunk":
         return prefill_chunk(cfg, block_size=key[2], dtype=dtype)
     raise ValueError(f"unknown phase {kind!r} in key {key!r}")

@@ -75,11 +75,10 @@ locked, for the threaded driver), each replica records into its own
 registry, and ``_aggregate``'s merge derives the cluster's figures from the
 union.
 
-Per-request side inputs (``extra_inputs=``, the vlm's patches) go to
-every replica whole; a request's row is its submission order, whichever
-replica admits it and however often it is preempted.
-
-Not ported yet: the encdec family's ``extra_inputs`` (encoder frames).
+Per-request side inputs (``extra_inputs=``, the vlm's patches, the encdec
+family's encoder frames) go to every replica whole; a request's row is its
+submission order, whichever replica admits it and however often it is
+preempted.
 """
 from __future__ import annotations
 

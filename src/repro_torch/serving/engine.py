@@ -70,16 +70,17 @@ in the reference, nor are a resumed paged request's replay steps (the
 reference re-prefills those positions in attributed chunks).  Host-side
 only: the tokens do not depend on it.
 
-Per-request side inputs (``extra_inputs=``, the vlm's patches): each leaf
-holds one row a request, taken by submission order (``_gather_extra``; a
-leaf of one row broadcasts).  A vlm prefill puts ``n_patches`` model-side
+Per-request side inputs (``extra_inputs=``, the vlm's patches, the
+encdec family's encoder frames): each leaf holds one row a request, taken
+by submission order (``_gather_extra``; a leaf of one row broadcasts), in
+the continuous admit, the lockstep group prefill and a preempted request's
+re-admission alike.  A vlm prefill puts ``n_patches`` model-side
 positions ahead of the tokens (``_n_prefix``): the prefill position, the
 write budget, the bucket cap, the chunk feed and the paged replay count
 them, and the prefix cache is refused (patch rows have no token ids to
-hash).
-
-Not ported yet (a later slice): the encdec family's ``extra_inputs``
-(encoder frames).
+hash).  An encdec prefill encodes its frames and keeps their cross strips
+in the slot beside the decoder's self strips; the frames' length is the
+cost layer's ``enc_len``.
 """
 from __future__ import annotations
 
@@ -551,10 +552,12 @@ class ServeEngine:
     def _phase_cost(self, key: tuple):
         """The memoized cost of the phase ``key`` names at this engine's
         shapes (``roofline.phase_cost``)."""
+        frames = self.extra.get("frames")
         return self.attr.phase_cost(key, lambda: phase_cost(
             self.model.cfg, key, cache_len=self.cache_len,
             block_size=getattr(self, "block_size", None),
-            dtype=self.params["embed"]["embedding"].dtype))
+            dtype=self.params["embed"]["embedding"].dtype,
+            enc_len=None if frames is None else frames.shape[1]))
 
     def _slot_track(self, i: int) -> str:
         return f"{self.track}/slot{i}"

@@ -12,8 +12,8 @@ and ``repro_torch.roofline``) held against the reference's
   ``phase_cost`` flops for every key the reference records on the same
   smoke traces (qwen3 paged and dense, zamba2 dense, granite-moe,
   qwen3-moe, phi-3-vision (stub patches) and gemma3 paged and dense,
-  xlstm dense, also at prompts of one and two mLSTM chunks, a two-replica
-  cluster), with the same key sets;
+  xlstm dense, also at prompts of one and two mLSTM chunks, whisper dense
+  (stub frames), a two-replica cluster), with the same key sets;
 * the port's bytes against one case computed by hand;
 * the engine, the cluster (one attributor shared by the replicas, under
   both drivers) and ``--attribution`` on the CPU (gemma3, yi and xlstm
@@ -262,12 +262,20 @@ def test_attr_metrics_merge_losslessly():
 # The cost layer: flops equal to the reference's HLO count per key.
 # ---------------------------------------------------------------------------
 
-def _stub_patches(cfg, xp):
-    """The serve CLI's stub patches (zeros, one row for every request) of
-    a vlm, as ``extra_inputs=``; None for the other families."""
-    if cfg.family != "vlm":
-        return None
-    return {"patches": xp.zeros((1, cfg.n_patches, cfg.patch_embed_dim))}
+STUB_FRAMES = 16   # the serve CLIs' stub frames a request
+
+
+def _stub_inputs(cfg, xp, dtype):
+    """The serve CLI's stub side inputs (zeros, one row for every request)
+    as ``extra_inputs=``: a vlm's patches, an encdec's frames; None for
+    the other families."""
+    if cfg.family == "vlm":
+        return {"patches": xp.zeros((1, cfg.n_patches, cfg.patch_embed_dim),
+                                    dtype=dtype)}
+    if cfg.family == "encdec":
+        return {"frames": xp.zeros((1, STUB_FRAMES, cfg.d_model),
+                                   dtype=dtype)}
+    return None
 
 
 def _ref_costs(arch, layout, cache_len, replicas=None):
@@ -275,7 +283,7 @@ def _ref_costs(arch, layout, cache_len, replicas=None):
     model = ref_build(cfg)
     params = model.init(jax.random.key(0))
     at = RefAttributor(spec=REF_SPEC)
-    extra = _stub_patches(cfg, jax.numpy)
+    extra = _stub_inputs(cfg, jax.numpy, jax.numpy.bfloat16)
     if replicas:
         eng = RefClusterEngine(model, params, replicas=replicas,
                                total_slots=2 * replicas, cache_len=cache_len,
@@ -295,7 +303,7 @@ def _port_run(arch, layout, cache_len, replicas=None, driver="sequential"):
     model = build_model(cfg)
     params = model.init(0, device="cpu", dtype=torch.float32)
     at = Attributor(spec=SPEC)
-    extra = _stub_patches(cfg, torch)
+    extra = _stub_inputs(cfg, torch, torch.float32)
     if replicas:
         eng = ClusterEngine(model, params, replicas=replicas,
                             total_slots=2 * replicas, cache_len=cache_len,
@@ -366,6 +374,13 @@ REF_FLOPS = {
         ("prefill", "xlstm-smoke", 4): 1568768,
         ("prefill", "xlstm-smoke", 5): 1957888,
         ("prefill", "xlstm-smoke", 6): 2349056},
+    # the encoder over 16 stub frames rides in every prefill, the cross
+    # strips' 16 keys in every decode row
+    ("whisper-base", "dense", 48): {
+        ("decode", "dense", "whisper-smoke", 3): 688128,
+        ("prefill", "whisper-smoke", 4): 3481600,
+        ("prefill", "whisper-smoke", 5): 3658240,
+        ("prefill", "whisper-smoke", 6): 3835904},
     ("zamba2-1.2b", "dense", 48): {
         ("decode", "dense", "zamba2-smoke", 3): 1328640,
         ("prefill", "zamba2-smoke", 4): 1622016,

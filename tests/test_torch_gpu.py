@@ -1614,3 +1614,95 @@ def test_xlstm_on_card_matches_cpu(cuda):
                               mode=m).generate(uniform)
                   for m in ("continuous", "lockstep"))
     assert [r.tokens for r in cont] == [r.tokens for r in lock]
+
+
+@pytest.mark.parametrize("dtype,tol,kind", [(torch.float32, 1e-4, "simt"),
+                                            (torch.bfloat16, 1e-2, "mma")])
+@pytest.mark.parametrize("sq", [1500, 4, 64, 448])
+def test_flash_at_whisper_shapes(cuda, sq, dtype, tol, kind):
+    """whisper-base's flash shapes, non-causal, 8 / 8 heads of 64, B 1:
+    the encoder (Sq = Sk = 1500, past any multiple of 64 or 128) and
+    cross-attention (a prompt of Sq < Sk = 1500 queries), on the dtype's
+    route, within the dtype's tolerance of the plain version."""
+    q, k, v = _flash_qkv(11, cuda, dtype, b=1, hq=8, g=1, sq=sq, sk=1500,
+                         d=64)
+    n0, r0 = fa.LAUNCHES["flash_attention"], fa.ROUTES[kind]
+    got = fa.flash_attention_cuda(q, k, v, causal=False)
+    assert fa.LAUNCHES["flash_attention"] == n0 + 1
+    assert fa.ROUTES[kind] == r0 + 1
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_whisper_on_card_matches_cpu(cuda):
+    """A narrow fp32 copy of whisper-base (2 + 2 layers, d_model 128, 8
+    heads of 64): prefill logits at frames of 40 and 300 on the card
+    within 1e-4 of their scale of the CPU's, the greedy tokens of
+    continuous serving with a frame row a request equal, and lockstep on a
+    uniform trace equal to continuous."""
+    cfg = dataclasses.replace(get_config("whisper-base"), n_layers=2,
+                              n_enc_layers=2, d_model=128, d_ff=256,
+                              vocab_size=1000)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    on_card = _params_on(params, cuda)
+    rng = np.random.default_rng(9)
+    for frames in (40, 300):
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, 1000, (1, 9)).astype(np.int32)),
+            "frames": torch.from_numpy(rng.standard_normal(
+                (1, frames, 128)).astype(np.float32))}
+        want = model.prefill(params, batch)[0]
+        got = model.prefill(on_card, {k: v.to(cuda) for k, v in
+                                      batch.items()})[0].cpu()
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+    frames = torch.from_numpy(rng.standard_normal((4, 40, 128)).astype(
+        np.float32))
+    prompts = [rng.integers(0, 1000, n).tolist() for n in (3, 9, 17, 30)]
+    reqs = [Request(p, 12, rid=i) for i, p in enumerate(prompts)]
+    want, got = ([r.tokens for r in ServeEngine(
+        model, p, max_batch=2, cache_len=64,
+        extra_inputs={"frames": frames}).generate(reqs)]
+        for p in (params, on_card))
+    assert got == want
+    uniform = [Request(rng.integers(0, 1000, 8).tolist(), 8, rid=i)
+               for i in range(4)]
+    cont, lock = (ServeEngine(model, on_card, max_batch=4, cache_len=64,
+                              mode=m, extra_inputs={"frames": frames})
+                  .generate(uniform) for m in ("continuous", "lockstep"))
+    assert [r.tokens for r in cont] == [r.tokens for r in lock]
+
+
+def test_decode_rows_are_batch_invariant(cuda):
+    """whisper-base at full width in bf16: a slot's decode logits at B = 1
+    equal its row of a B = 8 step bit for bit (the fp32 decode attention
+    and LM head run padded to ``ops.INVARIANT_ROWS``; without the padding
+    cuBLAS reduces a one-row fp32 product in another order), and so the
+    narrow cluster replicas decode as the wide engine does."""
+    from repro_torch.kernels import ops
+    cfg = get_config("whisper-base")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    subs = []
+    for i, n in enumerate((3, 9, 17, 30, 4, 12, 20, 64)):
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, n),
+                                         generator=gen, device=cuda),
+                 "frames": torch.randn((1, 200, cfg.d_model), generator=gen,
+                                       device=cuda).bfloat16()}
+        subs.append(model.prefill(params, batch, cache_len=96)[1])
+    pool = model.cache_expand(subs[0], ops.INVARIANT_ROWS)
+    for i, sub in enumerate(subs):
+        model.cache_slot_write(pool, sub, i)
+    feed = torch.randint(0, cfg.vocab_size, (ops.INVARIANT_ROWS, 1),
+                         generator=gen, device=cuda)
+    wide = model.decode(params, {k: v.clone() for k, v in pool.items()},
+                        feed)[0]
+    for i, sub in enumerate(subs):
+        one = model.cache_slot_write(model.cache_expand(sub, 1), sub, 0)
+        assert torch.equal(model.decode(params, one, feed[i:i + 1])[0],
+                           wide[i:i + 1]), i

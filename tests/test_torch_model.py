@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as ref_get
+from repro.configs import list_archs as ref_list_archs
 from repro.configs import smoke_config as ref_smoke
 from repro.models import build_model as ref_build
 from repro_torch.bridge import params_from_reference
@@ -123,17 +124,18 @@ def test_bridge_carries_bf16_bits_and_rejects_mismatches():
 
 
 def test_registry_and_templates_match_reference():
-    """The port builds the dense archs qwen3-0.6b, qwen2.5-3b, yi-6b and
-    gemma3-27b, the hybrid zamba2-1.2b, the ssm xlstm-350m, the moe archs
-    granite-moe-1b-a400m and qwen3-moe-235b-a22b and the vlm
-    phi-3-vision-4.2b, with the reference's configs and the reference's
-    param trees (names, shapes and leaf dtypes: the moe router and the
-    xlstm gates stay fp32) at full width.  encdec, the family still to
-    port, raises."""
-    assert list_archs() == ["gemma3-27b", "granite-moe-1b-a400m",
-                            "phi-3-vision-4.2b", "qwen2.5-3b", "qwen3-0.6b",
-                            "qwen3-moe-235b-a22b", "xlstm-350m", "yi-6b",
-                            "zamba2-1.2b"]
+    """The port builds all ten archs of the reference: the dense
+    qwen3-0.6b, qwen2.5-3b, yi-6b and gemma3-27b, the hybrid zamba2-1.2b,
+    the ssm xlstm-350m, the moe granite-moe-1b-a400m and
+    qwen3-moe-235b-a22b, the vlm phi-3-vision-4.2b and the encdec
+    whisper-base, with the reference's configs and the reference's param
+    trees (names, shapes and leaf dtypes: the moe router and the xlstm
+    gates stay fp32) at full width.  An unknown family raises
+    ``ValueError``, as in the reference."""
+    assert list_archs() == ref_list_archs() == [
+        "gemma3-27b", "granite-moe-1b-a400m", "phi-3-vision-4.2b",
+        "qwen2.5-3b", "qwen3-0.6b", "qwen3-moe-235b-a22b", "whisper-base",
+        "xlstm-350m", "yi-6b", "zamba2-1.2b"]
 
     def shapes(t, f):
         return {k: shapes(v, f) if isinstance(v, dict) else f(v)
@@ -151,9 +153,11 @@ def test_registry_and_templates_match_reference():
             == shapes(ref_model.templates,
                       lambda t: t.dtype == jnp.float32)
         assert model.n_params == ref_model.n_params
-    with pytest.raises(NotImplementedError, match="encdec"):
-        build_model(dataclasses.replace(get_config("qwen3-0.6b"),
-                                        family="encdec"))
+    bogus = dataclasses.replace(get_config("qwen3-0.6b"), family="bogus")
+    with pytest.raises(ValueError, match="bogus"):
+        build_model(bogus)
+    with pytest.raises(ValueError, match="bogus"):
+        ref_build(dataclasses.replace(ref_get("qwen3-0.6b"), family="bogus"))
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):

@@ -26,6 +26,8 @@ row a request) runs dense continuous, lockstep (uniform lengths), paged
 ``bucket="pow2"``, cluster 2x1 under both drivers and a starved 2x2
 cluster that preempts.
 
+The encdec family (whisper-base's smoke config, a seeded frame row of 6
+frames a request) runs the scan families' matrix too.
 Hypothesis draws the traces; the reference's seeds on record, 218 and
 53156 (and 6480 for the hybrid family; 87, 1981929570 and 5148, where the
 reference's ssm cluster-Nx1 parts from continuous, for the ssm family), are
@@ -360,11 +362,11 @@ def test_paged_prefill_shape_is_trace_invariant(harness):
 # The hybrid family: slot-addressable recurrent state, dense clusters.
 # ---------------------------------------------------------------------------
 
-def _scan_engines(arch):
+def _scan_engines(arch, extra_inputs=None):
     cfg = smoke_config(arch)
     model = build_model(cfg)
     params = model.init(0, device="cpu", dtype=torch.float32)
-    kw = dict(cache_len=CACHE_LEN)
+    kw = dict(cache_len=CACHE_LEN, extra_inputs=extra_inputs)
     engines = {
         "continuous": ServeEngine(model, params, max_batch=SLOTS,
                                   mode="continuous", **kw),
@@ -387,10 +389,23 @@ def scan_harness():
     return _scan_engines("zamba2-1.2b")
 
 
+def _set_extra(engines, rows):
+    """Give every engine of a harness (each replica of a cluster) the
+    trace's side inputs."""
+    for eng in engines.values():
+        for e in (eng, *getattr(eng, "engines", ())):
+            e.extra = rows
+
+
 def _check_scan_conformance(scan_harness, seed: int,
-                            attributed: bool = False):
+                            attributed: bool = False, extra=None):
+    """Every cell of a slot-state family's matrix against its continuous
+    cell.  ``extra(n, seed)`` gives the trace's per-request side inputs,
+    set on every engine for the trace."""
     cfg, engines = scan_harness
     reqs, key = _draw_trace(np.random.default_rng(seed), cfg.vocab_size)
+    if extra is not None:
+        _set_extra(engines, extra(len(reqs), seed))
     uniform = len({len(r.prompt) for r in reqs}) == 1
     ref = engines["continuous"].generate(reqs, key=key)
     assert [len(r.tokens) for r in ref] == [q.max_new_tokens for q in reqs]
@@ -469,6 +484,100 @@ def test_ssm_conformance_fallback(ssm_harness, attributed, seed):
 
 
 # ---------------------------------------------------------------------------
+# The encdec family (whisper): encoder frames a request, cross strips in the
+# slot pool; the hybrid family's matrix.
+# ---------------------------------------------------------------------------
+
+ENC_FRAMES = 6
+
+
+def _frame_rows(n, seed):
+    """One seeded (ENC_FRAMES, d_model) frame row a request of the trace,
+    by submission order."""
+    cfg = smoke_config("whisper-base")
+    return {"frames": torch.from_numpy(
+        np.random.default_rng(seed).standard_normal(
+            (n, ENC_FRAMES, cfg.d_model)).astype(np.float32))}
+
+
+@pytest.fixture(scope="module")
+def encdec_harness():
+    return _scan_engines("whisper-base", _frame_rows(1, 0))
+
+
+@pytest.mark.skipif(not HAS_HYPOTHESIS,
+                    reason="hypothesis drives the examples; the seeded "
+                           "fallback below covers the no-dep environment")
+@ATTRIBUTION
+@settings(max_examples=N_SCAN_EXAMPLES, deadline=None)
+@given(st.integers(0, 2 ** 31 - 1))
+@example(PINNED[0])
+@example(PINNED[1])
+def test_encdec_conformance_random_traces(encdec_harness, attributed, seed):
+    """whisper x {continuous, lockstep on uniform lengths} x {single, 1xN,
+    Nx1 sequential and threaded} x attribution off and on, a seeded frame
+    row a request: byte-identical tokens per trace."""
+    _check_scan_conformance(encdec_harness, seed, attributed, _frame_rows)
+
+
+@pytest.mark.skipif(HAS_HYPOTHESIS,
+                    reason="hypothesis variant runs the examples")
+@ATTRIBUTION
+@pytest.mark.parametrize("seed", FALLBACK)
+def test_encdec_conformance_fallback(encdec_harness, attributed, seed):
+    _check_scan_conformance(encdec_harness, seed, attributed, _frame_rows)
+
+
+def test_encdec_slots_zeroed_replay_and_refused_knobs(encdec_harness):
+    """A preempted encdec request re-admitted with its own frame row
+    resumes its stream byte for byte (prompt and frames prefilled again,
+    ``done`` replayed); after the drain every freed slot's ``k``, ``v``,
+    ``xk``, ``xv`` and ``pos`` are zero; ``bucket=`` and
+    ``kv_layout="paged"`` are refused."""
+    cfg, engines = encdec_harness
+    eng = engines["continuous"]
+    _set_extra(engines, _frame_rows(3, 7))
+    reqs = [Request(list(range(3 + 2 * i)), MAX_NEW,
+                    temperature=(0.9 if i == 1 else 0.0), rid=i)
+            for i in range(3)]
+    def drain(preempt_at=None):
+        eng.begin_session(key=(0, 5))
+        for i, r in enumerate(reqs):
+            assert eng.session_admit(r, tag=i, extra_row=i) is None
+        out, steps, requeued = {}, 0, None
+        while eng.session_active:
+            for tag, res in eng.session_step():
+                out[tag] = res.tokens
+            steps += 1
+            if steps == preempt_at:
+                slot = next(i for i, sl in eng.session_slots()
+                            if sl.req.rid == 1)
+                tag, requeued = eng.session_preempt(slot)
+                eng.session_admit(requeued, tag=tag, extra_row=1)
+        cache = eng._sess.cache
+        replayed = eng._sess.metrics.counter("resume_replay_tokens").n
+        eng.end_session()
+        return [out[i] for i in range(3)], cache, requeued, replayed
+
+    # every request ends at the same step: each slot freed after the last
+    # decode that ran
+    want, cache, _, _ = drain()
+    for k in ("k", "v", "xk", "xv", "pos"):
+        assert not bool(cache[k].any()), k
+    got, _, requeued, replayed = drain(preempt_at=3)
+    assert requeued is not None and replayed == len(requeued.done) == 4
+    assert got == want
+    assert want == [r.tokens for r in eng.generate(reqs, key=(0, 5))]
+    model, params = eng.model, eng.params
+    with pytest.raises(ValueError, match="bucket"):
+        ServeEngine(model, params, max_batch=SLOTS, cache_len=CACHE_LEN,
+                    bucket="pow2")
+    with pytest.raises(ValueError, match="paged"):
+        ServeEngine(model, params, max_batch=SLOTS, cache_len=CACHE_LEN,
+                    kv_layout="paged")
+
+
+# ---------------------------------------------------------------------------
 # The moe family: dropless routing on every path.
 # ---------------------------------------------------------------------------
 
@@ -502,10 +611,7 @@ def _check_family_conformance(harness, seed, family, extra=None):
     reqs, key = _draw_trace(np.random.default_rng(seed), cfg.vocab_size)
     uniform = len({len(r.prompt) for r in reqs}) == 1
     if extra is not None:
-        rows = extra(len(reqs), seed)
-        for eng in engines.values():
-            for e in (eng, *getattr(eng, "engines", ())):
-                e.extra = rows
+        _set_extra(engines, extra(len(reqs), seed))
     ref = engines["dense-continuous"].generate(reqs, key=key)
     assert [len(r.tokens) for r in ref] == [q.max_new_tokens for q in reqs]
     for name, eng in engines.items():
@@ -618,10 +724,7 @@ def test_vlm_pressure_cluster_preempts_invisibly(vlm_harness):
     reqs = [Request(list(range(i, i + MAX_PROMPT)), MAX_NEW,
                     temperature=(0.9 if i % 2 else 0.0), rid=i)
             for i in range(6)]
-    rows = _vlm_rows(6, 11)
-    for eng in engines.values():
-        for e in (eng, *getattr(eng, "engines", ())):
-            e.extra = rows
+    _set_extra(engines, _vlm_rows(6, 11))
     ref = engines["dense-continuous"].generate(reqs, key=(0, 19))
     cl = engines["cluster-2x2-pressure"]
     got = cl.generate(reqs, key=(0, 19))
