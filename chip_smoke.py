@@ -173,8 +173,7 @@ Phases, each of which exits non-zero on failure:
               local layers on the gather path), profiles of a decode step
               and a chunk on each layout and one layer's kernel beside the
               gather path; a 6-layer fp32 copy at full width paged ==
-              dense on all 8 rids and its first-token logits at 1100
-              tokens (fp32 1e-4, bf16 1.5x the CPU's); yi-6b at full width
+              dense on all 8 rids; yi-6b at full width
               paged (bs 16) and dense, each twice; xlstm-350m at full
               width continuous twice, with attribution on, lockstep ==
               continuous on 8 x 256, a sampled row preempted and replayed
@@ -232,7 +231,32 @@ Phases, each of which exits non-zero on failure:
               simt); its Fig 4/5 model rows; and beside the kernel
               times of those runs, which are the pool's only kernel
               timer, the plain version's, the library call's and the
-              bound; then each launch of fft's plan at 2^24 timed alone.
+              bound; then each launch of fft's plan at 2^24 timed alone;
+12. train   - training (after phase 9d; its attention timing after
+              phase 4's): (a) the flash kernel under autograd
+              (``ops.attention`` with inputs that require grad: the
+              kernel's forward keeping each row's log-sum-exp, the plain
+              backward) against the all-plain path on the card at
+              qwen3-0.6b's heads (16 / 8 of 128, B 2, S 1024), with a
+              window of 256, and at d 64 and d 96 (S 512), bf16 and fp32:
+              ``out`` with the lse bit-identical to the launch without it,
+              the lse against the plain forward's, dq / dk / dv within
+              1e-5 of scale in fp32 and, in bf16, no farther from the fp32
+              plain gradients than twice the plain bf16 path; (b) a narrow
+              fp32 copy of qwen3-0.6b (full width, 2 layers, B 2, S 256):
+              loss and every gradient leaf on the card within 1e-4 of each
+              leaf's scale of the CPU port's (TF32 off); (c) qwen3-0.6b at
+              full width in bf16 through ``Trainer`` (AdamW, warmup_cosine
+              (1e-3, 2, 20), SyntheticTokens B 8 S 1024 seed 0, checkpoints
+              every 4 steps under the gitignored build/): 6 steps straight,
+              the counts zeroed just before and read just after (56 flash
+              launches a step, all mma, no paged launch), the loss falling
+              from step 1 to 6, then 4 steps and a resume to 6 whose step-6
+              loss equals the straight run's within rtol 1e-4; step wall
+              time and tokens/s, peak memory, a profiled step and the LM
+              head's and AdamW's event times; and at (c)'s attention shape
+              the flash forward with and without the lse, the plain
+              backward, SDPA's forward and backward, and their bounds.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line, and the result line
@@ -448,6 +472,21 @@ EXACT_OPS = ("pathfinder", "jacobi2d", "dropout", "exp", "dwt")
 # 255 / 256 in bf16), taken modulo the shape
 PLANT_CELLS = {"pathfinder": ((1, 895), (64, 896), (65, 127), (-1, -1)),
                "jacobi2d": ((63, 127), (64, 128), (1, 255), (2, 256))}
+
+
+# the training phase (12): flash under autograd against the all-plain path
+# on the card, (label, B, Hq, g, D, S, window), causal, bf16 and fp32:
+# qwen3-0.6b's heads at the full-width step's S, a window of 256, and the
+# moe and vlm paths' head dims (granite-moe d 64, phi-3-vision d 96)
+TRAIN_FLASH_CASES = (("qwen3", 2, 16, 2, 128, 1024, None),
+                     ("qwen3 window=256", 2, 16, 2, 128, 1024, 256),
+                     ("granite-moe d=64", 2, 16, 2, 64, 512, None),
+                     ("phi-3-vision d=96", 2, 32, 1, 96, 512, None))
+TRAIN_NARROW = (2, 2, 256)   # the fp32 copy of qwen3-0.6b: layers, B, S
+# qwen3-0.6b at full width in bf16: B, S, steps straight, the step the
+# second run stops at and resumes from, checkpoint cadence
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_CKPT_EVERY = (
+    8, 1024, 6, 4, 4)
 
 
 class SmokeFailure(Exception):
@@ -2487,7 +2526,6 @@ GEMMA3_FLASH_S = ((1024, 1024), (1025, 1025), (1800, 1800), (600, 1800))
 PLANT_ROWS = 256
 GEMMA3_CHUNKS = (0, 16, 28, 31)      # paged prefill parity, bs 64, M 32
 GEMMA3_FP32_LAYERS = 6    # one 5:1 group at full width: ~15.5 GB of fp32
-GEMMA3_CHECK_LEN = 1100   # the fp32 copy's first-token check, past 1024
 # xlstm's trace keeps the mLSTM chunk rule (at most 256, or a multiple)
 XLSTM_PROMPT_LENS = [7, 16, 33, 64, 128, 256, 512, 768]
 XLSTM_UNIFORM = (8, 256)      # lockstep vs continuous: 8 prompts of 256
@@ -2834,9 +2872,10 @@ def phase_gemma3_fp32(torch, cfgs, build_model, serving, kmods, dev, name):
     on seeded random fp32 weights (TF32 off): the gemma3 trace greedy,
     paged at block size 64 and dense continuous, each kernel on its fp32
     route; the tokens must agree on all 8 rids (where rows part, the first
-    differing token and the top-2 gap are logged).  Then its first-token
-    logits at a prompt past the window (``_bf16_check`` on the same values
-    in bf16 and fp32)."""
+    differing token and the top-2 gap are logged).  (Its first-token
+    logits check at a prompt past the window, 54.5 s of CPU time, was cut
+    to make room for the training phase; phase 12(b) and the narrow
+    gemma3 copy of ``phase_new_checks`` hold the card to the CPU.)"""
     import gc
     t0 = time.perf_counter()
     cfg = dataclasses.replace(cfgs.get_config("gemma3-27b"),
@@ -2872,25 +2911,10 @@ def phase_gemma3_fp32(torch, cfgs, build_model, serving, kmods, dev, name):
             f"gemma3 fp32 paged and dense tokens differ (first index per rid "
             f"{diffs})")
     log("gemma3 fp32 L=6 paged vs dense: all 8 rids token-identical")
-    params16 = _cast(params, torch.bfloat16)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    cpu_s = _bf16_check(torch, model, params16,
-                        _trace(cfg, [GEMMA3_CHECK_LEN], 5), dev,
-                        f"{cfg.name} L={cfg.n_layers}")
-    del params16
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"gemma3 fp32 phase: {time.perf_counter() - t0:.1f} s (the "
-        f"first-token check's CPU runs {cpu_s:.1f} s)")
-
-
-def _cast(tree, dtype):
-    """Every leaf cast to ``dtype`` (gemma3 has no leaf of its own
-    dtype)."""
-    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
-            for k, v in tree.items()}
+    log(f"gemma3 fp32 phase: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_yi(torch, cfgs, build_model, serving, kmods, dev, name):
@@ -3738,6 +3762,377 @@ PORT_KERNELS = ("flash_mma_kernel", "flash_attention_kernel",
                 "paged_attention_kernel", "paged_mma_kernel", "ssd_scan_")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: training (qwen3-0.6b's loss, gradients and AdamW; the flash
+# kernel under autograd).
+# ---------------------------------------------------------------------------
+
+def _grad_dist(torch, got, want):
+    """The largest |got - want| over (dq, dk, dv), each over its own
+    scale (the largest |want|)."""
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def _flash_autograd_case(torch, fa, ops, dev, case, dtype):
+    """One case of phase 12(a): the kernel's forward with the log-sum-exp
+    (``out`` bit-identical to a launch without it, ``lse`` against the
+    plain forward's) and gradients through ``ops.attention`` under
+    autograd (the kernel's forward, the plain backward) against the
+    all-plain path on the card: fp32 within 1e-5 of scale; bf16 no farther
+    from the fp32 plain gradients than twice the plain bf16 path."""
+    label, b, hq, g, d, s, window = case
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q, k, v, do = (rnd(b, hq, s, d), rnd(b, hq // g, s, d),
+                   rnd(b, hq // g, s, d), rnd(b, hq, s, d))
+    kw = dict(causal=True, window=window)
+    fp32 = dtype == torch.float32
+    name = f"{label} {str(dtype)[6:]}"
+    out0 = fa.flash_attention_cuda(q, k, v, **kw)
+    out1, lse1 = fa.flash_attention_cuda(q, k, v, **kw, return_lse=True)
+    require(torch.equal(out0, out1),
+            f"train flash {name}: out with lse differs from out without")
+    outp, lsep = fa.flash_attention_plain(q, k, v, **kw, return_lse=True)
+    lse_err = float((lse1 - lsep).abs().max()) / float(lsep.abs().max())
+    lse_tol = 1e-5 if fp32 else 1e-3
+    require(lse_err <= lse_tol, f"train flash {name}: lse {lse_err:.3e} of "
+            f"scale from the plain forward's (limit {lse_tol})")
+    route = fa.route(dtype, d)[0]
+    before = (fa.LAUNCHES["flash_attention"], fa.ROUTES[route])
+    qa, ka, va = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    ops.attention(qa, ka, va, **kw).backward(do)
+    require((fa.LAUNCHES["flash_attention"], fa.ROUTES[route])
+            == (before[0] + 1, before[1] + 1),
+            f"train flash {name}: the autograd forward did not launch the "
+            f"kernel once on {route}")
+    got = (qa.grad, ka.grad, va.grad)
+    plain = fa.flash_attention_backward_plain(q, k, v, outp, lsep, do, **kw)
+    if fp32:
+        dist = _grad_dist(torch, got, plain)
+        ok, limit = dist <= 1e-5, "1e-5 of scale"
+        msg = f"{dist:.3e} of scale from the all-plain path"
+    else:
+        q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+        o32, l32 = fa.flash_attention_plain(q32, k32, v32, **kw,
+                                            return_lse=True)
+        want = fa.flash_attention_backward_plain(q32, k32, v32, o32, l32,
+                                                 do32, **kw)
+        dist, dplain = (_grad_dist(torch, got, want),
+                        _grad_dist(torch, plain, want))
+        ok, limit = dist <= 2 * dplain, f"{2 * dplain:.3e}"
+        msg = (f"{dist:.3e} of scale from the fp32 plain gradients (the "
+               f"plain bf16 path {dplain:.3e})")
+    log(f"train flash {name} (B={b} Hq={hq} Hkv={hq // g} D={d} S={s} "
+        f"window={window}, {route}): out with lse == out without; lse "
+        f"{lse_err:.3e} of scale; dq/dk/dv {msg} (limit {limit}) "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"train flash {name}: gradients off the plain path")
+    return max(dist, lse_err)
+
+
+def _loss_and_grads(torch, model, params, batch, device):
+    """(loss, gradient leaves) of ``model.loss`` with remat on ``device``."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.tree import tree_leaves, tree_map
+    p = tree_map(lambda x: x.detach().to(device).requires_grad_(), params)
+    loss, _ = model.loss(p, to_device(batch, device), remat=True)
+    loss.backward()
+    return loss.detach(), [x.grad for x in tree_leaves(p)]
+
+
+def _train_profile(torch, trainer, state, batch):
+    """One optimizer step under torch.profiler: device ms by kernel kind
+    (the flash forward; bf16 and fp32 GEMMs, the fp32 ones being the plain
+    attention backward's products and the LM head's; the rest:
+    elementwise, reductions, copies) and the top kernels.  A GEMM is a
+    kernel named for cuBLAS's or CUTLASS's families (Hopper's cuBLAS calls
+    its own ``nvjet_*``); an fp32 one names its types ``f32f32`` or is an
+    ``sgemm``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kinds = {"flash forward": 0.0, "bf16 GEMM": 0.0, "fp32 GEMM": 0.0,
+             "other": 0.0}
+    for e in kernels:
+        key = e.key.lower()
+        ms = e.self_device_time_total / 1e3
+        if "flash" in key:
+            kinds["flash forward"] += ms
+        elif any(t in key for t in ("gemm", "xmma", "cutlass", "cublas",
+                                    "nvjet")):
+            fp32 = "f32f32" in key or "sgemm" in key
+            kinds["fp32 GEMM" if fp32 else "bf16 GEMM"] += ms
+        else:
+            kinds["other"] += ms
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return kinds, [(e.key[:70], e.self_device_time_total / 1e3, e.count)
+                   for e in top]
+
+
+def _event_ms(torch, fn, n=3):
+    """Mean ms of ``fn`` on the card's clock (CUDA events), after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def phase_train(torch, cfgs, build_model, kmods, fa, dev, name):
+    """Phase 12: (a) the flash kernel under autograd against the all-plain
+    path (TRAIN_FLASH_CASES, bf16 and fp32); (b) a narrow fp32 copy of
+    qwen3-0.6b (full width, TRAIN_NARROW layers / B / S): loss and every
+    gradient leaf on the card against the CPU port within 1e-4 of each
+    leaf's scale (TF32 off); (c) qwen3-0.6b at full width in bf16 through
+    ``Trainer`` (AdamW, warmup_cosine(1e-3, 2, 20), SyntheticTokens at B 8,
+    S 1024, seed 0; checkpoints under the gitignored build/): 6 steps
+    straight, the counts zeroed just before and read just after (56 flash
+    launches a step, all mma, no paged launch), then 4 steps and a resume
+    to 6 whose step-6 loss equals the straight run's within rtol 1e-4; the
+    loss falls from step 1 to 6; step wall time, tokens/s, peak memory, a
+    profiled step and the LM head's and AdamW's event times."""
+    import gc
+    import shutil
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    err = 0.0
+    for case in TRAIN_FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            err = max(err, _flash_autograd_case(torch, fa, ops, dev, case,
+                                                dtype))
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t0
+
+    # (b) the narrow fp32 copy, card against the CPU
+    t1 = time.perf_counter()
+    n_layers, nb, ns = TRAIN_NARROW
+    cfg = dataclasses.replace(cfgs.get_config("qwen3-0.6b"),
+                              n_layers=n_layers)
+    model = build_model(cfg)
+    params = model.init(3, device="cpu", dtype=torch.float32)
+    batch = SyntheticTokens(cfg, nb, ns, seed=1)(0)
+    reset_launches(kmods)
+    loss_d, grads_d = _loss_and_grads(torch, model, params, batch, dev)
+    routes = read_routes(kmods)
+    loss_c, grads_c = _loss_and_grads(torch, model, params, batch, "cpu")
+    require(routes["flash_attention.simt"] == 2 * n_layers
+            and routes["flash_attention.mma"] == 0,
+            f"train fp32 copy: flash launches {routes} (want "
+            f"{2 * n_layers} on simt: forward and recompute)")
+    worst = max(float((gd.cpu() - gc_).abs().max())
+                / max(float(gc_.abs().max()), 1e-30)
+                for gd, gc_ in zip(grads_d, grads_c))
+    lerr = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    ok = worst <= TOL_FP32 and lerr <= TOL_FP32
+    log(f"train check {cfg.name} L={n_layers} fp32 B={nb} S={ns}: loss card "
+        f"{float(loss_d):.6f} CPU {float(loss_c):.6f} ({lerr:.3e}); "
+        f"{len(grads_c)} gradient leaves, worst {worst:.3e} of the leaf's "
+        f"scale (limit {TOL_FP32}) {'ok' if ok else 'FAIL'}")
+    require(ok, "train fp32 copy: the card's loss or gradients disagree "
+                "with the CPU port")
+    del params, grads_d, grads_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t1
+
+    # (c) full width, bf16, through the Trainer
+    t2 = time.perf_counter()
+    cfg = cfgs.get_config("qwen3-0.6b")
+    model = build_model(cfg)
+    data = SyntheticTokens(cfg, TRAIN_B, TRAIN_S, seed=0)
+    root = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    msgs = []
+
+    def trainer(sub, steps):
+        return Trainer(model, AdamW(lr=warmup_cosine(1e-3, 2, 20)), data,
+                       TrainConfig(steps=steps,
+                                   ckpt_dir=os.path.join(root, sub),
+                                   ckpt_every=TRAIN_CKPT_EVERY, log_every=1),
+                       device=dev, log=msgs.append)
+
+    try:
+        straight = trainer("straight", TRAIN_STEPS)
+        state = straight.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(kmods)
+        state, rows = straight.run(state=state)
+        launches, routes = read_launches(kmods), read_routes(kmods)
+        peak = torch.cuda.max_memory_allocated()
+        per_step = 2 * cfg.n_layers      # the forward and the recompute
+        want = per_step * TRAIN_STEPS
+        paged = sum(n for k, n in launches.items() if k.startswith("paged"))
+        require(launches["flash_attention"] == want
+                and routes["flash_attention.mma"] == want and paged == 0,
+                f"train {cfg.name}: launches {launches} routes {routes} "
+                f"(want {per_step} flash a step on mma, no paged launch)")
+        losses = [r["loss"] for r in rows]
+        require(all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0],
+                f"train {cfg.name}: losses {losses} do not fall")
+        times = sorted(r["time_s"] for r in rows[2:])
+        med = (times[len(times) // 2 - 1] + times[len(times) // 2]) / 2
+        log(f"train {cfg.name} bf16 B={TRAIN_B} S={TRAIN_S} remat: losses "
+            f"{[round(x, 5) for x in losses]}; grad norms "
+            f"{[round(r['grad_norm'], 4) for r in rows]}; step wall s "
+            f"{[round(r['time_s'], 4) for r in rows]}; median of steps 3-6 "
+            f"{med:.4f} s, {TRAIN_B * TRAIN_S / med:.1f} tokens/s; peak "
+            f"memory {peak / 2**30:.2f} GiB "
+            f"({peak} bytes, torch.cuda.max_memory_allocated); flash "
+            f"launches {launches['flash_attention']} ({per_step} a step, all "
+            f"mma), paged 0 | {name}")
+        # one profiled step, and the LM head's and AdamW's own times
+        batch = to_device(data(TRAIN_STEPS), dev)
+        kinds, top = _train_profile(torch, straight, state, batch)
+        log(f"train profile one step ({cfg.name}, B={TRAIN_B} S={TRAIN_S}): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds.items())
+            + f", all {sum(kinds.values()):.2f} device ms")
+        for kname, ms, count in top:
+            log(f"train profile   {ms:9.3f} ms x{count} {kname}")
+        emb = state["master"]["embed"]["embedding"].to(
+            torch.bfloat16).requires_grad_()
+        h = torch.randn((TRAIN_B, TRAIN_S, cfg.d_model), device=dev,
+                        dtype=torch.bfloat16).requires_grad_()
+
+        def head():
+            loss, _ = layers.softmax_xent_chunked(
+                h, emb.T, batch["labels"], valid_vocab=cfg.vocab_size)
+            loss.backward()
+        head_ms = _event_ms(torch, head)
+        del emb, h
+        grads = tree_map(lambda m: torch.zeros(m.shape, dtype=torch.bfloat16,
+                                               device=dev), state["master"])
+        opt_ms = _event_ms(torch, lambda: straight.opt.update(grads, state))
+        log(f"train parts (CUDA events, ms a call): LM head + chunked "
+            f"cross-entropy forward and backward {head_ms:.2f}; AdamW update "
+            f"of {sum(x.numel() for x in tree_leaves(grads))} parameters "
+            f"{opt_ms:.2f}")
+        del grads, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 4 steps, a checkpoint, and a resume to 6
+        trainer("resumed", TRAIN_RESUME_AT).run()
+        gc.collect()
+        torch.cuda.empty_cache()
+        msgs.clear()
+        _, rows_b = trainer("resumed", TRAIN_STEPS).run()
+        require(f"[trainer] resumed from step {TRAIN_RESUME_AT}" in msgs
+                and [r["step"] for r in rows_b]
+                == list(range(TRAIN_RESUME_AT + 1, TRAIN_STEPS + 1)),
+                f"train resume: {msgs[:2]} steps "
+                f"{[r['step'] for r in rows_b]}")
+        a, b = rows[-1]["loss"], rows_b[-1]["loss"]
+        ok = abs(a - b) <= 1e-4 * abs(a)
+        log(f"train resume: step {TRAIN_STEPS} loss straight {a:.6f}, "
+            f"{TRAIN_RESUME_AT} + resume {b:.6f} ({abs(a - b) / abs(a):.3e} "
+            f"relative, limit 1e-4) {'ok' if ok else 'FAIL'}")
+        require(ok, "train resume: the resumed run's loss differs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_c = time.perf_counter() - t2
+    log(f"train phase: {time.perf_counter() - t0:.1f} s ((a) flash "
+        f"autograd {t_a:.1f} s, (b) fp32 copy {t_b:.1f} s, (c) full width "
+        f"{t_c:.1f} s)")
+    return per_step, err
+
+
+def train_attention_timing(torch, fa, dev):
+    """At phase 12(c)'s attention shape (B 8, Hq 16, Hkv 8, D 128, S 1024,
+    causal, bf16), ms by the event timer and device ms by the profiler:
+    the flash forward with and without the log-sum-exp, the plain forward
+    with it, the plain backward (fp32 products), and SDPA's forward and
+    backward (yardsticks, never on
+    the port's path), with the bounds of the forward and the backward:
+    each input read once and each output written once, the causal half's
+    products at the bf16 peak (the inputs' type; the backward's also at
+    the fp32 peak the plain version's products run at)."""
+    import torch.nn.functional as F
+    b, hq, g, d, s = TRAIN_B, HQ, HQ // HKV, D, TRAIN_S
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    args = [(rnd(b, hq, s, d), rnd(b, hq // g, s, d), rnd(b, hq // g, s, d))
+            for _ in range(2)]
+    bwd = []
+    for q, k, v in args:
+        out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+        bwd.append((q, k, v, out, lse, rnd(b, hq, s, d)))
+
+    def fwd_lse(q, k, v):
+        return fa.flash_attention_cuda(q, k, v, return_lse=True)
+
+    def fwd(q, k, v):
+        return fa.flash_attention_cuda(q, k, v)
+
+    def plain_lse(q, k, v):
+        return fa.flash_attention_plain(q, k, v, return_lse=True)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    graphs = []
+    for q, k, v, _, _, do in bwd:
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        graphs.append((sdpa(*leaves), leaves, do))
+
+    def sdpa_bwd(o, leaves, do):
+        return torch.autograd.grad(o, leaves, do, retain_graph=True)
+    pairs = b * hq * s * (s + 1) // 2
+    elem = b * hq * s * d
+    kv = 2 * b * (hq // g) * s * d
+    fwd_bytes = (2 * elem + kv) * 2 + b * hq * s * 4
+    bwd_bytes = (4 * elem + 2 * kv) * 2 + b * hq * s * 4
+    fwd_bound, fwd_by = bound(fwd_bytes, 4 * d * pairs)
+    bwd_bound, bwd_by = bound(bwd_bytes, 10 * d * pairs)
+    bwd_bound32, _ = bound(bwd_bytes, 10 * d * pairs, FP32_FLOPS_PER_S)
+    rows = (("flash forward with lse", fwd_lse, args, 20),
+            ("flash forward without lse", fwd, args, 20),
+            ("plain forward with lse", plain_lse, args, 4),
+            ("SDPA forward", sdpa, args, 20),
+            ("plain backward", fa.flash_attention_backward_plain, bwd, 4),
+            ("SDPA backward", sdpa_bwd, graphs, 10))
+    for label, fn, a, iters in rows:
+        ms = time_ms(torch, fn, a, iters)
+        log(f"timing train attention {label} (B={b} Hq={hq} Hkv={hq // g} "
+            f"D={d} S={s} causal bf16): ms={ms:.4f} device_ms="
+            f"{_ms(device_ms(torch, fn, a))}")
+    log(f"timing train attention bounds: forward {fwd_bound:.4f} ms "
+        f"({fwd_by}; {fwd_bytes} bytes, {4 * d * pairs} flops), backward "
+        f"{bwd_bound:.4f} ms ({bwd_by}, bf16 peak; {bwd_bytes} bytes, "
+        f"{10 * d * pairs} flops), {bwd_bound32:.4f} ms at the fp32 peak")
+    del args, bwd, graphs
+    torch.cuda.empty_cache()
+
+
 def _profile(torch, fn, n):
     """(device kernel ms per call, top kernels) of ``n`` calls of ``fn``
     under torch.profiler, or (None, []) if the trace holds no device time.
@@ -3884,6 +4279,7 @@ def main() -> int:
                              ideality.POOL["exp"], ideality.POOL["pathfinder"],
                              ideality.POOL["jacobi2d"], ideality.POOL["conv2d"],
                              ideality.POOL["dotproduct"], dev)
+        train_attention_timing(torch, fa, dev)
         phase_checks(torch, cfgs, build_model, dev)
         phase_hybrid_checks(torch, cfgs, build_model, dev)
         phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods, dev,
@@ -3960,6 +4356,8 @@ def main() -> int:
                                    dev, name)
         log(f"whisper phases: {time.perf_counter() - t_fam:.1f} s; flash "
             f"launches in the continuous run {w_launches['flash_attention']}")
+        phase_train(torch, cfgs, build_model, kmods, fa, dev,
+                    f"{name} ({smi})")
         pool = ideality.POOL
         errs.update(phase_pool_parity(torch, ideality, pool, dev))
         phase_conv2d_bands(torch, pool["conv2d"], dev)

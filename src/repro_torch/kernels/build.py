@@ -44,9 +44,9 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "flash_attention.cu": {
         "repro_flash_attention":
-            (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+            (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
         "repro_flash_attention_mma":
-            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     },
     "ssd_scan.cu": {
         "repro_ssd_scan_simt":

@@ -9,7 +9,12 @@
 // online softmax and accumulator, the output in q's dtype.  causal, window
 // and scale are runtime arguments (window <= 0: none).  Any Sq and Sk are
 // taken (the Pallas kernel needs multiples of its 128 tile): the last key
-// tile and the last query tile are cut at Sk and Sq.
+// tile and the last query tile are cut at Sk and Sq.  Training asks the
+// same launch for each row's log-sum-exp, m + log(max(l, 1e-30)) in
+// natural units, into an fp32 (B, Hq, Sq) array (what the reference's
+// custom-VJP forward, _flash_fwd_impl, keeps for its backward); serving
+// passes a null pointer and nothing more is stored, so out is the same
+// bits either way.
 //
 // What bounds it on the H100: at the serving paths' shapes (B = 1, Hq 16,
 // Hkv 8, D 128, S <= 1024, causal) bytes and operations come out about even
@@ -164,9 +169,10 @@ __host__ __device__ size_t smem_bytes(int rows, int d) {
 template <typename T, int RPT>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int hkv,
-                       int g, int gh, int sq, int sk, int d, int bq,
-                       float scale, int causal, int window) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int hkv, int g, int gh,
+                       int sq, int sk, int d, int bq, float scale, int causal,
+                       int window) {
   constexpr int kRowsMax = kRowGroups * RPT;
   const int gblocks = (g + gh - 1) / gh;
   const int bkv = blockIdx.y / gblocks, gb = blockIdx.y % gblocks;
@@ -360,11 +366,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
+  // the row's log-sum-exp for a backward pass, as _flash_fwd_impl keeps it
+  if (lse != nullptr) {
+    for (int r = tid; r < rows; r += kThreads)
+      if (r % bq < nq)
+        lse[row_offset(r) / d] = m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
+  }
 }
 
 template <typename T, int RPT>
 cudaError_t launch_rpt(const void* q, const void* k, const void* v, void* out,
-                       int batch, int hkv, int g, int gh, int sq, int sk,
+                       float* lse, int batch, int hkv, int g, int gh, int sq, int sk,
                        int d, int bq, float scale, int causal, int window,
                        void* stream) {
   const size_t smem = smem_bytes<T>(gh * bq, d);
@@ -376,15 +388,15 @@ cudaError_t launch_rpt(const void* q, const void* k, const void* v, void* out,
   flash_attention_kernel<T, RPT><<<grid, kThreads, smem,
                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hkv, g, gh, sq, sk, d,
-      bq, scale, causal, window);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, hkv, g, gh, sq, sk,
+      d, bq, scale, causal, window);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int hkv, int g, int sq, int sk, int d,
-                   float scale, int causal, int window, void* stream) {
+                   float* lse, int batch, int hkv, int g, int sq, int sk,
+                   int d, float scale, int causal, int window, void* stream) {
   if (batch == 0 || hkv == 0 || sq == 0) return cudaSuccess;
   if (d % 8 || d > kMaxHeadDim || g <= 0 || sk <= 0 ||
       static_cast<long long>(batch) * hkv * ((g + kMaxRows - 1) / kMaxRows) > 65535)
@@ -393,8 +405,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const int bq = std::min(kMaxRows / gh, sq);  // queries a block, gh * bq rows
   const int rows = gh * bq;
 #define REPRO_LAUNCH(RPT)                                                  \
-  return launch_rpt<T, RPT>(q, k, v, out, batch, hkv, g, gh, sq, sk, d,    \
-                            bq, scale, causal, window, stream)
+  return launch_rpt<T, RPT>(q, k, v, out, lse, batch, hkv, g, gh, sq, sk, \
+                            d, bq, scale, causal, window, stream)
   if (rows <= kRowGroups * 1) REPRO_LAUNCH(1);
   if (rows <= kRowGroups * 2) REPRO_LAUNCH(2);
   if (rows <= kRowGroups * 4) REPRO_LAUNCH(4);
@@ -457,9 +469,9 @@ __device__ __forceinline__ void key_band(int qpos_first, int qpos_last, int sk,
 template <int DP>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int hq,
-                 int g, int sq, int sk, int d, float scale_log2, int causal,
-                 int window) {
+                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                 float* __restrict__ lse, int hq, int g, int sq, int sk, int d,
+                 float scale_log2, int causal, int window) {
   using L = Layout<DP>;
   constexpr int kLd = L::kLd;
   constexpr int kKSteps = DP / 16;     // k16 steps of q k^T
@@ -686,6 +698,12 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+    // the row's log-sum-exp for a backward pass (m_r is in log2 units), as
+    // _flash_fwd_impl keeps it; one thread of the quad stores it
+    const int row = warp * 16 + gid + i * 8;
+    if (lse != nullptr && quad == 0 && row < nq)
+      lse[static_cast<int64_t>(bh) * sq + q0 + row] =
+          m_r[i] * 0.6931471805599453f + logf(fmaxf(l_r[i], 1e-30f));
     if (l_r[i] == 0.f) l_r[i] = 1.f;
   }
 #pragma unroll
@@ -705,8 +723,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int hkv, int g, int sq, int sk, int d,
-                   float scale, int causal, int window, void* stream) {
+                   float* lse, int batch, int hkv, int g, int sq, int sk,
+                   int d, float scale, int causal, int window, void* stream) {
   const size_t smem = Layout<DP>::kBytes;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -715,35 +733,40 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(batch * hkv * g, (sq + kRows - 1) / kRows);
   flash_mma_kernel<DP><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), hkv * g, g, sq, sk,
-      d, scale * kLog2e, causal, window);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, hkv * g, g,
+      sq, sk, d, scale * kLog2e, causal, window);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
 // The fp32 route (CUDA cores).  dtype: 0 = float32, the only type this
-// route takes (bf16: repro_flash_attention_mma).  causal: 0 or 1; window
-// <= 0: none.  Returns the CUDA error of the launch (cudaGetLastError(), 0
-// on success); the Python wrapper raises on anything else.
+// route takes (bf16: repro_flash_attention_mma).  lse: null, or an fp32
+// (B, Hq, Sq) array that takes each row's log-sum-exp m + log(max(l,
+// 1e-30)) in natural units (the training path's backward reads it; serving
+// passes null and nothing is stored).  causal: 0 or 1; window <= 0: none.
+// Returns the CUDA error of the launch (cudaGetLastError(), 0 on success);
+// the Python wrapper raises on anything else.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
-                                     const void* v, void* out, int batch,
-                                     int hkv, int g, int sq, int sk, int d,
-                                     float scale, int causal, int window,
-                                     void* stream) {
+                                     const void* v, void* out, void* lse,
+                                     int batch, int hkv, int g, int sq, int sk,
+                                     int d, float scale, int causal,
+                                     int window, void* stream) {
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<float>(q, k, v, out, batch, hkv, g, sq, sk,
-                                        d, scale, causal, window, stream));
+  return static_cast<int>(launch<float>(q, k, v, out, static_cast<float*>(lse),
+                                        batch, hkv, g, sq, sk, d, scale,
+                                        causal, window, stream));
 }
 
 // The bf16 route (tensor cores).  dp: the head dim the kernel is built for,
 // 16, 32, 64 or 128, at least d (the wrapper's flash_attention.route picks
 // the least such).  Same arguments and return otherwise.
 extern "C" int repro_flash_attention_mma(const void* q, const void* k,
-                                         const void* v, void* out, int batch,
-                                         int hkv, int g, int sq, int sk, int d,
-                                         int dp, float scale, int causal,
-                                         int window, void* stream) {
+                                         const void* v, void* out, void* lse,
+                                         int batch, int hkv, int g, int sq,
+                                         int sk, int d, int dp, float scale,
+                                         int causal, int window,
+                                         void* stream) {
   if (batch == 0 || hkv == 0 || sq == 0) return 0;
   if (d <= 0 || d % 8 || d > dp || g <= 0 || sk <= 0 ||
       (sq + tc::kRows - 1) / tc::kRows > 65535)
@@ -751,9 +774,10 @@ extern "C" int repro_flash_attention_mma(const void* q, const void* k,
   switch (dp) {
 #define REPRO_LAUNCH(DP)                                                    \
   case DP:                                                                  \
-    return static_cast<int>(tc::launch<DP>(q, k, v, out, batch, hkv, g, sq, \
-                                           sk, d, scale, causal, window,    \
-                                           stream))
+    return static_cast<int>(tc::launch<DP>(q, k, v, out,                  \
+                                           static_cast<float*>(lse), batch, \
+                                           hkv, g, sq, sk, d, scale,        \
+                                           causal, window, stream))
     REPRO_LAUNCH(16);
     REPRO_LAUNCH(32);
     REPRO_LAUNCH(64);

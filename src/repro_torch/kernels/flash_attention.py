@@ -21,6 +21,14 @@ head ``h // (Hq / Hkv)``, queries right-aligned to the keys
 Both keep the reference's edge semantics: a row whose keys are all masked
 (causal with Sq > Sk) ends as the mean of V over every key, not 0.
 ``repro_torch.kernels.ops`` picks between them by the tensor's device.
+
+Training differentiates through :class:`FlashAttention`, the counterpart of
+the reference's ``jax.custom_vjp`` around ``attention_xla``
+(``repro/kernels/attention.py:139-260``).  Its forward is the kernel on a
+CUDA tensor and the plain version on a CPU tensor, each asked for the rows'
+log-sum-exp (``return_lse=True``); its backward is
+:func:`flash_attention_backward_plain` on either device, the port of the
+reference's ``_flash_bwd``, which is XLA code there, not a Pallas kernel.
 """
 from __future__ import annotations
 
@@ -62,12 +70,23 @@ def _mask(qpos, kpos, causal: bool, window):
     return mask
 
 
+def _kv_hi(q0: int, q1: int, sq: int, sk: int, causal: bool,
+           kv_chunk: int) -> int:
+    """The keys q rows ``[q0, q1)`` walk: under the causal mask up to the
+    kv chunk holding the last row's position, unless a row sees no key."""
+    if causal and q0 + sk - sq >= 0:
+        return min(sk, -(-(q1 + sk - sq) // kv_chunk) * kv_chunk)
+    return sk
+
+
 def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
-                          q_chunk=1024, kv_chunk=1024):
+                          q_chunk=1024, kv_chunk=1024, return_lse=False):
     """The reference's ``attention_xla`` forward (no ``kv_len``), for any
     Sq and Sk: a loop over q chunks, each an fp32 online softmax over kv
     chunks (the last chunk of either may be short).  Returns (B, Hq, Sq, D)
-    in q's dtype.
+    in q's dtype; with ``return_lse`` also each row's log-sum-exp
+    ``m + log(max(l, 1e-30))``, (B, Hq, Sq) fp32, as ``_flash_fwd_impl``
+    keeps it for the backward.
 
     Under the causal mask a q chunk stops at the last kv chunk its last row
     can see, as the reference does — except when the chunk holds a row with
@@ -79,13 +98,11 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
     g = hq // hkv
     qf_all = q.float() * _scale(scale, d)
     kf, vf = k.float(), v.float()
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, sq, q_chunk):
         q1 = min(q0 + q_chunk, sq)
         qpos = torch.arange(q0, q1, device=q.device) + (sk - sq)
-        kv_hi = sk
-        if causal and q0 + sk - sq >= 0:
-            kv_hi = min(sk, -(-(q1 + sk - sq) // kv_chunk) * kv_chunk)
+        kv_hi = _kv_hi(q0, q1, sq, sk, causal, kv_chunk)
         qf = qf_all[:, :, q0:q1].reshape(b, hkv, g, q1 - q0, d)
         m = torch.full((b, hkv, g, q1 - q0, 1), NEG_INF, device=q.device)
         l = torch.zeros_like(m)
@@ -105,7 +122,87 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
             m = m_new
         out = acc / torch.where(l == 0.0, 1.0, l)
         outs.append(out.reshape(b, hq, q1 - q0, d).to(q.dtype))
-    return torch.cat(outs, dim=2)
+        lses.append((m + torch.log(torch.clamp(l, min=1e-30)))
+                    .reshape(b, hq, q1 - q0))
+    out = torch.cat(outs, dim=2)
+    return (out, torch.cat(lses, dim=2)) if return_lse else out
+
+
+def flash_attention_backward_plain(q, k, v, out, lse, dout, *, causal=True,
+                                   window=None, scale=None, q_chunk=1024,
+                                   kv_chunk=1024):
+    """Gradients (dq, dk, dv) of the flash forward, in the inputs' dtypes:
+    the reference's ``_flash_bwd`` over the q chunks of ``attention_xla``.
+
+    Everything runs in fp32 from the saved q, k, v, out and lse (B, Hq,
+    Sq): per q chunk ``delta = sum(dout * out)``, and per kv chunk
+    ``p = exp(logits - lse)`` recomputed under the forward's mask, ``dv +=
+    p^T dout``, ``ds = p (dout v^T - delta)``, ``dq += ds k scale`` and
+    ``dk += ds^T q scale``; dk and dv sum over the g q-heads of a kv head.
+    The chunks and the causal key bound are the forward's
+    (:func:`flash_attention_plain`)."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = hq // hkv
+    sc = _scale(scale, d)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, hkv, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, sq, q_chunk):
+        q1 = min(q0 + q_chunk, sq)
+        n = q1 - q0
+        qpos = torch.arange(q0, q1, device=q.device) + (sk - sq)
+        kv_hi = _kv_hi(q0, q1, sq, sk, causal, kv_chunk)
+        qf = (q[:, :, q0:q1].float() * sc).reshape(b, hkv, g, n, d)
+        do = dout[:, :, q0:q1].float().reshape(b, hkv, g, n, d)
+        o = out[:, :, q0:q1].float().reshape(b, hkv, g, n, d)
+        lq = lse[:, :, q0:q1].reshape(b, hkv, g, n, 1)
+        delta = (do * o).sum(dim=-1, keepdim=True)
+        dqc = torch.zeros_like(qf)
+        for k0 in range(0, kv_hi, kv_chunk):
+            k1 = min(k0 + kv_chunk, kv_hi)
+            kb, vb = kf[:, :, k0:k1], vf[:, :, k0:k1]
+            kpos = torch.arange(k0, k1, device=q.device)
+            logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb)
+            logits = torch.where(_mask(qpos, kpos, causal, window), logits,
+                                 NEG_INF)
+            p = torch.exp(logits - lq)
+            dv[:, :, k0:k1] += torch.einsum("bhgqk,bhgqd->bhkd", p, do)
+            ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", do, vb) - delta)
+            dqc += torch.einsum("bhgqk,bhkd->bhgqd", ds, kb) * sc
+            dk[:, :, k0:k1] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
+        dq[:, :, q0:q1] = dqc.reshape(b, hq, n, d)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd: the forward by the tensor's device
+    (the kernel on a CUDA tensor, the plain version on a CPU tensor, each
+    keeping the rows' log-sum-exp), the backward
+    :func:`flash_attention_backward_plain` on either.  It saves (q, k, v,
+    out, lse).  ``kv_len`` has no gradient path, as in the reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        if q.device.type == "cpu":
+            fn = flash_attention_plain
+        elif q.device.type == "cuda":
+            fn = flash_attention_cuda
+        else:
+            raise ValueError(f"attention: no implementation for device "
+                             f"{q.device}")
+        out, lse = fn(q, k, v, causal=causal, window=window, scale=scale,
+                      return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = flash_attention_backward_plain(*ctx.saved_tensors, dout,
+                                                    **ctx.opts)
+        return dq, dk, dv, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -192,18 +289,25 @@ def _check(q, k, v, window) -> None:
                          f"the card offers {_MAX_SMEM}")
 
 
-def flash_attention_cuda(q, k, v, *, causal=True, window=None, scale=None):
+def flash_attention_cuda(q, k, v, *, causal=True, window=None, scale=None,
+                         return_lse=False):
     """The kernel of ``q``'s dtype (:func:`route`), replacing
     ``flash_attention_pallas`` (``repro/kernels/attention.py:73``).
     ``causal``, ``window`` (None or >= 1) and ``scale`` (``1/sqrt(D)`` by
-    default) are runtime arguments of one compiled kernel."""
+    default) are runtime arguments of one compiled kernel.  With
+    ``return_lse`` the same launch also stores each row's log-sum-exp,
+    (B, Hq, Sq) fp32, and returns (out, lse); without it the kernel is
+    given a null pointer and stores none (``out`` is the same bits)."""
     _check(q, k, v, window)
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     kind, dp = route(q.dtype, d)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = build.library(SOURCE)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)]
+    ptrs.append(ctypes.c_void_p(None if lse is None else lse.data_ptr()))
     tail = (_scale(scale, d), int(bool(causal)),
             -1 if window is None else int(window),
             ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
@@ -217,4 +321,4 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, scale=None):
                 *tail)
     build.check(lib, err, "flash_attention")
     build.count(LAUNCHES, "flash_attention", 1, ROUTES, kind)
-    return out
+    return (out, lse) if return_lse else out

@@ -7,13 +7,13 @@ The implementation follows the tensor's device, and nothing else:
 * any other device raises.
 
 There is no environment override and no fallback: a CUDA tensor never
-reaches a plain version through this module.  ``decode_attention`` and
-``ssd_step`` have no kernel (the reference leaves them to XLA) and are
-plain PyTorch everywhere.  So is a *windowed* paged call: the reference
-routes ``window is not None`` to its XLA gather functions on every device
-(``repro/kernels/ops.py:112-140``), and so does this module
-(``paged_*_attention_plain(window=...)``); with ``window=None`` a CUDA
-tensor launches the paged kernel or raises, as before.
+reaches a plain version through this module.  ``decode_attention``,
+``ssd_step`` and ``roi_align`` have no kernel (the reference leaves them
+to XLA) and are plain PyTorch everywhere.  So is a *windowed* paged call:
+the reference routes ``window is not None`` to its XLA gather functions
+on every device (``repro/kernels/ops.py:112-140``), and so does this
+module (``paged_*_attention_plain(window=...)``); with ``window=None`` a
+CUDA tensor launches the paged kernel or raises, as before.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from .dropout import dropout_cuda, dropout_plain
 from .dwt import dwt_haar_cuda, dwt_haar_plain
 from .expk import exp_cuda, exp_plain
 from .fft import fft_cuda, fft_plain
-from .flash_attention import (NEG_INF, flash_attention_cuda,
+from .flash_attention import (NEG_INF, FlashAttention, flash_attention_cuda,
                               flash_attention_plain)
 from .jacobi2d import jacobi2d_cuda, jacobi2d_plain
 from .matmul import matmul_cuda, matmul_plain
@@ -52,7 +52,13 @@ def _pick(x, plain, cuda, what: str):
 def attention(q, k, v, *, causal=True, window=None, scale=None):
     """Dense full-sequence GQA attention (the flash forward).  q:
     (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), queries right-aligned to the
-    keys; ``window`` None or >= 1.  Returns (B, Hq, Sq, D)."""
+    keys; ``window`` None or >= 1.  Returns (B, Hq, Sq, D).  With grad mode
+    on and an input that requires grad, the call goes through
+    ``FlashAttention`` (the same forward by device, keeping the rows'
+    log-sum-exp, and the plain backward)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
     fn = _pick(q, flash_attention_plain, flash_attention_cuda, "attention")
     return fn(q, k, v, causal=causal, window=window, scale=scale)
 
@@ -211,6 +217,39 @@ def exp(x):
     """Software exp of x (n,) (``exp_pallas``'s polynomial scheme), fp32
     math, out in x's dtype."""
     return _pick(x, exp_plain, exp_cuda, "exp")(x)
+
+
+def roi_align(feat, rois, *, out_size=7, sampling=2):
+    """ROI-align: feat (C, H, W), rois (R, 4) [y0, x0, y1, x1] in pixel
+    coordinates -> (R, C, out_size, out_size) in feat's dtype (fp32 math
+    for fp32 input), each bin the mean of ``sampling``^2 bilinear samples,
+    coordinates clipped into the image.  The reference's ``roi_align_xla``
+    (``repro/kernels/roi_align.py:15``): plain PyTorch on every device, as
+    the reference leaves it to XLA (gather-bound; no Pallas kernel)."""
+    c, h, w = feat.shape
+    dev = feat.device
+    rois = rois.to(feat.dtype)
+    y0, x0, y1, x1 = (rois[:, i, None, None, None, None] for i in range(4))
+    bin_h, bin_w = (y1 - y0) / out_size, (x1 - x0) / out_size
+    o = torch.arange(out_size, device=dev)
+    s = torch.arange(sampling, device=dev)
+    oy, ox = o[:, None, None, None], o[None, :, None, None]
+    sy, sx = s[None, None, :, None], s[None, None, None, :]
+    # sample coordinates: (R, out, out, s, s)
+    y = y0 + (oy + (sy + 0.5) / sampling) * bin_h
+    x = x0 + (ox + (sx + 0.5) / sampling) * bin_w
+    y = torch.clamp(y, 0.0, h - 1.0)
+    x = torch.clamp(x, 0.0, w - 1.0)
+    yi = torch.clamp(torch.floor(y).long(), 0, h - 2)
+    xi = torch.clamp(torch.floor(x).long(), 0, w - 2)
+    dy, dx = y - yi, x - xi
+    v00 = feat[:, yi, xi]                       # (C, R, out, out, s, s)
+    v01 = feat[:, yi, xi + 1]
+    v10 = feat[:, yi + 1, xi]
+    v11 = feat[:, yi + 1, xi + 1]
+    val = (v00 * (1 - dy) * (1 - dx) + v01 * (1 - dy) * dx
+           + v10 * dy * (1 - dx) + v11 * dy * dx)
+    return val.mean(dim=(-2, -1)).transpose(0, 1)   # (R, C, out, out)
 
 
 def dwt_haar(x, *, levels=1):

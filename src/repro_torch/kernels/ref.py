@@ -7,7 +7,8 @@ paged paths share the table gather.  fft's is the reference's Stockham
 schedule (``fft_xla``), not a library transform; pathfinder's edge fill is
 the Pallas kernel's 3.0e38, not the reference oracle's fp32 max; exp's is
 the Pallas body's polynomial with its fused multiply-adds (the reference's
-oracle is ``jnp.exp``); dwt's rounds each level to x's dtype."""
+oracle is ``jnp.exp``); dwt's rounds each level to x's dtype.  roi_align's
+walks the samples one by one (the reference has no kernel for it)."""
 from __future__ import annotations
 
 import functools
@@ -231,6 +232,40 @@ def dwt_haar_ref(x, levels=1):
         parts.insert(0, ((even - odd) * s).to(x.dtype))
         lo = ((even + odd) * s).to(x.dtype)
     return torch.cat([lo, *parts])
+
+
+def roi_align_ref(feat, rois, out_size=7, sampling=2):
+    """feat: (C, H, W); rois: (R, 4) [y0, x0, y1, x1] in pixel coords.
+    Returns (R, C, out_size, out_size) fp32: each bin the mean of its
+    ``sampling``^2 bilinear samples, taken one at a time."""
+    c, h, w = feat.shape
+    f = feat.float()
+
+    def bilinear(y, x):
+        y = min(max(y, 0.0), h - 1.0)
+        x = min(max(x, 0.0), w - 1.0)
+        y0 = min(max(math.floor(y), 0), h - 2)
+        x0 = min(max(math.floor(x), 0), w - 2)
+        dy, dx = y - y0, x - x0
+        return (f[:, y0, x0] * (1 - dy) * (1 - dx)
+                + f[:, y0, x0 + 1] * (1 - dy) * dx
+                + f[:, y0 + 1, x0] * dy * (1 - dx)
+                + f[:, y0 + 1, x0 + 1] * dy * dx)
+
+    out = torch.zeros((rois.shape[0], c, out_size, out_size),
+                      dtype=torch.float32, device=feat.device)
+    for r, (y0, x0, y1, x1) in enumerate(rois.double().tolist()):
+        bin_h, bin_w = (y1 - y0) / out_size, (x1 - x0) / out_size
+        for oy in range(out_size):
+            for ox in range(out_size):
+                acc = torch.zeros(c, dtype=torch.float32, device=feat.device)
+                for sy in range(sampling):
+                    for sx in range(sampling):
+                        acc = acc + bilinear(
+                            y0 + (oy + (sy + 0.5) / sampling) * bin_h,
+                            x0 + (ox + (sx + 0.5) / sampling) * bin_w)
+                out[r, :, oy, ox] = acc / (sampling * sampling)
+    return out
 
 
 def _softmax_rows(logits: torch.Tensor) -> torch.Tensor:

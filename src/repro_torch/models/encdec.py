@@ -1,6 +1,6 @@
 """Whisper-style encoder-decoder (the encdec family).  The port's counterpart
-of ``repro/models/encdec.py`` (serving only; the loss comes with the
-training slice).
+of ``repro/models/encdec.py`` (serving only; ``encdec_loss`` comes with
+the next training slice, with hybrid's and xlstm's: ROADMAP section 1).
 
 The conv/mel frontend is a stub, as in the reference: a request brings
 precomputed frame embeddings (B, S_enc, d_model).  Sinusoidal positions on

@@ -1,5 +1,6 @@
 """Model substrate: param templates and init, norms, RoPE, sinusoidal
-positions, SwiGLU and GELU MLPs, embedding.
+positions, SwiGLU and GELU MLPs, embedding, and the chunked cross-entropy
+fused with the LM head.
 
 The port's counterpart of ``repro/models/layers.py``.  Parameters are plain
 nested dicts of tensors with the reference's tree layout (layer stacks on
@@ -15,6 +16,7 @@ import zlib
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 # ---------------------------------------------------------------------------
 # Param templates.
@@ -132,6 +134,17 @@ def tree_index(tree: dict, i: int) -> dict:
     """Entry ``i`` of every leaf of a stacked tree (views, no copies)."""
     return {k: tree_index(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def tree_unbind(tree: dict, n: int) -> list[dict]:
+    """The ``n`` entries of a stacked tree, one ``torch.unbind`` a leaf:
+    under autograd each entry's gradient lands in its own slice of the
+    leaf's (one stack in the backward), where :func:`tree_index` would
+    make every entry's backward write a zero gradient of the whole
+    stack."""
+    cols = {k: tree_unbind(v, n) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in tree.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def param_count(templates: dict) -> int:
@@ -267,3 +280,58 @@ def embed_templates(vocab: int, d_model: int) -> dict:
 
 def embed_lookup(p, tokens):
     return p["embedding"][tokens.long()]
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy, fused with the LM head so the (B, S, V) logits never
+# exist at once.
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(h, w32, labels, mask, logit_softcap, valid_vocab):
+    """(loss sum, token count, correct count) of one chunk of rows, from
+    its fp32 logits ``h @ w``."""
+    logits = torch.matmul(h.float(), w32)                    # (B, c, V)
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+        # the padded vocab columns (Megatron-style padding) at -1e30
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(col < valid_vocab, logits, -1e30)
+    if logit_softcap is not None:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    # torch.argmax takes the first maximum, as jnp.argmax does
+    correct = (torch.argmax(logits, dim=-1) == labels).float()
+    return ((lse - gold) * mask).sum(), mask.sum(), (correct * mask).sum()
+
+
+def softmax_xent_chunked(h, w_out, labels, *, chunk=512, label_mask=None,
+                         logit_softcap=None, valid_vocab=None):
+    """h: (B, S, D), w_out: (D, V), labels: (B, S) int.  Returns (mean
+    loss, accuracy), fp32 0-d tensors, over the rows ``label_mask`` keeps
+    (all by default).
+
+    The counterpart of the reference's ``softmax_xent_chunked``
+    (``repro/models/layers.py:227-264``): the rows are taken ``chunk`` at a
+    time, the chunk shrunk to the largest divisor of S; each chunk's fp32
+    logits are masked past ``valid_vocab`` and softcapped, and the chunk
+    runs under ``torch.utils.checkpoint``, so its V-wide logits are made
+    again in the backward rather than kept (the reference's
+    ``jax.checkpoint``).  ``w_out`` is cast to fp32 once a call."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    while s % chunk:   # largest divisor of s <= the requested chunk
+        chunk -= 1
+    labels = labels.long()
+    mask = (label_mask.float() if label_mask is not None
+            else torch.ones(labels.shape, device=h.device))
+    w32 = w_out.float()
+    zero = torch.zeros((), device=h.device)
+    loss_sum, n_tok, n_correct = zero, zero, zero
+    for c0 in range(0, s, chunk):
+        part = slice(c0, c0 + chunk)
+        ls, nt, nc = checkpoint(_xent_chunk, h[:, part], w32, labels[:, part],
+                                mask[:, part], logit_softcap, valid_vocab,
+                                use_reentrant=False)
+        loss_sum, n_tok, n_correct = loss_sum + ls, n_tok + nt, n_correct + nc
+    denom = torch.clamp(n_tok, min=1.0)
+    return loss_sum / denom, n_correct / denom

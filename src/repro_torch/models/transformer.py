@@ -1,13 +1,15 @@
-"""Decoder-only transformer families (dense, moe, vlm): templates and the
-dense and paged serving paths.  The port's counterpart of
-``repro/models/transformer.py``.
+"""Decoder-only transformer families (dense, moe, vlm): templates, the
+training loss, and the dense and paged serving paths.  The port's
+counterpart of ``repro/models/transformer.py``.
 
 moe swaps each layer's SwiGLU for the expert layer (``models.moe``),
 routed dropless (``exact=True``) on every serving path as in the
 reference, so a token's output does not depend on the batch or chunk it
-shares.  vlm puts ``n_patches`` projected patch rows (``batch["patches"]``,
-(B, n_patches, patch_embed_dim)) ahead of the tokens: the dense prefill
-concatenates them (``embed_input``) and a paged chunk takes a patch row at
+shares; the training loss routes with the capacity factor
+(``exact=False``), as the reference trains.  vlm puts ``n_patches``
+projected patch rows (``batch["patches"]``, (B, n_patches,
+patch_embed_dim)) ahead of the tokens: the dense prefill and the loss
+concatenate them (``embed_input``) and a paged chunk takes a patch row at
 every position below ``n_patches`` (``_embed_chunk``); positions, the
 cache and ``pos`` count them.
 
@@ -31,12 +33,14 @@ from __future__ import annotations
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from ..kernels import ops
-from .attention import (attn_decode, attn_decode_paged, attn_prefill,
-                        attn_prefill_paged, attn_templates)
+from .attention import (attn_decode, attn_decode_paged, attn_forward,
+                        attn_prefill, attn_prefill_paged, attn_templates)
 from .layers import (PT, embed_lookup, embed_templates, rmsnorm,
-                     rope_cos_sin, stack_layers, swiglu_apply,
-                     swiglu_templates, tree_index)
+                     rope_cos_sin, softmax_xent_chunked, stack_layers,
+                     swiglu_apply, swiglu_templates, tree_index, tree_unbind)
 from .moe import moe_apply, moe_templates
 
 # ---------------------------------------------------------------------------
@@ -104,22 +108,23 @@ def _rope(positions, cfg):
     return rope_cos_sin(positions, cfg.head_dim_resolved, cfg.rope_theta)
 
 
-def _ffn(lp, h, cfg):
-    """The layer's feed-forward: SwiGLU, or for moe the expert layer routed
-    dropless (every caller here serves)."""
+def _ffn(lp, h, cfg, exact: bool):
+    """The layer's feed-forward: SwiGLU, or for moe the expert layer,
+    routed dropless with ``exact`` (every serving path) or with the
+    capacity factor (training)."""
     if cfg.family == "moe":
         return moe_apply(lp["moe"], h, top_k=cfg.top_k,
-                         capacity_factor=cfg.capacity_factor, exact=True)
+                         capacity_factor=cfg.capacity_factor, exact=exact)
     return swiglu_apply(lp["mlp"], h)
 
 
-def _block(lp, x, cfg, attn):
+def _block(lp, x, cfg, attn, exact: bool = True):
     """One layer: pre-norm attention (``attn(lp_attn, h)``) and the
-    feed-forward."""
+    feed-forward (moe dropless unless ``exact=False``)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     x = x + attn(lp["attn"], h)
     h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + _ffn(lp, h, cfg)
+    return x + _ffn(lp, h, cfg, exact)
 
 
 def n_prefix(cfg) -> int:
@@ -145,6 +150,51 @@ def embed_input(params, batch, cfg):
         return tok
     patches = _project_patches(params, batch["patches"], tok.dtype)
     return torch.cat([patches, tok], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Training forward + loss.
+# ---------------------------------------------------------------------------
+
+def _train_layer(lp, x, positions, window, cfg):
+    """One layer of the training forward: full-sequence causal attention
+    (the flash kernel, under autograd) at the layer's window, and the
+    feed-forward with moe's capacity routing."""
+    def attn(p, h):
+        return attn_forward(p, h, cfg, positions=positions, window=window)
+    return _block(lp, x, cfg, attn, exact=False)
+
+
+def decoder_loss(params, batch, cfg, *, remat=True, xent_chunk=512):
+    """(mean loss, {"loss", "accuracy"}) of next-token prediction over
+    ``batch["labels"]`` (B, S) (and ``batch["label_mask"]``, optional);
+    the counterpart of the reference's ``decoder_loss``
+    (``repro/models/transformer.py:141-154``).
+
+    The stacked layer leaves are taken apart once a call (one
+    ``torch.unbind`` a leaf, so each layer's backward adds its own slice
+    of the stack's gradient, not a zero gradient of the whole stack); each
+    layer runs at ``cfg.layer_window(i)`` (gemma3's local layers) and,
+    with ``remat``, under ``torch.utils.checkpoint``, its activations made
+    again in the backward (the reference's ``jax.checkpoint``).  vlm drops
+    its ``n_patches`` prefix rows before the loss."""
+    x = embed_input(params, batch, cfg)
+    s_total = x.shape[1]
+    positions = torch.arange(s_total, device=x.device)
+    for i, lp in enumerate(tree_unbind(params["layers"], cfg.n_layers)):
+        w = cfg.layer_window(i)
+        if remat:
+            x = checkpoint(_train_layer, lp, x, positions, w, cfg,
+                           use_reentrant=False)
+        else:
+            x = _train_layer(lp, x, positions, w, cfg)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = x[:, n_prefix(cfg):]
+    loss, acc = softmax_xent_chunked(
+        x, lm_head_weight(params, cfg), batch["labels"], chunk=xent_chunk,
+        label_mask=batch.get("label_mask"), logit_softcap=cfg.logit_softcap,
+        valid_vocab=cfg.vocab_size)
+    return loss, {"loss": loss, "accuracy": acc}
 
 
 # ---------------------------------------------------------------------------

@@ -1706,3 +1706,91 @@ def test_decode_rows_are_batch_invariant(cuda):
         one = model.cache_slot_write(model.cache_expand(sub, 1), sub, 0)
         assert torch.equal(model.decode(params, one, feed[i:i + 1])[0],
                            wide[i:i + 1]), i
+
+
+# ---------------------------------------------------------------------------
+# Training: the flash kernel under autograd, the trainer on the card.
+# ---------------------------------------------------------------------------
+
+def _grad_dist(got, want):
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,g,d,s,window", [
+    (2, 16, 2, 128, 1024, None), (2, 16, 2, 128, 1024, 256),
+    (2, 16, 2, 64, 512, None), (2, 32, 1, 96, 512, None)])
+def test_flash_autograd_matches_plain(cuda, dtype, b, hq, g, d, s, window):
+    """``chip_smoke.py``'s phase 12(a): ``out`` with the log-sum-exp
+    bit-identical to the launch without it, the lse against the plain
+    forward's, and the gradients of ``ops.attention`` under autograd (the
+    kernel's forward on its route, the plain backward) against the
+    all-plain path: fp32 within 1e-5 of scale; bf16 no farther from the
+    fp32 plain gradients than twice the plain bf16 path."""
+    from repro_torch.kernels import ops
+    q, k, v = _flash_qkv(21, cuda, dtype, b=b, hq=hq, g=g, sq=s, sk=s, d=d)
+    do = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda).manual_seed(22), device=cuda).to(dtype)
+    kw = dict(causal=True, window=window)
+    out, lse = fa.flash_attention_cuda(q, k, v, **kw, return_lse=True)
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, **kw))
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, s)
+    outp, lsep = fa.flash_attention_plain(q, k, v, **kw, return_lse=True)
+    lse_tol = 1e-5 if dtype == torch.float32 else 1e-3
+    assert float((lse - lsep).abs().max()) <= lse_tol * float(
+        lsep.abs().max())
+    route = fa.route(dtype, d)[0]
+    n0 = fa.ROUTES[route]
+    qa, ka, va = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    ops.attention(qa, ka, va, **kw).backward(do)
+    assert fa.ROUTES[route] == n0 + 1
+    got = (qa.grad, ka.grad, va.grad)
+    plain = fa.flash_attention_backward_plain(q, k, v, outp, lsep, do, **kw)
+    if dtype == torch.float32:
+        assert _grad_dist(got, plain) <= 1e-5
+        return
+    f32 = [x.float() for x in (q, k, v, do)]
+    o32, l32 = fa.flash_attention_plain(*f32[:3], **kw, return_lse=True)
+    want = fa.flash_attention_backward_plain(*f32[:3], o32, l32, f32[3], **kw)
+    assert _grad_dist(got, want) <= 2 * _grad_dist(plain, want)
+
+
+def test_trainer_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The smoke qwen3 on fp32 weights (drawn on the CPU and copied: the
+    CPU's and the card's generators draw other values): three trainer
+    steps on the card (the flash kernel's fp32 route forward, the plain
+    backward) against the same steps on the CPU, losses within 1e-4, and a
+    resume from the card's checkpoint counting steps 4 and 5."""
+    import dataclasses as dc
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import tree_map
+    cfg = smoke_config("qwen3-0.6b")
+    model = build_model(cfg)
+
+    def fp32(t):
+        return {k: fp32(v) if isinstance(v, dict)
+                else dc.replace(v, dtype=torch.float32) for k, v in t.items()}
+    model = dc.replace(model, templates=fp32(model.templates))
+    params = model.init(0, device="cpu")
+    logs = {}
+    for dev in ("cpu", cuda):
+        tc = TrainConfig(steps=3, ckpt_dir=str(tmp_path / str(dev)),
+                         log_every=100)
+        opt = AdamW(lr=warmup_cosine(3e-3, 1, 10))
+        trainer = Trainer(model, opt, SyntheticTokens(cfg, 2, 32, seed=0),
+                          tc, device=dev, log=lambda s: None)
+        state = opt.init(tree_map(lambda x: x.to(dev), params))
+        logs[str(dev)] = trainer.run(state=state)[1]
+    for a, b in zip(logs["cpu"], logs[str(cuda)]):
+        np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-4)
+    tc = TrainConfig(steps=5, ckpt_dir=str(tmp_path / str(cuda)),
+                     log_every=100)
+    rows = Trainer(model, AdamW(lr=warmup_cosine(3e-3, 1, 10)),
+                   SyntheticTokens(cfg, 2, 32, seed=0), tc, device=cuda,
+                   log=lambda s: None).run()[1]
+    assert [r["step"] for r in rows] == [4, 5]

@@ -1,5 +1,6 @@
 """The port's pool kernels (``repro_torch.kernels``: matmul, dotproduct,
-softmax, fft, conv2d, pathfinder, jacobi2d, dropout, exp, dwt) held against the
+softmax, fft, conv2d, pathfinder, jacobi2d, dropout, exp, dwt; and
+roi_align, which has no kernel on either side) held against the
 reference's (``repro.kernels``): the
 port's ``ops`` on the CPU (the plain versions) against the reference's
 ``ops`` with ``impl="interpret"`` (the Pallas bodies on the CPU, at shapes
@@ -1100,3 +1101,34 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_building():
         with pytest.raises(ValueError, match="CUDA device"):
             fn(*args, **kw)
         assert fn.__globals__["LAUNCHES"] == before
+
+
+def test_roi_align_matches_reference():
+    """ROI-align (plain PyTorch everywhere, as the reference's XLA path):
+    against ``roi_align_xla`` within 1e-5, and against the port's oracle
+    at the reference's own ``atol=1e-4``
+    (``tests/test_kernels.py::test_roi_align``); the port's oracle against
+    the reference's (jitted: its Python loops trace slowly) at a 3 x 3
+    output.  One ROI reaches past the image, so the clipping is walked
+    too."""
+    import jax
+    rng = np.random.default_rng(20)
+    feat = rng.standard_normal((4, 32, 32)).astype(np.float32)
+    y0 = np.abs(rng.standard_normal(5)).astype(np.float32) * 3
+    x0 = np.abs(rng.standard_normal(5)).astype(np.float32) * 3
+    rois = np.stack([y0, x0, y0 + 11, x0 + 9], -1)
+    rois[4] = [-3.0, 20.5, 7.0, 36.0]
+    tf, tr = torch.from_numpy(feat), torch.from_numpy(rois)
+    for kw in ({}, {"out_size": 3, "sampling": 3}):
+        got = ops.roi_align(tf, tr, **kw)
+        want = jops.roi_align(jnp.asarray(feat), jnp.asarray(rois), **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got.numpy(),
+                                   tref.roi_align_ref(tf, tr, **kw).numpy(),
+                                   atol=1e-4)
+    small = dict(out_size=3, sampling=2)
+    want = jax.jit(lambda f, r: jref.roi_align_ref(f, r, **small))(
+        jnp.asarray(feat), jnp.asarray(rois))
+    np.testing.assert_allclose(tref.roi_align_ref(tf, tr, **small).numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
