@@ -257,6 +257,42 @@ Phases, each of which exits non-zero on failure:
               head's and AdamW's event times; and at (c)'s attention shape
               the flash forward with and without the lse, the plain
               backward, SDPA's forward and backward, and their bounds.
+12b. train families - the hybrid, ssm and encdec losses (after phase
+              12; its SSD timing after phase 12's attention timing): (a)
+              the SSD kernel under autograd (``ops.ssd_scan`` with inputs
+              that require grad: ``SSDScan``, the kernel's forward, the
+              plain backward) against the all-plain path at zamba2's SSD
+              widths (H 64, P 64, N 64, G 1, d_skip), B 2, S 1024 and S 64,
+              bf16 and fp32: y bit-identical to a bare launch, the launches
+              on the dtype's route, the gradients of x, dt, a_log, B, C and
+              d_skip within 1e-5 of scale in fp32 and, in bf16, no farther
+              from the fp32 plain gradients than twice the plain bf16 path
+              (both sides run the same plain backward, so this holds the
+              wiring: the saved inputs, the forward's route and the
+              gradients' order; the CPU tests hold the backward's numbers
+              against the reference's jax.grad);
+              (b) narrow fp32 copies at full width (zamba2 cut to 7 layers,
+              one group and a tail layer, B 1 S 256; xlstm to 6, one group,
+              B 1 S 256; whisper to 2 + 2 layers, B 2 S 256): loss and every
+              gradient leaf on the card within 1e-4 of each leaf's scale of
+              the CPU port's (TF32 off), the launches on simt; (c) at full
+              width in bf16 through ``Trainer`` (warmup_cosine(1e-3, 2,
+              20) unless said, SyntheticTokens seed 0): zamba2-1.2b B 4
+              S 1024 with AdamW, 4 steps (228 SSD launches a step, all
+              mma, and 6 flash); xlstm-350m B 2 S 512 with AdamW8bit
+              (warmup_cosine(3e-4, 2, 20): at 1e-3 its loss rises from
+              step 2 with either optimizer), 4 steps straight,
+              checkpointed at step 2 under the gitignored build/, then a
+              second Trainer resumed from that checkpoint to 4, whose
+              step-4 loss equals the straight run's within rtol 1e-4;
+              whisper-base B 8 S 1024 (frames as long) with AdamW, 4
+              steps (30 flash launches a step); each loss
+              falling from step 1 to 4; step wall time (median of steps 2
+              to 4), tokens/s, peak memory, a profiled step (xlstm's at
+              S 128: its trace's read-back is the phase's cost) and the LM
+              head's and the optimizer's event times; and at (c)'s zamba2
+              shape the SSD forward and its plain backward a layer, with
+              the backward's bound.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line, and the result line
@@ -487,6 +523,24 @@ TRAIN_NARROW = (2, 2, 256)   # the fp32 copy of qwen3-0.6b: layers, B, S
 # second run stops at and resumes from, checkpoint cadence
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_CKPT_EVERY = (
     8, 1024, 6, 4, 4)
+# phase 12b: SSDScan against the all-plain path at zamba2's SSD widths,
+# (label, B, S): the full-width step's S and one chunk (one launch a call)
+FAM_SSD_CASES = (("zamba2 S=1024", 2, 1024), ("one chunk", 2, 64))
+# the narrow fp32 copies at full width: (arch, the cut, B, S)
+FAM_NARROW = (("zamba2-1.2b", dict(n_layers=7), 1, 256),
+              ("xlstm-350m", dict(n_layers=6), 1, 256),
+              ("whisper-base", dict(n_layers=2, n_enc_layers=2), 2, 256))
+# full width in bf16 through the Trainer: (arch, optimizer, peak learning
+# rate of warmup_cosine(lr, 2, 20), B, S, steps, the step a second run
+# stops at and resumes from, or None)
+FAM_RUNS = (("zamba2-1.2b", "adamw", 1e-3, 4, 1024, 4, None),
+            ("xlstm-350m", "adamw8bit", 3e-4, 2, 512, 4, 2),
+            ("whisper-base", "adamw", 1e-3, 8, 1024, 4, None))
+# xlstm's profiled step takes the first 128 of its 512 tokens: the
+# profiler's read-back grows with the per-token sLSTM launches, ~65 s for
+# a full step's ~2.5e5 and ~31 s for 256 tokens, even with the device
+# traced alone
+SSM_PROFILE_S = 128
 
 
 class SmokeFailure(Exception):
@@ -3845,30 +3899,33 @@ def _loss_and_grads(torch, model, params, batch, device):
     return loss.detach(), [x.grad for x in tree_leaves(p)]
 
 
-def _train_profile(torch, trainer, state, batch):
+def _train_profile(torch, trainer, state, batch, host=True):
     """One optimizer step under torch.profiler: device ms by kernel kind
-    (the flash forward; bf16 and fp32 GEMMs, the fp32 ones being the plain
-    attention backward's products and the LM head's; the rest:
+    (the flash and SSD forwards; bf16 and fp32 GEMMs, the fp32 ones being
+    the plain backwards' products and the LM head's; the rest:
     elementwise, reductions, copies) and the top kernels.  A GEMM is a
     kernel named for cuBLAS's or CUTLASS's families (Hopper's cuBLAS calls
     its own ``nvjet_*``); an fp32 one names its types ``f32f32`` or is an
-    ``sgemm``."""
+    ``sgemm``.  ``host=False`` traces the device alone: a step of ~10^5
+    host ops takes the profiler minutes to read back."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = ([ProfilerActivity.CPU] if host else []) + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         trainer.step_fn(state, batch)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    kinds = {"flash forward": 0.0, "bf16 GEMM": 0.0, "fp32 GEMM": 0.0,
-             "other": 0.0}
+    kinds = {"flash forward": 0.0, "ssd forward": 0.0, "bf16 GEMM": 0.0,
+             "fp32 GEMM": 0.0, "other": 0.0}
     for e in kernels:
         key = e.key.lower()
         ms = e.self_device_time_total / 1e3
         if "flash" in key:
             kinds["flash forward"] += ms
+        elif "ssd_scan_" in key:
+            kinds["ssd forward"] += ms
         elif any(t in key for t in ("gemm", "xmma", "cutlass", "cublas",
                                     "nvjet")):
             fp32 = "f32f32" in key or "sgemm" in key
@@ -4062,6 +4119,285 @@ def phase_train(torch, cfgs, build_model, kmods, fa, dev, name):
     return per_step, err
 
 
+# ---------------------------------------------------------------------------
+# Phase 12b: the hybrid, ssm and encdec losses (the SSD kernel under
+# autograd; zamba2-1.2b, xlstm-350m and whisper-base at full width).
+# ---------------------------------------------------------------------------
+
+def _ssd_grads(torch, fn, args, dy):
+    """(y, the gradients of x, dt, a_log, B, C and d_skip) of ``fn(x, dt,
+    a_log, B, C, d_skip)`` on fresh leaves of ``args``."""
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    y = fn(*leaves)
+    return y.detach(), torch.autograd.grad(y, leaves, dy)
+
+
+def _ssd_under_autograd(ss):
+    return lambda *a: ss.SSDScan.apply(*a, None)[0]
+
+
+def _ssd_all_plain(ss):
+    return lambda *a: ss.ssd_plain(*a[:5], d_skip=a[5])[0]
+
+
+def _ssd_autograd_case(torch, ss, dev, case, dtype):
+    """One case of phase 12b(a): y of ``SSDScan`` bit-identical to a bare
+    ``ssd_cuda`` launch, its forward's launches on the dtype's route, and
+    its gradients against the all-plain path (the plain forward and the
+    same backward): fp32 within 1e-5 of scale; bf16 no farther from the
+    fp32 plain gradients than twice the plain bf16 path."""
+    label, b, s = case
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    x, dt, a_log, bm, cm, d_skip, _ = _ssd_inputs(torch, gen, dev, dtype, b,
+                                                  s, 1)
+    args = (x, dt, a_log, bm, cm, d_skip)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+    fp32 = dtype == torch.float32
+    name = f"{label} {str(dtype)[6:]}"
+    bare, _ = ss.ssd_cuda(x, dt, a_log, bm, cm, d_skip=d_skip)
+    rt, k = ss.route(dtype), ss.kernels_per_call(s, dtype)
+    before = (ss.LAUNCHES["ssd_scan"], ss.ROUTES[rt])
+    y, got = _ssd_grads(torch, _ssd_under_autograd(ss), args, dy)
+    require((ss.LAUNCHES["ssd_scan"], ss.ROUTES[rt])
+            == (before[0] + k, before[1] + k),
+            f"train ssd {name}: the autograd forward did not launch "
+            f"{k} kernels on {rt}")
+    require(torch.equal(y, bare), f"train ssd {name}: y under autograd "
+                                  "differs from a bare launch")
+    _, plain = _ssd_grads(torch, _ssd_all_plain(ss), args, dy)
+    if fp32:
+        dist = _grad_dist(torch, got, plain)
+        ok, limit = dist <= 1e-5, "1e-5 of scale"
+        msg = f"{dist:.3e} of scale from the all-plain path"
+    else:
+        _, want = _ssd_grads(torch, _ssd_all_plain(ss),
+                             [a.float() for a in args], dy.float())
+        dist, dplain = (_grad_dist(torch, got, want),
+                        _grad_dist(torch, plain, want))
+        ok, limit = dist <= 2 * dplain, f"{2 * dplain:.3e}"
+        msg = (f"{dist:.3e} of scale from the fp32 plain gradients (the "
+               f"plain bf16 path {dplain:.3e})")
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    log(f"train ssd {name} (B={b} S={s} H={SSD_H} P={SSD_P} N={SSD_N} G=1 "
+        f"d_skip, {rt}, {k} launches): y == a bare launch; dx/ddt/da_log/"
+        f"dB/dC/dd_skip {msg} (limit {limit}), finite {finite} "
+        f"{'ok' if ok and finite else 'FAIL'}")
+    require(ok and finite, f"train ssd {name}: gradients off the plain path")
+    return dist
+
+
+def _narrow_family_check(torch, cfgs, build_model, kmods, dev, case):
+    """One copy of phase 12b(b): loss and every gradient leaf of a narrow
+    fp32 copy on the card against the CPU port, and the card's launches:
+    hybrid 2 SSD a layer (forward and recompute) and one flash a group,
+    encdec one flash an encoder layer and 4 a decoder layer, all on
+    simt."""
+    from repro_torch.data import SyntheticTokens
+    arch, cut, nb, ns = case
+    cfg = dataclasses.replace(cfgs.get_config(arch), **cut)
+    model = build_model(cfg)
+    params = model.init(3, device="cpu", dtype=torch.float32)
+    batch = SyntheticTokens(cfg, nb, ns, seed=1)(0)
+    reset_launches(kmods)
+    loss_d, grads_d = _loss_and_grads(torch, model, params, batch, dev)
+    routes = read_routes(kmods)
+    want = {"ssd_scan.simt": 0, "flash_attention.simt": 0}
+    if cfg.family == "hybrid":
+        want = {"ssd_scan.simt": 2 * cfg.n_layers,
+                "flash_attention.simt": cfg.n_layers // cfg.shared_attn_every}
+    elif cfg.family == "encdec":
+        want["flash_attention.simt"] = cfg.n_enc_layers + 4 * cfg.n_layers
+    got = {k: routes[k] for k in want}
+    require(got == want and sum(routes.values()) == sum(want.values()),
+            f"train fp32 copy {cfg.name}: launches {routes} (want {want})")
+    loss_c, grads_c = _loss_and_grads(torch, model, params, batch, "cpu")
+    worst = max(float((gd.cpu() - gc_).abs().max())
+                / max(float(gc_.abs().max()), 1e-30)
+                for gd, gc_ in zip(grads_d, grads_c))
+    lerr = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    ok = worst <= TOL_FP32 and lerr <= TOL_FP32
+    log(f"train check {cfg.name} {cut} fp32 B={nb} S={ns}: loss card "
+        f"{float(loss_d):.6f} CPU {float(loss_c):.6f} ({lerr:.3e}); "
+        f"{len(grads_c)} gradient leaves, worst {worst:.3e} of the leaf's "
+        f"scale (limit {TOL_FP32}); launches {got} "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"train fp32 copy {cfg.name}: the card's loss or gradients "
+                "disagree with the CPU port")
+
+
+def _family_launches(cfg, s):
+    """The launches a remat step makes: hybrid SSD 2 a layer (forward and
+    recompute) x ``kernels_per_call`` and one flash a group (the shared
+    block is not checkpointed); encdec flash one an encoder layer and 4 a
+    decoder layer (self and cross, forward and recompute); ssm none.
+    Every one in bf16 on mma."""
+    from repro_torch.kernels import ssd_scan as ss
+    if cfg.family == "hybrid":
+        return {"ssd_scan.mma": 2 * cfg.n_layers * ss.kernels_per_call(s),
+                "flash_attention.mma": cfg.n_layers // cfg.shared_attn_every}
+    if cfg.family == "encdec":
+        return {"flash_attention.mma": cfg.n_enc_layers + 4 * cfg.n_layers}
+    return {}
+
+
+def _train_family_run(torch, cfgs, build_model, kmods, dev, name, run):
+    """One model of phase 12b(c): full width in bf16 through the Trainer,
+    the counts zeroed just before the straight run and read just after;
+    the loss falling; step time, tokens/s, peak memory; with a resume
+    step, the straight run's checkpoint there (under the gitignored
+    build/) restored by a second Trainer, which runs to the end and must
+    reach the straight run's last loss; a profiled step, the LM head's and
+    the optimizer's event times.  Returns the per-step launches by
+    route."""
+    import gc
+    import shutil
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import layers
+    from repro_torch.optim import AdamW, AdamW8bit, warmup_cosine
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import tree_leaves, tree_map
+    arch, opt_name, lr, nb, ns, steps, resume_at = run
+    cfg = cfgs.get_config(arch)
+    model = build_model(cfg)
+    opt_cls = {"adamw": AdamW, "adamw8bit": AdamW8bit}[opt_name]
+    data = SyntheticTokens(cfg, nb, ns, seed=0)
+    root = os.path.join(ROOT, "build", "train_families_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    msgs = []
+
+    def trainer(n):
+        # with a resume step the run checkpoints there (and at its end)
+        return Trainer(model, opt_cls(lr=warmup_cosine(lr, 2, 20)), data,
+                       TrainConfig(steps=n, ckpt_dir=resume_at and root,
+                                   ckpt_every=resume_at or n, log_every=1),
+                       device=dev, log=msgs.append)
+
+    t0 = time.perf_counter()
+    try:
+        straight = trainer(steps)
+        state = straight.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(kmods)
+        state, rows = straight.run(state=state)
+        routes = read_routes(kmods)
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: n * steps
+                for k, n in _family_launches(cfg, ns).items()}
+        ran = {k: n for k, n in routes.items() if n}
+        require(ran == want, f"train {arch}: launches {ran} (want {want}: "
+                             f"{steps} steps)")
+        losses = [r["loss"] for r in rows]
+        require(all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0],
+                f"train {arch}: losses {losses} do not fall")
+        times = sorted(r["time_s"] for r in rows[1:])
+        med = times[len(times) // 2]
+        log(f"train {arch} bf16 B={nb} S={ns} {opt_name} warmup_cosine("
+            f"{lr}, 2, 20) remat: losses "
+            f"{[round(x, 5) for x in losses]}; grad norms "
+            f"{[round(r['grad_norm'], 4) for r in rows]}; step wall s "
+            f"{[round(r['time_s'], 4) for r in rows]}; median of steps 2-"
+            f"{steps} {med:.4f} s, {nb * ns / med:.1f} tokens/s; peak memory "
+            f"{peak / 2**30:.2f} GiB ({peak} bytes, "
+            f"torch.cuda.max_memory_allocated); launches a step "
+            f"{ {k: n // steps for k, n in ran.items()} } | {name}")
+        batch = to_device(data(steps), dev)
+        ps = SSM_PROFILE_S if cfg.family == "ssm" else ns
+        tp = time.perf_counter()
+        kinds, top = _train_profile(
+            torch, straight, state, {k: v[:, :ps] for k, v in batch.items()},
+            host=False)
+        log(f"train profile one step ({arch}, B={nb} S={ps}, "
+            f"{time.perf_counter() - tp:.1f} s to trace): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds.items())
+            + f", all {sum(kinds.values()):.2f} device ms")
+        for kname, ms, count in top:
+            log(f"train profile   {ms:9.3f} ms x{count} {kname}")
+        h = torch.randn((nb, ns, cfg.d_model), device=dev,
+                        dtype=torch.bfloat16).requires_grad_()
+        w = state["master"]["lm_head"].to(torch.bfloat16).requires_grad_()
+
+        def head():
+            loss, _ = layers.softmax_xent_chunked(
+                h, w, batch["labels"], valid_vocab=cfg.vocab_size)
+            loss.backward()
+        head_ms = _event_ms(torch, head)
+        del h, w
+        grads = tree_map(lambda m: torch.zeros(m.shape, dtype=torch.bfloat16,
+                                               device=dev), state["master"])
+        opt_ms = _event_ms(torch, lambda: straight.opt.update(grads, state))
+        log(f"train parts {arch} (CUDA events, ms a call): LM head + chunked "
+            f"cross-entropy forward and backward {head_ms:.2f}; {opt_name} "
+            f"update of {sum(x.numel() for x in tree_leaves(grads))} "
+            f"parameters {opt_ms:.2f}")
+        del grads, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        if resume_at is not None:
+            # resume from the straight run's own checkpoint at resume_at:
+            # its final one goes, and a new Trainer restores the state and
+            # replays the data from there
+            shutil.rmtree(os.path.join(root, f"step_{steps:08d}"))
+            msgs.clear()
+            _, rows_b = trainer(steps).run()
+            require(f"[trainer] resumed from step {resume_at}" in msgs
+                    and [r["step"] for r in rows_b]
+                    == list(range(resume_at + 1, steps + 1)),
+                    f"train {arch} resume: {msgs[:2]} steps "
+                    f"{[r['step'] for r in rows_b]}")
+            a, b = rows[-1]["loss"], rows_b[-1]["loss"]
+            ok = abs(a - b) <= 1e-4 * abs(a)
+            log(f"train {arch} resume: step {steps} loss straight {a:.6f}, "
+                f"{resume_at} + resume {b:.6f} ({abs(a - b) / abs(a):.3e} "
+                f"relative, limit 1e-4) {'ok' if ok else 'FAIL'}")
+            require(ok, f"train {arch} resume: the resumed run's loss "
+                        "differs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"train {arch}: {time.perf_counter() - t0:.1f} s")
+    return {k: n // steps for k, n in ran.items()}
+
+
+def phase_train_families(torch, cfgs, build_model, kmods, ss, dev, name):
+    """Phase 12b: (a) SSDScan against the all-plain path (FAM_SSD_CASES,
+    bf16 and fp32); (b) the narrow fp32 copies (FAM_NARROW), card against
+    the CPU; (c) zamba2-1.2b, xlstm-350m and whisper-base at full width in
+    bf16 through the Trainer (FAM_RUNS).  Returns the worst SSD gradient
+    distance."""
+    import gc
+    t0 = time.perf_counter()
+    err = 0.0
+    for case in FAM_SSD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            err = max(err, _ssd_autograd_case(torch, ss, dev, case, dtype))
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for case in FAM_NARROW:
+            _narrow_family_check(torch, cfgs, build_model, kmods, dev, case)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    t_b = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    for run in FAM_RUNS:
+        _train_family_run(torch, cfgs, build_model, kmods, dev, name, run)
+    t_c = time.perf_counter() - t2
+    log(f"train families phase: {time.perf_counter() - t0:.1f} s ((a) SSD "
+        f"autograd {t_a:.1f} s, (b) fp32 copies {t_b:.1f} s, (c) full width "
+        f"{t_c:.1f} s)")
+    return err
+
+
 def train_attention_timing(torch, fa, dev):
     """At phase 12(c)'s attention shape (B 8, Hq 16, Hkv 8, D 128, S 1024,
     causal, bf16), ms by the event timer and device ms by the profiler:
@@ -4130,6 +4466,60 @@ def train_attention_timing(torch, fa, dev):
         f"{bwd_bound:.4f} ms ({bwd_by}, bf16 peak; {bwd_bytes} bytes, "
         f"{10 * d * pairs} flops), {bwd_bound32:.4f} ms at the fp32 peak")
     del args, bwd, graphs
+    torch.cuda.empty_cache()
+
+
+def train_ssd_timing(torch, ss, dev):
+    """At phase 12b(c)'s zamba2 shape (B 4, S 1024, H 64, P 64, N 64, G 1,
+    d_skip, bf16), ms by the event timer and device ms by the profiler:
+    one layer's SSD forward (the kernel, as ``SSDScan`` launches it) and
+    its plain backward (``SSDScan.backward``: ``ssd_plain`` again under
+    autograd and its gradients), with the backward's bound: each input and
+    dy read once and each gradient written once, twice the forward's
+    products (each product's two operand gradients) at the bf16 peak (the
+    inputs' type) and at the fp32 peak the plain version computes at.  No
+    PyTorch call computes the SSD backward."""
+    b, s = FAM_RUNS[0][3], FAM_RUNS[0][4]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(32)
+    sets = []
+    for _ in range(3):              # 3 x ~100 MB of inputs > 50 MB L2
+        x, dt, a_log, bm, cm, d_skip, _ = _ssd_inputs(
+            torch, gen, dev, torch.bfloat16, b, s, 1)
+        leaves = [t.requires_grad_() for t in (x, dt, a_log, bm, cm, d_skip)]
+        y = ss.SSDScan.apply(*leaves, None)[0]
+        sets.append((x, dt, a_log, bm, cm, d_skip, y, leaves,
+                     torch.randn(x.shape, generator=gen, device=dev).to(
+                         torch.bfloat16)))
+
+    def fwd(*a):
+        return ss.ssd_cuda(*(t.detach() for t in a[:5]), d_skip=a[5].detach())
+
+    def bwd(*a):
+        return torch.autograd.grad(a[6], a[7], a[8], retain_graph=True)
+    q = min(64, s)
+    tri = q * (q + 1) // 2
+    flops = b * (s // q) * SSD_H * 2 * (tri * (SSD_N + SSD_P)
+                                        + 2 * q * SSD_P * SSD_N)
+    x, dt, a_log, bm, cm, d_skip = sets[0][:6]
+    io = (x.numel() * 2 + dt.numel() * 4 + (bm.numel() + cm.numel()) * 2
+          + (a_log.numel() + d_skip.numel()) * 4)
+    fwd_bytes = io + x.numel() * 2 + b * SSD_H * SSD_P * SSD_N * 4
+    bwd_bytes = 2 * io + x.numel() * 2            # inputs + dy; gradients
+    fwd_bound, fwd_by = bound(fwd_bytes, flops)
+    bwd_bound, bwd_by = bound(bwd_bytes, 2 * flops)
+    bwd_bound32, _ = bound(bwd_bytes, 2 * flops, FP32_FLOPS_PER_S)
+    for label, fn, iters in (("forward (kernel)", fwd, 20),
+                             ("plain backward", bwd, 4)):
+        ms = time_ms(torch, fn, sets, iters)
+        log(f"timing train ssd {label} (B={b} S={s} H={SSD_H} P={SSD_P} "
+            f"N={SSD_N} G=1 bf16, a layer): ms={ms:.4f} device_ms="
+            f"{_ms(device_ms(torch, fn, sets))}")
+    log(f"timing train ssd bounds: forward {fwd_bound:.4f} ms ({fwd_by}; "
+        f"{fwd_bytes} bytes, {flops} flops), backward {bwd_bound:.4f} ms "
+        f"({bwd_by}, bf16 peak; {bwd_bytes} bytes, {2 * flops} flops), "
+        f"{bwd_bound32:.4f} ms at the fp32 peak; library none")
+    del sets
     torch.cuda.empty_cache()
 
 
@@ -4262,6 +4652,15 @@ def main() -> int:
     from repro_torch.models import build_model
 
     t_start = time.perf_counter()
+    seconds = {}
+
+    @contextlib.contextmanager
+    def clock(label):
+        t0 = time.perf_counter()
+        yield
+        seconds[label] = time.perf_counter() - t0
+        log(f"phase {label}: {seconds[label]:.1f} s")
+
     try:
         smi = nvidia_smi()
         dev = resolve_device("cuda")
@@ -4269,107 +4668,126 @@ def main() -> int:
         log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__}"
             f" cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
         kmods = (pa, fa, ss)
-        phase_build(build)
-        errs = phase_parity(torch, pa, dev)
-        errs["flash_attention"] = phase_flash_parity(torch, fa, dev)
-        for k, err in phase_window_parity(torch, pa, fa, dev).items():
-            errs[k] = max(errs[k], err)
-        errs["ssd_scan"] = phase_ssd_parity(torch, ss, dev)
-        times = phase_timing(torch, pa, fa, ss, ideality.POOL["fft"],
-                             ideality.POOL["exp"], ideality.POOL["pathfinder"],
-                             ideality.POOL["jacobi2d"], ideality.POOL["conv2d"],
-                             ideality.POOL["dotproduct"], dev)
-        train_attention_timing(torch, fa, dev)
-        phase_checks(torch, cfgs, build_model, dev)
-        phase_hybrid_checks(torch, cfgs, build_model, dev)
-        phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods, dev,
-                               name)
-        launches, model, params, paged = phase_serve(
-            torch, cfgs.get_config("qwen3-0.6b"), build_model, serving,
-            kmods, dev, name)
-        dense_launches, dense = phase_dense(
-            torch, serving, kmods, model, params, paged, dev, name)
-        launches["flash_attention"] = dense_launches["flash_attention"]
-        # the bf16 cluster cells run a copy cut in depth (its own name, so
-        # the attribution memo keeps its costs apart), served first by a
-        # single paged engine: the 1x8 cell's reference
-        ccfg = dataclasses.replace(cfgs.get_config("qwen3-0.6b"),
-                                   n_layers=CLUSTER_LAYERS,
-                                   name=f"qwen3-0.6b-L{CLUSTER_LAYERS}")
-        _, cmodel, cparams, csingle = phase_serve(
-            torch, ccfg, build_model, serving, kmods, dev, name)
-        clustered = phase_cluster(torch, serving, kmods, cmodel, cparams,
-                                  csingle, dev, f"{name} ({smi})")
-        phase_attribution(torch, serving, kmods, model, params, cmodel,
-                          cparams,
-                          {"paged": paged, "dense": dense, **clustered},
-                          dev, f"{name} ({smi})")
-        del cparams
-        phase_profile(torch, model, params, dev)
-        del params
-        torch.cuda.empty_cache()
-        # qwen2.5-3b at full width, cut to QWEN25_LAYERS layers: its group
-        # of 8 puts 128 query rows a kv head in every paged prefill
-        cfg25 = dataclasses.replace(cfgs.get_config("qwen2.5-3b"),
-                                    n_layers=QWEN25_LAYERS)
-        for bs in QWEN25_BLOCK_SIZES:
-            phase_serve(torch, cfg25, build_model, serving, kmods, dev, name,
-                        bs)
-            torch.cuda.empty_cache()
-        hybrid_launches, hmodel, hparams, hybrid = phase_hybrid(
-            torch, cfgs, build_model, serving, kmods, dev, name)
-        launches["ssd_scan"] = hybrid_launches["ssd_scan"]
-        phase_hybrid_attribution(torch, serving, kmods, hmodel, hparams,
-                                 hybrid, dev, f"{name} ({smi})")
-        phase_hybrid_profile(torch, hmodel, hparams, dev)
-        del hparams
-        torch.cuda.empty_cache()
-        t_fam = time.perf_counter()
-        moe_launches = phase_moe(torch, cfgs, build_model, serving, kmods,
-                                 dev, name)
-        phase_moe_fp32(torch, cfgs, build_model, serving, kmods, dev, name)
-        vlm_launches = phase_vlm(torch, cfgs, build_model, serving, kmods,
-                                 dev, name)
-        q3_launches = phase_qwen3_moe(torch, cfgs, build_model, serving,
-                                      kmods, dev, name)
-        log(f"moe and vlm phases: {time.perf_counter() - t_fam:.1f} s; "
-            f"launches granite dense {moe_launches['dense']} paged "
-            f"{moe_launches['paged']}, phi-3-vision dense "
-            f"{vlm_launches['dense']} paged {vlm_launches['paged']}, "
-            f"qwen3-moe dense {q3_launches}")
-        t_fam = time.perf_counter()
-        phase_new_checks(torch, cfgs, build_model, dev)
-        g3_launches = phase_gemma3(torch, cfgs, build_model, serving, kmods,
-                                   pa, dev, name)
-        phase_gemma3_fp32(torch, cfgs, build_model, serving, kmods, dev,
-                          name)
-        yi_launches = phase_yi(torch, cfgs, build_model, serving, kmods,
-                               dev, name)
-        phase_xlstm(torch, cfgs, build_model, serving, kmods, dev, name)
-        log(f"gemma3, yi and xlstm phases: {time.perf_counter() - t_fam:.1f}"
-            f" s; launches gemma3 dense {g3_launches['dense']} paged "
-            f"{g3_launches['paged']}, yi dense {yi_launches['dense']} paged "
-            f"{yi_launches['paged']}")
-        t_fam = time.perf_counter()
-        phase_whisper_checks(torch, cfgs, build_model, dev)
-        w_launches = phase_whisper(torch, cfgs, build_model, serving, kmods,
+        with clock("build"):
+            phase_build(build)
+        with clock("parity"):
+            errs = phase_parity(torch, pa, dev)
+            errs["flash_attention"] = phase_flash_parity(torch, fa, dev)
+            for k, err in phase_window_parity(torch, pa, fa, dev).items():
+                errs[k] = max(errs[k], err)
+            errs["ssd_scan"] = phase_ssd_parity(torch, ss, dev)
+        with clock("timing"):
+            times = phase_timing(torch, pa, fa, ss, ideality.POOL["fft"],
+                                 ideality.POOL["exp"],
+                                 ideality.POOL["pathfinder"],
+                                 ideality.POOL["jacobi2d"],
+                                 ideality.POOL["conv2d"],
+                                 ideality.POOL["dotproduct"], dev)
+            train_attention_timing(torch, fa, dev)
+            train_ssd_timing(torch, ss, dev)
+        with clock("checks"):
+            phase_checks(torch, cfgs, build_model, dev)
+            phase_hybrid_checks(torch, cfgs, build_model, dev)
+        with clock("fp32 paged and dense"):
+            phase_paged_dense_fp32(torch, cfgs, build_model, serving, kmods,
                                    dev, name)
-        log(f"whisper phases: {time.perf_counter() - t_fam:.1f} s; flash "
-            f"launches in the continuous run {w_launches['flash_attention']}")
-        phase_train(torch, cfgs, build_model, kmods, fa, dev,
-                    f"{name} ({smi})")
-        pool = ideality.POOL
-        errs.update(phase_pool_parity(torch, ideality, pool, dev))
-        phase_conv2d_bands(torch, pool["conv2d"], dev)
-        pool_launches, kernel_ms = phase_pool(torch, ideality, pool, kmods)
-        launches.update(pool_launches)
-        times.update(phase_pool_timing(torch, ideality, pool, dev,
-                                       kernel_ms))
-        phase_fft_launches(torch, pool["fft"], dev)
+        with clock("serve and dense"):
+            launches, model, params, paged = phase_serve(
+                torch, cfgs.get_config("qwen3-0.6b"), build_model, serving,
+                kmods, dev, name)
+            dense_launches, dense = phase_dense(
+                torch, serving, kmods, model, params, paged, dev, name)
+            launches["flash_attention"] = dense_launches["flash_attention"]
+        with clock("cluster and attribution"):
+            # the bf16 cluster cells run a copy cut in depth (its own name,
+            # so the attribution memo keeps its costs apart), served first
+            # by a single paged engine: the 1x8 cell's reference
+            ccfg = dataclasses.replace(cfgs.get_config("qwen3-0.6b"),
+                                       n_layers=CLUSTER_LAYERS,
+                                       name=f"qwen3-0.6b-L{CLUSTER_LAYERS}")
+            _, cmodel, cparams, csingle = phase_serve(
+                torch, ccfg, build_model, serving, kmods, dev, name)
+            clustered = phase_cluster(torch, serving, kmods, cmodel, cparams,
+                                      csingle, dev, f"{name} ({smi})")
+            phase_attribution(torch, serving, kmods, model, params, cmodel,
+                              cparams,
+                              {"paged": paged, "dense": dense, **clustered},
+                              dev, f"{name} ({smi})")
+            del cparams
+        with clock("profile and qwen2.5-3b"):
+            phase_profile(torch, model, params, dev)
+            del params
+            torch.cuda.empty_cache()
+            # qwen2.5-3b at full width, cut to QWEN25_LAYERS layers: its
+            # group of 8 puts 128 query rows a kv head in every paged
+            # prefill
+            cfg25 = dataclasses.replace(cfgs.get_config("qwen2.5-3b"),
+                                        n_layers=QWEN25_LAYERS)
+            for bs in QWEN25_BLOCK_SIZES:
+                phase_serve(torch, cfg25, build_model, serving, kmods, dev,
+                            name, bs)
+                torch.cuda.empty_cache()
+        with clock("hybrid"):
+            hybrid_launches, hmodel, hparams, hybrid = phase_hybrid(
+                torch, cfgs, build_model, serving, kmods, dev, name)
+            launches["ssd_scan"] = hybrid_launches["ssd_scan"]
+            phase_hybrid_attribution(torch, serving, kmods, hmodel, hparams,
+                                     hybrid, dev, f"{name} ({smi})")
+            phase_hybrid_profile(torch, hmodel, hparams, dev)
+            del hparams
+            torch.cuda.empty_cache()
+        with clock("moe and vlm"):
+            moe_launches = phase_moe(torch, cfgs, build_model, serving,
+                                     kmods, dev, name)
+            phase_moe_fp32(torch, cfgs, build_model, serving, kmods, dev,
+                           name)
+            vlm_launches = phase_vlm(torch, cfgs, build_model, serving,
+                                     kmods, dev, name)
+            q3_launches = phase_qwen3_moe(torch, cfgs, build_model, serving,
+                                          kmods, dev, name)
+            log(f"moe and vlm launches: granite dense "
+                f"{moe_launches['dense']} paged {moe_launches['paged']}, "
+                f"phi-3-vision dense {vlm_launches['dense']} paged "
+                f"{vlm_launches['paged']}, qwen3-moe dense {q3_launches}")
+        with clock("gemma3, yi and xlstm"):
+            phase_new_checks(torch, cfgs, build_model, dev)
+            g3_launches = phase_gemma3(torch, cfgs, build_model, serving,
+                                       kmods, pa, dev, name)
+            phase_gemma3_fp32(torch, cfgs, build_model, serving, kmods, dev,
+                              name)
+            yi_launches = phase_yi(torch, cfgs, build_model, serving, kmods,
+                                   dev, name)
+            phase_xlstm(torch, cfgs, build_model, serving, kmods, dev, name)
+            log(f"gemma3 and yi launches: gemma3 dense "
+                f"{g3_launches['dense']} paged {g3_launches['paged']}, yi "
+                f"dense {yi_launches['dense']} paged {yi_launches['paged']}")
+        with clock("whisper"):
+            phase_whisper_checks(torch, cfgs, build_model, dev)
+            w_launches = phase_whisper(torch, cfgs, build_model, serving,
+                                       kmods, dev, name)
+            log(f"whisper flash launches in the continuous run "
+                f"{w_launches['flash_attention']}")
+        with clock("train"):
+            phase_train(torch, cfgs, build_model, kmods, fa, dev,
+                        f"{name} ({smi})")
+        with clock("train families"):
+            phase_train_families(torch, cfgs, build_model, kmods, ss, dev,
+                                 f"{name} ({smi})")
+        with clock("pool"):
+            pool = ideality.POOL
+            errs.update(phase_pool_parity(torch, ideality, pool, dev))
+            phase_conv2d_bands(torch, pool["conv2d"], dev)
+            pool_launches, kernel_ms = phase_pool(torch, ideality, pool,
+                                                  kmods)
+            launches.update(pool_launches)
+            times.update(phase_pool_timing(torch, ideality, pool, dev,
+                                           kernel_ms))
+            phase_fft_launches(torch, pool["fft"], dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s; by phase "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=errs[k], ms=times[k]["ms"],

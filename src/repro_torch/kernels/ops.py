@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from ..tree import tree_leaves
 from .conv2d import conv2d_cuda, conv2d_plain
 from .dotproduct import dotproduct_cuda, dotproduct_plain
 from .dropout import dropout_cuda, dropout_plain
@@ -37,7 +38,7 @@ from .paged_attention import (paged_decode_attention_cuda,
                               paged_prefill_attention_plain)
 from .pathfinder import pathfinder_cuda, pathfinder_plain
 from .softmax import softmax_cuda, softmax_plain
-from .ssd_scan import ssd_cuda, ssd_plain, ssd_step_plain
+from .ssd_scan import SSDScan, ssd_cuda, ssd_plain, ssd_step_plain
 
 
 def _pick(x, plain, cuda, what: str):
@@ -49,6 +50,15 @@ def _pick(x, plain, cuda, what: str):
     raise ValueError(f"{what}: no implementation for device {x.device}")
 
 
+def records_grad(*args) -> bool:
+    """Whether autograd records a call on ``args``: grad mode on and a
+    tensor among them (or nested in their lists, tuples and dicts) that
+    requires grad.  A training call; serving's calls are not."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in tree_leaves(args))
+
+
 def attention(q, k, v, *, causal=True, window=None, scale=None):
     """Dense full-sequence GQA attention (the flash forward).  q:
     (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), queries right-aligned to the
@@ -56,8 +66,7 @@ def attention(q, k, v, *, causal=True, window=None, scale=None):
     on and an input that requires grad, the call goes through
     ``FlashAttention`` (the same forward by device, keeping the rows'
     log-sum-exp, and the plain backward)."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if records_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window, scale)
     fn = _pick(q, flash_attention_plain, flash_attention_cuda, "attention")
     return fn(q, k, v, causal=causal, window=window, scale=scale)
@@ -146,7 +155,12 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, *, d_skip=None, h0=None):
     dt: (B, S, H) fp32, a_log: (H,), b_mat/c_mat: (B, S, G, N); optional
     d_skip (H,) and initial state h0 (B, H, P, N).  Returns (y, h_final
     (B, H, P, N) fp32).  A CUDA tensor always launches the kernel, with or
-    without ``h0`` (the reference sends ``h0`` to XLA)."""
+    without ``h0`` (the reference sends ``h0`` to XLA).  With grad mode on
+    and an input that requires grad, the call goes through ``SSDScan``
+    (the same forward by device, the plain backward; a gradient through
+    ``h0`` raises ``NotImplementedError``)."""
+    if records_grad(x, dt, a_log, b_mat, c_mat, d_skip, h0):
+        return SSDScan.apply(x, dt, a_log, b_mat, c_mat, d_skip, h0)
     fn = _pick(x, ssd_plain, ssd_cuda, "ssd_scan")
     return fn(x, dt, a_log, b_mat, c_mat, d_skip=d_skip, h0=h0)
 

@@ -29,7 +29,9 @@ Three implementations, as in the reference (``repro/kernels/ssd_scan.py``):
   plain PyTorch on every device, as the reference leaves it to XLA.
 
 ``repro_torch.kernels.ops`` picks between the first two by the tensor's
-device.  The sequential oracle is ``ref.ssd_ref``.
+device; under autograd it goes through :class:`SSDScan` (the same forward
+by device, the backward differentiating ``ssd_plain``).  The sequential
+oracle is ``ref.ssd_ref``.
 """
 from __future__ import annotations
 
@@ -76,8 +78,13 @@ def _chunk_body(h_in, xc, dtc, a, bc, cc):
     cb = torch.einsum("bihn,bjhn->bhij", cc, bc)
     q = s.shape[1]
     causal = torch.ones((q, q), dtype=torch.bool, device=xc.device).tril()
-    decay = torch.exp(st[..., :, None] - st[..., None, :])
-    scores = torch.where(causal, cb * decay, 0.0)
+    # the exponent is masked before the exp, which makes the decay 0 above
+    # the diagonal: there s_i - s_j is positive and overflows past 88 (the
+    # reference's ``ssd_xla`` takes exp there and masks after, so its
+    # gradient is 0 * inf = NaN)
+    decay = torch.exp(torch.where(causal, st[..., :, None] - st[..., None, :],
+                                  -torch.inf))
+    scores = cb * decay
     dtx = dtc[..., None] * xc                              # (B, Q, H, P)
     y = torch.einsum("bhij,bjhp->bihp", scores, dtx)
     # inter-chunk: the carried state's contribution
@@ -131,6 +138,47 @@ def ssd_step_plain(h_state, xt, dtt, a_log, bt, ct, *, d_skip=None):
     if d_skip is not None:
         y = y + d_skip.float()[None, :, None] * xt.float()
     return y.to(xt.dtype), h_state
+
+
+class SSDScan(torch.autograd.Function):
+    """The scan under autograd: the forward by the tensor's device
+    (:func:`ssd_cuda` on a CUDA tensor, :func:`ssd_plain` on a CPU tensor),
+    the backward ``torch.autograd.grad`` of :func:`ssd_plain` recomputed
+    from the saved inputs, on either device.  The reference's Pallas
+    kernel has no VJP and its training differentiates ``ssd_xla`` through
+    jnp; the plain backward is that, not the port of a kernel.  y's
+    gradient reaches x, dt, a_log, b_mat, c_mat and ``d_skip``; an ``h0``
+    that requires grad raises (training passes none) and ``h_final`` is not
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b_mat, c_mat, d_skip, h0):
+        if ctx.needs_input_grad[6]:
+            raise NotImplementedError(
+                "ssd_scan: no gradient through h0 (training passes none)")
+        if x.device.type == "cpu":
+            fn = ssd_plain
+        elif x.device.type == "cuda":
+            fn = ssd_cuda
+        else:
+            raise ValueError(f"ssd_scan: no implementation for device "
+                             f"{x.device}")
+        y, h_final = fn(x, dt, a_log, b_mat, c_mat, d_skip=d_skip, h0=h0)
+        ctx.save_for_backward(x, dt, a_log, b_mat, c_mat, d_skip, h0)
+        ctx.mark_non_differentiable(h_final)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, _dh):
+        *inputs, h0 = ctx.saved_tensors
+        need = ctx.needs_input_grad[:6]
+        args = [None if t is None else t.detach().requires_grad_(n)
+                for t, n in zip(inputs, need)]
+        with torch.enable_grad():
+            y, _ = ssd_plain(*args[:5], d_skip=args[5], h0=h0)
+        grads = iter(torch.autograd.grad(
+            y, [t for t, n in zip(args, need) if n], dy))
+        return (*(next(grads) if n else None for n in need), None)
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,9 @@ PyTorch path).  Weights are seeded random (seed 0, as in the reference),
 the data synthetic or a flat token file on local disk (``--data PATH``,
 uint16 tokens), drawn or shuffled from ``--seed``; with
 ``--ckpt-dir`` the run resumes from the latest checkpoint there.  The port
-trains the dense, moe and vlm families with AdamW on one device: the 8-bit
-AdamW (``--opt adamw8bit``), a mesh other than 1x1, ``--fsdp``, ``--sp``
-and the hybrid, ssm and encdec archs raise (ROADMAP section 1).
+trains every arch, with AdamW in fp32 (``--opt adamw``) or in 8 bits
+(``--opt adamw8bit``), on one device: a mesh other than 1x1, ``--fsdp`` and
+``--sp`` raise (distributed training, ROADMAP section 1 item 4).
 """
 from __future__ import annotations
 
@@ -20,18 +20,15 @@ import argparse
 from ..configs import get_config, list_archs, smoke_config
 from ..data import MMapTokens, SyntheticTokens
 from ..models import build_model
-from ..optim import AdamW, warmup_cosine
+from ..optim import AdamW, AdamW8bit, warmup_cosine
 from ..train import TrainConfig, Trainer
 
-_NEXT = "not ported yet (ROADMAP section 1)"
+_NEXT = "not ported yet (ROADMAP section 1 item 4)"
 
 
-def _refuse(args, cfg) -> None:
-    """Raise on what the reference's launcher takes and the port does
-    not."""
-    if args.opt != "adamw":
-        raise NotImplementedError(f"--opt {args.opt}: {_NEXT}; the port "
-                                  "trains with adamw")
+def _refuse(args) -> None:
+    """Raise on the distributed flags, which the reference's launcher takes
+    and the port does not."""
     if args.mesh != "1x1":
         raise NotImplementedError(f"--mesh {args.mesh}: distributed "
                                   f"training is {_NEXT}; use 1x1")
@@ -39,9 +36,6 @@ def _refuse(args, cfg) -> None:
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: distributed training is "
                                       f"{_NEXT}")
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"--arch {args.arch}: the {cfg.family} "
-                                  f"family's loss is {_NEXT}")
 
 
 def main(argv=None):
@@ -69,11 +63,12 @@ def main(argv=None):
     ap.add_argument("--max-step-time", type=float, default=None)
     args = ap.parse_args(argv)
 
+    _refuse(args)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    _refuse(args, cfg)
     model = build_model(cfg)
     print(f"[train] {cfg.name}: {model.n_params/1e6:.1f}M params")
-    opt = AdamW(lr=warmup_cosine(args.lr, args.warmup, args.steps))
+    opt_cls = {"adamw": AdamW, "adamw8bit": AdamW8bit}[args.opt]
+    opt = opt_cls(lr=warmup_cosine(args.lr, args.warmup, args.steps))
     if args.data == "synthetic":
         data = SyntheticTokens(cfg, args.batch, args.seq, seed=args.seed)
     else:

@@ -1,11 +1,14 @@
 """Whisper-style encoder-decoder (the encdec family).  The port's counterpart
-of ``repro/models/encdec.py`` (serving only; ``encdec_loss`` comes with
-the next training slice, with hybrid's and xlstm's: ROADMAP section 1).
+of ``repro/models/encdec.py``: the training loss and the serving paths.
 
 The conv/mel frontend is a stub, as in the reference: a request brings
 precomputed frame embeddings (B, S_enc, d_model).  Sinusoidal positions on
 both sides, GELU MLPs, pre-LN with LayerNorm.  Python loops over the layers
-take the place of the reference's ``lax.scan``.
+take the place of the reference's ``lax.scan``; the stacked layer leaves
+are taken apart once a call (``tree_unbind``).  Every attention, the
+encoder's non-causal self-attention, the decoder's causal self-attention and
+its cross-attention, goes through ``ops.attention``: the flash kernel, under
+autograd ``FlashAttention``.
 
 Decode state per request: the decoder's self-attention KV strip (``k`` /
 ``v``, written at ``pos``) and the cross-attention strip (``xk`` / ``xv``),
@@ -19,12 +22,14 @@ does.  Its width is the frames' length (whisper's 30 s window is
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (attn_cross_decode, attn_decode, attn_forward,
                         attn_prefill, attn_templates, project_kv)
 from .layers import (PT, embed_lookup, embed_templates, gelu_mlp_apply,
                      gelu_mlp_templates, layernorm, sinusoid_div,
-                     sinusoidal_positions, stack_layers, tree_index)
+                     sinusoidal_positions, softmax_xent_chunked,
+                     stack_layers, tree_index, tree_unbind)
 from .slot_state import make_slot_hooks
 from .transformer import _lm_logits
 
@@ -68,8 +73,7 @@ def encode(params, frames, cfg):
     """frames (B, S_enc, D) -> the encoder output (B, S_enc, D): every
     layer's attention non-causal through the flash kernel."""
     x = _add_positions(frames)
-    for i in range(cfg.n_enc_layers):
-        lp = tree_index(params["enc_layers"], i)
+    for lp in tree_unbind(params["enc_layers"], cfg.n_enc_layers):
         h = _ln(lp["ln1"], x, cfg.norm_eps)
         x = x + attn_forward(lp["attn"], h, cfg, causal=False)
         h = _ln(lp["ln2"], x, cfg.norm_eps)
@@ -77,21 +81,47 @@ def encode(params, frames, cfg):
     return _ln(params["enc_final"], x, cfg.norm_eps)
 
 
-def _decoder(params, tokens, enc_out, cfg):
+def _decoder_layer(lp, x, enc_out, cfg):
+    """One decoder layer: causal self-attention, cross-attention over
+    ``project_kv(enc_out)`` and the GELU MLP, each pre-LN."""
+    h = _ln(lp["ln1"], x, cfg.norm_eps)
+    x = x + attn_forward(lp["self_attn"], h, cfg, causal=True)
+    h = _ln(lp["lnx"], x, cfg.norm_eps)
+    ckv = project_kv(lp["cross_attn"], enc_out, cfg, rope=False)
+    x = x + attn_forward(lp["cross_attn"], h, cfg, cross_kv=ckv)
+    h = _ln(lp["ln2"], x, cfg.norm_eps)
+    return x + gelu_mlp_apply(lp["mlp"], h)
+
+
+def _decoder(params, tokens, enc_out, cfg, *, remat=False):
     """The full-sequence decoder over ``tokens`` (B, S) against
-    ``enc_out``: causal self-attention, cross-attention over every
-    encoder position.  Returns the final-norm'd hiddens (B, S, D)."""
+    ``enc_out``; with ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).
+    Returns the final-norm'd hiddens (B, S, D)."""
     x = _add_positions(embed_lookup(params["embed"], tokens))
-    for i in range(cfg.n_layers):
-        lp = tree_index(params["dec_layers"], i)
-        h = _ln(lp["ln1"], x, cfg.norm_eps)
-        x = x + attn_forward(lp["self_attn"], h, cfg, causal=True)
-        h = _ln(lp["lnx"], x, cfg.norm_eps)
-        ckv = project_kv(lp["cross_attn"], enc_out, cfg, rope=False)
-        x = x + attn_forward(lp["cross_attn"], h, cfg, cross_kv=ckv)
-        h = _ln(lp["ln2"], x, cfg.norm_eps)
-        x = x + gelu_mlp_apply(lp["mlp"], h)
+    for lp in tree_unbind(params["dec_layers"], cfg.n_layers):
+        if remat:
+            x = checkpoint(_decoder_layer, lp, x, enc_out, cfg,
+                           use_reentrant=False)
+        else:
+            x = _decoder_layer(lp, x, enc_out, cfg)
     return _ln(params["dec_final"], x, cfg.norm_eps)
+
+
+def encdec_loss(params, batch, cfg, *, remat=True, xent_chunk=512):
+    """(mean loss, {"loss", "accuracy"}) of next-token prediction over
+    ``batch["labels"]`` (and ``batch["label_mask"]``, optional), the
+    decoder reading the encoder's output of ``batch["frames"]`` (B, S_enc,
+    D), cast to the weights' dtype (the reference's training inputs carry
+    frames in the compute dtype).  The encoder is not checkpointed; with
+    ``remat`` every decoder layer is."""
+    frames = batch["frames"].to(params["embed"]["embedding"].dtype)
+    enc_out = encode(params, frames, cfg)
+    x = _decoder(params, batch["tokens"], enc_out, cfg, remat=remat)
+    loss, acc = softmax_xent_chunked(
+        x, params["lm_head"], batch["labels"], chunk=xent_chunk,
+        label_mask=batch.get("label_mask"), valid_vocab=cfg.vocab_size)
+    return loss, {"loss": loss, "accuracy": acc}
 
 
 # batch axis of every cache leaf (the serving slot axis); ``pos`` is the

@@ -1,14 +1,17 @@
 """zamba2-style hybrid: a Mamba2 backbone and one *shared* attention block
 (a single parameter set) applied after every ``shared_attn_every`` Mamba2
-layers.  The port's counterpart of ``repro/models/hybrid.py`` (serving
-only; training comes with the training slice).
+layers.  The port's counterpart of ``repro/models/hybrid.py``: the training
+loss and the serving paths.
 
 Python loops over the layer indices take the place of the reference's
 nested ``lax.scan`` over groups: layer ``i`` is followed by the shared block
 when ``(i + 1) % k == 0``, so the ``n_layers % k`` tail layers run without
-one.  The shared block's prefill goes through the flash kernel and its
+one.  The shared block's full-sequence attention (the loss and the
+prefill) goes through the flash kernel at ``window=cfg.local_window``; its
 decode cache is a ring of ``W = min(cache_len, local_window)`` slots,
-written at ``pos % W``, so the state per request stays bounded.
+written at ``pos % W``, so the state per request stays bounded.  Every
+Mamba2 layer's scan goes through ``ops.ssd_scan``: the SSD kernel, under
+autograd ``SSDScan``.
 
 Every cache leaf keeps its batch (serving slot) axis at 1: the Mamba2 conv
 tails and SSD states ``(n_layers, B, ...)``, the shared block's ring KV
@@ -19,9 +22,12 @@ from __future__ import annotations
 
 import torch
 
-from .attention import attn_decode, attn_prefill, attn_templates
+from torch.utils.checkpoint import checkpoint
+
+from .attention import attn_decode, attn_forward, attn_prefill, attn_templates
 from .layers import (PT, embed_lookup, embed_templates, rmsnorm,
-                     stack_layers, swiglu_templates, tree_index)
+                     softmax_xent_chunked, stack_layers, swiglu_templates,
+                     tree_index, tree_unbind)
 from .mamba2 import mamba_decode, mamba_dims, mamba_forward, mamba_templates
 from .slot_state import make_slot_hooks
 from .transformer import _block, _lm_logits, _rope
@@ -51,6 +57,63 @@ def _split_groups(cfg):
     n_groups = cfg.n_layers // k
     return k, n_groups, cfg.n_layers - n_groups * k
 
+
+# ---------------------------------------------------------------------------
+# Training forward + loss.
+# ---------------------------------------------------------------------------
+
+def _mamba_layer(lp, x, cfg, dims):
+    """The pre-norm Mamba2 residual (no state)."""
+    h = rmsnorm(lp["norm"], x, cfg.norm_eps)
+    return x + mamba_forward(lp["block"], h, dims, norm_eps=cfg.norm_eps)
+
+
+def _shared_attn_block(sp, x, cfg):
+    """The shared block: full-sequence causal attention at
+    ``window=cfg.local_window`` (the flash kernel, under autograd), then
+    SwiGLU."""
+    return _block(sp, x, cfg, lambda p, h: attn_forward(
+        p, h, cfg, window=cfg.local_window))
+
+
+def hybrid_backbone(params, x, cfg, *, remat=True):
+    """x (B, S, D) through the Mamba2 layers and the shared block after
+    every ``k``-th; the counterpart of the reference's ``hybrid_backbone``.
+    The stacked ``mamba`` leaves are taken apart once a call
+    (``tree_unbind``); with ``remat`` each Mamba2 layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), the
+    shared block does not."""
+    dims = mamba_dims(cfg)
+    k, _, _ = _split_groups(cfg)
+    sp = params["shared_attn"]
+    for i, lp in enumerate(tree_unbind(params["mamba"], cfg.n_layers)):
+        if remat:
+            x = checkpoint(_mamba_layer, lp, x, cfg, dims, use_reentrant=False)
+        else:
+            x = _mamba_layer(lp, x, cfg, dims)
+        if (i + 1) % k == 0:
+            x = _shared_attn_block(sp, x, cfg)
+    return x
+
+
+def hybrid_loss(params, batch, cfg, *, remat=True, xent_chunk=512):
+    """(mean loss, {"loss", "accuracy"}) of next-token prediction over
+    ``batch["labels"]`` (and ``batch["label_mask"]``, optional): the final
+    RMSNorm and the chunked cross-entropy against the untied ``lm_head``.
+    S must be at most 64 or a multiple of 64 (the SSD scan's chunk rule:
+    the scan raises ``ValueError`` otherwise)."""
+    x = embed_lookup(params["embed"], batch["tokens"])
+    x = hybrid_backbone(params, x, cfg, remat=remat)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    loss, acc = softmax_xent_chunked(
+        x, params["lm_head"], batch["labels"], chunk=xent_chunk,
+        label_mask=batch.get("label_mask"), valid_vocab=cfg.vocab_size)
+    return loss, {"loss": loss, "accuracy": acc}
+
+
+# ---------------------------------------------------------------------------
+# Serving.
+# ---------------------------------------------------------------------------
 
 # batch axis of every cache leaf (the serving slot axis)
 HYBRID_STATE_AXES = {"conv": 1, "ssm": 1, "attn_k": 1, "attn_v": 1}

@@ -5,13 +5,14 @@ The counterpart of ``repro/models/model.py``.  A ``Model`` exposes the
 training loss and the serving hooks the engine drives:
 
   model.init(seed, device=, dtype=)           - parameter dict
-  model.loss(params, batch, remat=)           - (loss, {"loss", "accuracy"})
-                                                for dense, moe and vlm
-                                                (``transformer.decoder_loss``);
-                                                hybrid, ssm and encdec raise
-                                                NotImplementedError (their
-                                                losses are the next training
-                                                slice, ROADMAP section 1)
+  model.loss(params, batch, remat=)           - (loss, {"loss", "accuracy"}):
+                                                ``transformer.decoder_loss``
+                                                (dense, moe, vlm),
+                                                ``hybrid.hybrid_loss``,
+                                                ``xlstm_lm.xlstm_loss`` (ssm)
+                                                or ``encdec.encdec_loss``
+                                                (its batch also carries
+                                                ``frames``)
   model.prefill(params, batch, cache_len=)    - (logits, dense cache)
   model.decode(params, cache, tokens)         - (logits, dense cache)
   model.cache_expand(sub, batch)              - batch-1 prefill cache ->
@@ -93,15 +94,7 @@ class Model:
         return param_count(self.templates)
 
 
-def _loss_not_ported(params, batch, *, cfg, **kw):
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family} family's loss is not ported yet (the "
-        "port trains dense, moe and vlm; hybrid, ssm and encdec training is "
-        "the next training slice, ROADMAP section 1)")
-
-
 def build_model(cfg: ModelConfig) -> Model:
-    no_loss = functools.partial(_loss_not_ported, cfg=cfg)
     if cfg.family in ("dense", "moe", "vlm"):
         return Model(
             cfg, transformer.decoder_templates(cfg),
@@ -120,7 +113,8 @@ def build_model(cfg: ModelConfig) -> Model:
         )
     if cfg.family == "hybrid":
         return Model(
-            cfg, hybrid.hybrid_templates(cfg), no_loss,
+            cfg, hybrid.hybrid_templates(cfg),
+            functools.partial(hybrid.hybrid_loss, cfg=cfg),
             functools.partial(hybrid.hybrid_prefill, cfg=cfg),
             functools.partial(hybrid.hybrid_decode_step, cfg=cfg),
             hybrid.hybrid_cache_expand,
@@ -131,7 +125,8 @@ def build_model(cfg: ModelConfig) -> Model:
         )
     if cfg.family == "ssm":
         return Model(
-            cfg, xlstm_lm.xlstm_templates(cfg), no_loss,
+            cfg, xlstm_lm.xlstm_templates(cfg),
+            functools.partial(xlstm_lm.xlstm_loss, cfg=cfg),
             functools.partial(xlstm_lm.xlstm_prefill, cfg=cfg),
             functools.partial(xlstm_lm.xlstm_decode_step, cfg=cfg),
             xlstm_lm.xlstm_cache_expand,
@@ -142,7 +137,8 @@ def build_model(cfg: ModelConfig) -> Model:
         )
     if cfg.family == "encdec":
         return Model(
-            cfg, encdec.encdec_templates(cfg), no_loss,
+            cfg, encdec.encdec_templates(cfg),
+            functools.partial(encdec.encdec_loss, cfg=cfg),
             functools.partial(encdec.encdec_prefill, cfg=cfg),
             functools.partial(encdec.encdec_decode_step, cfg=cfg),
             encdec.encdec_cache_expand,

@@ -1,15 +1,19 @@
 """xLSTM blocks: chunkwise-parallel mLSTM (matrix memory) and recurrent
 sLSTM (scalar memory), per arXiv:2405.04517.  The port's counterpart of
-``repro/models/xlstm.py`` (serving only; training comes with the training
-slice).
+``repro/models/xlstm.py``, for training and serving.
 
 The reference has no Pallas kernel here: its path is einsums, a scan over
 chunks and a scan over tokens, all left to XLA.  The port's is the same
 arithmetic in plain PyTorch on every device: a Python loop over the mLSTM
 chunks and a per-token loop for the sLSTM recurrence, in the reference's
-op order.  Every cell runs in fp32; a block's projections run in the
-weights' dtype, and its fp32 leaves (``w_i``, ``w_f``, ``b_i``, ``b_f``,
-``r_w``) stay fp32 at any weight dtype, as in the reference.
+op order.  Under autograd both cells checkpoint as the reference's do
+(``torch.utils.checkpoint``): each mLSTM chunk body, and the sLSTM loop in
+segments of up to ``SEGMENT`` tokens, so the backward makes a chunk's
+(Q, Q) matrices or a segment's per-token carries again instead of holding
+every one.  Neither changes a value.  Every cell runs in fp32; a block's
+projections run in the weights' dtype, and its fp32 leaves (``w_i``,
+``w_f``, ``b_i``, ``b_f``, ``r_w``) stay fp32 at any weight dtype, as in
+the reference.
 
 States: mLSTM ``(C (B, H, dk, dv), n (B, H, dk), m (B, H))``, stored scaled
 by exp(-m), with ``m`` starting at -1e30; sLSTM ``(c, n, h, m)`` each
@@ -21,12 +25,25 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..kernels.ops import records_grad
 from .layers import PT, rmsnorm, silu
 from .mamba2 import _causal_conv
 
 CHUNK = 256       # the reference's mlstm_parallel chunk
+SEGMENT = 64      # the reference's slstm_scan checkpoint segment
 M_INIT = -1e30    # the running max of an empty state
+
+
+def _under_grad(fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` where autograd
+    records it (grad mode on and an input that requires grad: a training
+    call), so the backward runs ``fn`` again for what it needs; serving's
+    calls run it as it is."""
+    if records_grad(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -42,11 +59,14 @@ def _mlstm_chunk(carry, qc, kc, vc, lf, li):
     g = li - f_cum                                     # g_j
     m_tilde = torch.maximum(m_in[..., None], torch.cummax(g, dim=2).values)
     m_total = f_cum + m_tilde                          # recurrent m_t
-    # intra-chunk decay matrix D_ij = exp(g_j - m_tilde_i), j <= i
-    d_mat = torch.exp(g[:, :, None, :] - m_tilde[:, :, :, None])
+    # intra-chunk decay matrix D_ij = exp(g_j - m_tilde_i), j <= i, 0 above
+    # the diagonal.  The exponent is masked before the exp: above the
+    # diagonal it may pass 88 and overflow (the reference takes exp there,
+    # so its gradient is 0 * inf = NaN); D is the same bits
     q_idx = torch.arange(lf.shape[-1], device=lf.device)
     causal = (q_idx[:, None] >= q_idx[None, :])[None, None]
-    d_mat = torch.where(causal, d_mat, 0.0)
+    d_mat = torch.exp(torch.where(
+        causal, g[:, :, None, :] - m_tilde[:, :, :, None], -torch.inf))
     s = torch.einsum("bhid,bhjd->bhij", qc, kc) * d_mat   # masked scores
     inter_w = torch.exp(m_in[..., None] - m_tilde)     # (B,H,Q)
     num = torch.einsum("bhij,bhjv->bhiv", s, vc) \
@@ -81,7 +101,8 @@ def mlstm_init_state(b: int, h: int, dk: int, dv: int, device):
 
 def mlstm_parallel(q, k, v, i_gate, f_gate, *, chunk=CHUNK, state=None):
     """q/k: (B, H, S, dk), v: (B, H, S, dv), i_gate/f_gate: (B, H, S) raw
-    pre-activations.  Returns (y (B, H, S, dv) in v's dtype, state)."""
+    pre-activations.  Returns (y (B, H, S, dv) in v's dtype, state).  Under
+    autograd each chunk body is checkpointed, as the reference's."""
     b, h, s, dk = q.shape
     dv = v.shape[-1]
     chunk = chunk_len(s, chunk)
@@ -94,8 +115,9 @@ def mlstm_parallel(q, k, v, i_gate, f_gate, *, chunk=CHUNK, state=None):
     ys = []
     for lo in range(0, s, chunk):
         sl = slice(lo, lo + chunk)
-        state, y = _mlstm_chunk(state, qf[:, :, sl], kf[:, :, sl],
-                                vf[:, :, sl], lf[..., sl], li[..., sl])
+        state, y = _under_grad(_mlstm_chunk, state, qf[:, :, sl],
+                               kf[:, :, sl], vf[:, :, sl], lf[..., sl],
+                               li[..., sl])
         ys.append(y)
     return torch.cat(ys, dim=2).to(v.dtype), state
 
@@ -142,18 +164,43 @@ def _slstm_step(carry, xt, r_w):
     return c, n, h, m_new
 
 
-def slstm_scan(x_gates, r_w, state):
-    """x_gates: (B, S, H, dh, 4) pre-activations [i, f, z, o] from the input
-    path; r_w: (4, H, dh, dh) per-head recurrent weights; state (c, n, h,
-    m) each (B, H, dh).  One step a token, in the reference's op order
-    (its ``segment`` checkpointing is a training device and changes no
-    forward value).  Returns (hs (B, S, H, dh) fp32, state)."""
-    xs = x_gates.float()
+def _slstm_run(state, xs, r_w):
+    """The recurrence over xs (B, T, H, dh, 4) fp32, one step a token:
+    (hs (B, T, H, dh), state)."""
     hs = []
     for t in range(xs.shape[1]):
         state = _slstm_step(state, xs[:, t], r_w)
         hs.append(state[2])
     return torch.stack(hs, dim=1), state
+
+
+def segment_len(s: int, segment: int = SEGMENT) -> int:
+    """The checkpoint segment of an S-token sLSTM scan, as the reference
+    picks it: the largest divisor of S up to ``segment``; S itself (one
+    segment, no checkpoint) where that is 1 or S is at most ``segment``."""
+    seg = segment
+    while s % seg:
+        seg -= 1
+    return s if seg <= 1 or s <= seg else seg
+
+
+def slstm_scan(x_gates, r_w, state):
+    """x_gates: (B, S, H, dh, 4) pre-activations [i, f, z, o] from the input
+    path; r_w: (4, H, dh, dh) per-head recurrent weights; state (c, n, h,
+    m) each (B, H, dh).  One step a token, in the reference's op order;
+    under autograd each segment of :func:`segment_len` tokens is
+    checkpointed, as the reference's two-level scan.  Returns (hs (B, S,
+    H, dh) fp32, state)."""
+    xs = x_gates.float()
+    s = xs.shape[1]
+    seg = segment_len(s)
+    if seg == s:
+        return _slstm_run(state, xs, r_w)
+    hs = []
+    for lo in range(0, s, seg):
+        h, state = _under_grad(_slstm_run, state, xs[:, lo:lo + seg], r_w)
+        hs.append(h)
+    return torch.cat(hs, dim=1), state
 
 
 def slstm_init_state(b: int, h: int, dh: int, device):

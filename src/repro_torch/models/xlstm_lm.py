@@ -1,10 +1,12 @@
 """xLSTM language model (the ssm family): mLSTM blocks with an sLSTM block
 every ``slstm_every``-th layer, in groups of (k - 1) mLSTM blocks and one
-sLSTM block.  The port's counterpart of ``repro/models/xlstm_lm.py``
-(serving only).
+sLSTM block.  The port's counterpart of ``repro/models/xlstm_lm.py``: the
+training loss and the serving paths.
 
 Python loops over the groups and their layers take the place of the
-reference's nested ``lax.scan``.  The decode state is O(1) a token and
+reference's nested ``lax.scan``.  The loss takes the stacked leaves apart
+once a call (the ``mlstm`` leaves on both of their stacked axes) and, with
+``remat``, checkpoints every block.  The decode state is O(1) a token and
 fully recurrent, kept in a per-slot layout whose batch (slot) axis is 2 for
 the mLSTM leaves, stacked (n_groups, m_per, B, ...), and 1 for the sLSTM
 leaves, (n_groups, B, ...): one slot's state is one index of each leaf, so
@@ -14,14 +16,16 @@ at a time.  Decode updates the leaves in place.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (PT, embed_lookup, embed_templates, rmsnorm,
-                     stack_layers, tree_index)
+                     softmax_xent_chunked, stack_layers, tree_index,
+                     tree_unbind)
 from .slot_state import make_slot_hooks
 from .transformer import _lm_logits
-from .xlstm import (mlstm_block_decode, mlstm_block_templates,
-                    mlstm_block_with_state, slstm_block, slstm_block_decode,
-                    slstm_block_templates)
+from .xlstm import (mlstm_block, mlstm_block_decode,
+                    mlstm_block_templates, mlstm_block_with_state,
+                    slstm_block, slstm_block_decode, slstm_block_templates)
 
 
 def _groups(cfg):
@@ -46,6 +50,58 @@ def xlstm_templates(cfg) -> dict:
         "lm_head": PT((cfg.d_model, cfg.padded_vocab), "scaled"),
     }
 
+
+# ---------------------------------------------------------------------------
+# Training forward + loss.
+# ---------------------------------------------------------------------------
+
+def _m_layer(lp, x, cfg):
+    return mlstm_block(lp, x, cfg.n_heads, norm_eps=cfg.norm_eps)
+
+
+def _s_layer(lp, x, cfg):
+    return slstm_block(lp, x, cfg.n_heads, norm_eps=cfg.norm_eps)
+
+
+def xlstm_backbone(params, x, cfg, *, remat=True):
+    """x (B, S, D) through every group: ``m_per`` mLSTM blocks, then one
+    sLSTM block; the counterpart of the reference's ``xlstm_backbone``.
+    With ``remat`` each block runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint``)."""
+    n_groups, m_per = _groups(cfg)
+
+    def run(layer, lp, h):
+        if remat:
+            return checkpoint(layer, lp, h, cfg, use_reentrant=False)
+        return layer(lp, h, cfg)
+
+    groups = zip(tree_unbind(params["mlstm"], n_groups),
+                 tree_unbind(params["slstm"], n_groups))
+    for mparams, sparams in groups:
+        for lp in tree_unbind(mparams, m_per):
+            x = run(_m_layer, lp, x)
+        x = run(_s_layer, sparams, x)
+    return x
+
+
+def xlstm_loss(params, batch, cfg, *, remat=True, xent_chunk=512):
+    """(mean loss, {"loss", "accuracy"}) of next-token prediction over
+    ``batch["labels"]`` (and ``batch["label_mask"]``, optional): the final
+    RMSNorm and the chunked cross-entropy against the untied ``lm_head``.
+    S must be at most 256 or a multiple of 256 (the mLSTM chunk rule: the
+    cell raises ``ValueError`` otherwise)."""
+    x = embed_lookup(params["embed"], batch["tokens"])
+    x = xlstm_backbone(params, x, cfg, remat=remat)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    loss, acc = softmax_xent_chunked(
+        x, params["lm_head"], batch["labels"], chunk=xent_chunk,
+        label_mask=batch.get("label_mask"), valid_vocab=cfg.vocab_size)
+    return loss, {"loss": loss, "accuracy": acc}
+
+
+# ---------------------------------------------------------------------------
+# Serving.
+# ---------------------------------------------------------------------------
 
 # batch axis of every cache leaf (the serving slot axis); ``pos`` is the
 # implicit per-slot position vector

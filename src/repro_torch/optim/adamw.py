@@ -35,8 +35,15 @@ class AdamW:
                                 device=tree_leaves(params)[0].device),
         }
 
-    def _lr(self, step):
-        return self.lr(step) if callable(self.lr) else self.lr
+    def _next_step(self, state: dict):
+        """Advance ``state["step"]``; (its learning rate, the bias
+        corrections 1 - b1^step and 1 - b2^step in fp32)."""
+        state["step"] += 1
+        step = state["step"].float()
+        lr = self.lr(state["step"]) if callable(self.lr) else self.lr
+        c1 = 1.0 - torch.pow(torch.tensor(self.b1, device=step.device), step)
+        c2 = 1.0 - torch.pow(torch.tensor(self.b2, device=step.device), step)
+        return lr, c1, c2
 
     @torch.no_grad()
     def update(self, grads, state: dict) -> dict:
@@ -44,12 +51,8 @@ class AdamW:
         bias-corrected Adam moments and decoupled weight decay, all in fp32.
         The state's tensors are updated in place (the reference donates
         them) and the state is returned."""
-        state["step"] += 1
-        step = state["step"].float()
-        lr = self._lr(state["step"])
+        lr, c1, c2 = self._next_step(state)
         b1, b2 = self.b1, self.b2
-        c1 = 1.0 - torch.pow(torch.tensor(b1, device=step.device), step)
-        c2 = 1.0 - torch.pow(torch.tensor(b2, device=step.device), step)
 
         def upd(g, m, v, master):
             g = g.float()

@@ -4,7 +4,8 @@ eight digits) holding one ``.npy`` a leaf (``leaf_00000.npy``, ...) and
 ``tree.json`` (the tree's structure, each leaf's file, shape and dtype).
 A bf16 leaf, which numpy cannot hold, is stored as its raw bytes (uint8)
 with the dtype ``raw:bfloat16``, as the reference stores it, so either
-package restores the other's checkpoints.
+package restores the other's checkpoints; every other leaf, the 8-bit
+AdamW's int8 and uint8 moments among them, is numpy's own dtype.
 
 A save first copies every leaf to the host (synchronous), then writes, on
 a background thread if asked: into ``step_<N>.tmp``, renamed to

@@ -1,7 +1,8 @@
 """Training runtime on one device, the port's counterpart of
 ``repro/train/trainer.py``: the train step (gradients through
-``Model.loss``, microbatch accumulation, the global-norm clip, AdamW; K
-steps a call as a loop), the loop with checkpoints and auto-resume, and the
+``Model.loss``, microbatch accumulation, the global-norm clip, AdamW in
+fp32 or 8 bits (``opt: AdamW`` takes its subclass ``AdamW8bit``); K steps
+a call as a loop), the loop with checkpoints and auto-resume, and the
 straggler watchdog.  The reference's mesh and sharding policy are
 distributed's (not ported).
 """

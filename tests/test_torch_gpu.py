@@ -1794,3 +1794,75 @@ def test_trainer_on_the_card_matches_the_cpu(cuda, tmp_path):
                    SyntheticTokens(cfg, 2, 32, seed=0), tc, device=cuda,
                    log=lambda s: None).run()[1]
     assert [r["step"] for r in rows] == [4, 5]
+
+
+# ---------------------------------------------------------------------------
+# Training the hybrid, ssm and encdec families: the SSD kernel under
+# autograd, narrow fp32 copies on the card against the CPU.
+# ---------------------------------------------------------------------------
+
+def _ssd_grads(fn, args, dy):
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    y = fn(*leaves)
+    return y.detach(), torch.autograd.grad(y, leaves, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [1024, 64])
+def test_ssd_autograd_matches_plain(cuda, dtype, s):
+    """``chip_smoke.py``'s phase 12b(a) at zamba2's SSD widths (B 2, H 64,
+    P 64, N 64, G 1, d_skip): y of ``SSDScan`` bit-identical to a bare
+    launch, ``kernels_per_call`` launches on the dtype's route, and the
+    gradients of x, dt, a_log, B, C and d_skip against the all-plain path:
+    fp32 within 1e-5 of scale; bf16 no farther from the fp32 plain
+    gradients than twice the plain bf16 path."""
+    x, dt, a_log, bm, cm, d_skip, _ = _ssd_case(41, 2, s, 64, 64, 1, 64,
+                                                dtype, cuda)
+    args = (x, dt, a_log, bm, cm, d_skip)
+    dy = torch.randn(x.shape, generator=torch.Generator(
+        device=cuda).manual_seed(42), device=cuda).to(dtype)
+    bare, _ = ss.ssd_cuda(*args[:5], d_skip=d_skip)
+    rt, k = ss.route(dtype), ss.kernels_per_call(s, dtype)
+    n0 = ss.ROUTES[rt]
+    y, got = _ssd_grads(lambda *a: ss.SSDScan.apply(*a, None)[0], args, dy)
+    assert ss.ROUTES[rt] == n0 + k
+    assert torch.equal(y, bare)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+
+    def plain(*a):
+        return ss.ssd_plain(*a[:5], d_skip=a[5])[0]
+    _, want = _ssd_grads(plain, args, dy)
+    if dtype == torch.float32:
+        assert _grad_dist(got, want) <= 1e-5
+        return
+    _, want32 = _ssd_grads(plain, [a.float() for a in args], dy.float())
+    assert _grad_dist(got, want32) <= 2 * _grad_dist(want, want32)
+
+
+@pytest.mark.parametrize("arch,cut,b,s", [
+    ("zamba2-1.2b", dict(n_layers=7), 1, 256),
+    ("xlstm-350m", dict(n_layers=6), 1, 256),
+    ("whisper-base", dict(n_layers=2, n_enc_layers=2), 2, 256)])
+def test_family_loss_on_card_matches_cpu(cuda, arch, cut, b, s):
+    """``chip_smoke.py``'s phase 12b(b): a narrow fp32 copy at full width
+    (TF32 off), its loss and every gradient leaf with remat on the card
+    within 1e-4 of each leaf's scale of the CPU port's."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.tree import tree_leaves, tree_map
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    model = build_model(cfg)
+    params = model.init(3, device="cpu", dtype=torch.float32)
+    batch = SyntheticTokens(cfg, b, s, seed=1)(0)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda x: x.detach().to(dev).requires_grad_(), params)
+        loss, _ = model.loss(p, to_device(batch, dev), remat=True)
+        loss.backward()
+        out[str(dev)] = (float(loss), [x.grad.cpu() for x in tree_leaves(p)])
+    (lc, gc_), (ld, gd) = out["cpu"], out[str(cuda)]
+    assert abs(ld - lc) <= 1e-4 * abs(lc)
+    for a, w in zip(gd, gc_):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())

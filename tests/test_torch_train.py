@@ -17,7 +17,10 @@
 * the ``Trainer``: the loss falls, resume counts its steps, 4 + resume
   equals 6 straight bit for bit, the watchdog, and its first losses against
   the reference's ``Trainer`` on a 1x1 mesh from the same fp32 weights;
-* ``launch/train.py`` on the CPU, and the flags it refuses.
+* ``launch/train.py`` on the CPU, and the distributed flags it refuses.
+
+The hybrid, ssm and encdec losses, ``SSDScan`` and the 8-bit AdamW are
+held in ``test_torch_train_families.py``.
 
 Weights are the reference's own ``Model.init`` carried over by the bridge;
 inputs are made from a seed with numpy and handed to both sides.
@@ -306,14 +309,6 @@ def test_decoder_loss_matches_reference(arch):
         np.testing.assert_allclose(float(loss16), float(rl), rtol=2e-2)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m",
-                                  "whisper-base"])
-def test_unported_losses_raise(arch):
-    model = build_model(smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1"):
-        model.loss({}, {})
-
-
 # ---------------------------------------------------------------------------
 # The Trainer.
 # ---------------------------------------------------------------------------
@@ -445,11 +440,7 @@ def test_launch_train_on_the_cpu(tmp_path, capsys):
     assert (tmp_path / "step_00000003" / "tree.json").exists()
 
 
-@pytest.mark.parametrize("flags", [["--opt", "adamw8bit"],
-                                   ["--mesh", "2x1"], ["--fsdp"], ["--sp"],
-                                   ["--arch", "zamba2-1.2b"],
-                                   ["--arch", "xlstm-350m"],
-                                   ["--arch", "whisper-base"]])
+@pytest.mark.parametrize("flags", [["--mesh", "2x1"], ["--fsdp"], ["--sp"]])
 def test_launch_train_refuses(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP section 1"):
         launch_train.main(["--smoke", "--steps", "1", "--device", "cpu",
